@@ -1,0 +1,191 @@
+"""Weights for the port: seeded init, the JAX package's parameter pytrees
+and its `.npz` checkpoints (↔ neighborretr_tpu/models/weights_io.py and
+core/checkpoint.py), all with numpy and torch only.
+
+The JAX layouts map onto the reference's torch state-dict names the port's
+modules carry: stacked layer axes unstack into `resblocks.{i}`, the
+[D, 3, D] in_proj becomes torch's [3D, D] `in_proj_weight`, input-major
+linears transpose, and the flattened [P·P·3, width] patch embedding
+becomes the [width, 3, P, P] `conv1.weight`.
+"""
+
+from __future__ import annotations
+
+import zlib
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from neighborretr_tpu.core.config import ModelConfig
+
+from .neighborretr import NeighborRetr, seed_temporal_from_clip
+
+Tree = Dict[str, Any]
+_SEP = "//"   # the JAX package's flat npz key separator
+
+
+def _block_sd(blocks: Tree, i: int, prefix: str, out: Dict[str, np.ndarray]):
+    def leaf(*path):
+        a = blocks
+        for k in path:
+            a = a[k]
+        return np.asarray(a[i], np.float32)
+
+    in_w = leaf("attn", "in_proj", "w")
+    d = in_w.shape[0]
+    out[f"{prefix}.ln_1.weight"] = leaf("ln_1", "scale")
+    out[f"{prefix}.ln_1.bias"] = leaf("ln_1", "bias")
+    out[f"{prefix}.attn.in_proj_weight"] = in_w.reshape(d, 3 * d).T
+    out[f"{prefix}.attn.in_proj_bias"] = leaf("attn", "in_proj", "b").reshape(-1)
+    out[f"{prefix}.attn.out_proj.weight"] = leaf("attn", "out_proj", "w").T
+    out[f"{prefix}.attn.out_proj.bias"] = leaf("attn", "out_proj", "b")
+    out[f"{prefix}.ln_2.weight"] = leaf("ln_2", "scale")
+    out[f"{prefix}.ln_2.bias"] = leaf("ln_2", "bias")
+    for name in ("c_fc", "c_proj"):
+        out[f"{prefix}.mlp.{name}.weight"] = leaf("mlp", name, "w").T
+        out[f"{prefix}.mlp.{name}.bias"] = leaf("mlp", name, "b")
+
+
+def _blocks_sd(blocks: Tree, n: int, prefix: str, out):
+    for i in range(n):
+        _block_sd(blocks, i, f"{prefix}.{i}", out)
+
+
+def state_dict_from_jax_params(params: Tree,
+                               cfg: ModelConfig) -> Dict[str, np.ndarray]:
+    """The JAX package's parameter pytree (numpy leaves) → the port's state
+    dict, under the reference's names."""
+    def f32(a):
+        return np.asarray(a, np.float32)
+
+    sd: Dict[str, np.ndarray] = {}
+    c = cfg.clip
+    vis, txt = params["clip"]["visual"], params["clip"]["text"]
+    P, width = c.vision_patch_size, c.vision_width
+    sd["clip.visual.conv1.weight"] = f32(vis["patch_embed"]).reshape(
+        P, P, 3, width).transpose(3, 2, 0, 1)
+    sd["clip.visual.class_embedding"] = f32(vis["class_embedding"])
+    sd["clip.visual.positional_embedding"] = f32(vis["positional_embedding"])
+    sd["clip.visual.ln_pre.weight"] = f32(vis["ln_pre"]["scale"])
+    sd["clip.visual.ln_pre.bias"] = f32(vis["ln_pre"]["bias"])
+    _blocks_sd(vis["transformer"], c.vision_layers,
+               "clip.visual.transformer.resblocks", sd)
+    sd["clip.visual.ln_post.weight"] = f32(vis["ln_post"]["scale"])
+    sd["clip.visual.ln_post.bias"] = f32(vis["ln_post"]["bias"])
+    sd["clip.visual.proj"] = f32(vis["proj"])
+
+    sd["clip.token_embedding.weight"] = f32(txt["token_embedding"])
+    sd["clip.positional_embedding"] = f32(txt["positional_embedding"])
+    _blocks_sd(txt["transformer"], c.transformer_layers,
+               "clip.transformer.resblocks", sd)
+    sd["clip.ln_final.weight"] = f32(txt["ln_final"]["scale"])
+    sd["clip.ln_final.bias"] = f32(txt["ln_final"]["bias"])
+    sd["clip.text_projection"] = f32(txt["text_projection"])
+    sd["clip.logit_scale"] = f32(params["clip"]["logit_scale"]).reshape(())
+
+    tmp = params["temporal"]
+    sd["frame_position_embeddings.weight"] = f32(
+        tmp["frame_position_embeddings"])
+    _blocks_sd(tmp["transformer"], cfg.temporal_layers,
+               "transformerClip.resblocks", sd)
+    for name in ("text_weight_fc", "video_weight_fc"):
+        p = params[name]
+        sd[f"{name}.0.weight"] = f32(p["fc1"]["w"]).T
+        sd[f"{name}.0.bias"] = f32(p["fc1"]["b"])
+        sd[f"{name}.2.weight"] = f32(p["fc2"]["w"]).T
+        sd[f"{name}.2.bias"] = f32(p["fc2"]["b"])
+    return sd
+
+
+def from_jax_params(params: Tree, cfg: ModelConfig,
+                    device=None) -> NeighborRetr:
+    """A port model holding the JAX package's weights (numpy pytree, e.g.
+    `jax.device_get(init_params(...))`)."""
+    model = NeighborRetr(cfg, device=device)
+    sd = state_dict_from_jax_params(params, cfg)
+    model.load_state_dict({k: torch.tensor(v) for k, v in sd.items()},
+                          strict=True)
+    return model.eval().requires_grad_(False)
+
+
+def read_npz_params(path: str) -> Tree:
+    """The JAX package's `.npz` checkpoint → nested numpy pytree.  Takes the
+    params-only layout (`clip//text//...`, best.npz) and the full
+    train-state layout (`params//clip//...` beside `opt_step`)."""
+    with np.load(path, allow_pickle=False) as data:
+        flat = {k: data[k] for k in data.files}
+    prefix = f"params{_SEP}"
+    if "opt_step" in flat and any(k.startswith(prefix) for k in flat):
+        flat = {k[len(prefix):]: v for k, v in flat.items()
+                if k.startswith(prefix)}
+    tree: Tree = {}
+    for key, value in flat.items():
+        node = tree
+        *parents, last = key.split(_SEP)
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[last] = value
+    return tree
+
+
+def load_checkpoint(path: str, cfg: ModelConfig, device=None) -> NeighborRetr:
+    return from_jax_params(read_npz_params(path), cfg, device=device)
+
+
+@torch.no_grad()
+def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> NeighborRetr:
+    """Seeded random weights with the JAX package's init distributions
+    (init_params): CLIP scales for the towers, normal(0.02) weight nets,
+    logit_scale 1.0, the temporal tower seeded from the text tower.  The
+    numbers differ from JAX's for the same seed (another generator).
+
+    Each tensor draws from its own generator, seeded from `seed` and the
+    tensor's name — like the JAX package's per-subtree key splits, one
+    tensor's shape (e.g. the vocabulary size) changes no other tensor."""
+    model = NeighborRetr(cfg, device=device)
+    names = {id(p): n for n, p in model.named_parameters()}
+
+    def normal_(t, std):
+        g = torch.Generator(device=t.device).manual_seed(
+            seed * 1_000_003 + zlib.crc32(names[id(t)].encode()))
+        t.copy_(torch.randn(t.shape, generator=g, device=t.device) * std)
+
+    def init_transformer(tf, width, layers):
+        proj_std = width ** -0.5 * (2 * layers) ** -0.5
+        for blk in tf.resblocks:
+            for ln in (blk.ln_1, blk.ln_2):
+                ln.weight.fill_(1.0)
+                ln.bias.zero_()
+            normal_(blk.attn.in_proj_weight, width ** -0.5)
+            blk.attn.in_proj_bias.zero_()
+            normal_(blk.attn.out_proj.weight, proj_std)
+            blk.attn.out_proj.bias.zero_()
+            normal_(blk.mlp.c_fc.weight, (2 * width) ** -0.5)
+            blk.mlp.c_fc.bias.zero_()
+            normal_(blk.mlp.c_proj.weight, proj_std)
+            blk.mlp.c_proj.bias.zero_()
+
+    c, clip = cfg.clip, model.clip
+    vis = clip.visual
+    scale = c.vision_width ** -0.5
+    normal_(vis.conv1.weight, scale)
+    normal_(vis.class_embedding, scale)
+    normal_(vis.positional_embedding, scale)
+    normal_(vis.proj, scale)
+    init_transformer(vis.transformer, c.vision_width, c.vision_layers)
+    normal_(clip.token_embedding.weight, 0.02)
+    normal_(clip.positional_embedding, 0.01)
+    init_transformer(clip.transformer, c.transformer_width,
+                     c.transformer_layers)
+    normal_(clip.text_projection, c.transformer_width ** -0.5)
+    for ln in (vis.ln_pre, vis.ln_post, clip.ln_final):
+        ln.weight.fill_(1.0)
+        ln.bias.zero_()
+    clip.logit_scale.fill_(1.0)
+    for mlp in (model.text_weight_fc, model.video_weight_fc):
+        for lin in (mlp[0], mlp[2]):
+            normal_(lin.weight, 0.02)
+            lin.bias.zero_()
+    seed_temporal_from_clip(model)
+    return model.eval().requires_grad_(False)

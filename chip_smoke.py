@@ -1,29 +1,51 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's two main paths once on one NVIDIA GPU:
+serving (index → search) and training (bank fill → optimizer steps).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. device  — requires CUDA; prints the card's name and power limit;
-  2. build   — builds both hand-written kernels from csrc/ with nvcc;
+  2. build   — builds the hand-written kernels from csrc/ with nvcc, one
+               process per source, all started together;
   3. K1      — the fused LN-attention sublayer against its plain version on
-               the card at the three main-path shapes (vision, text, temporal);
+               the card at the serving path's and the train step's shapes
+               (vision, text, temporal);
   4. K2      — the similarity kernel against its plain version at
                Q=64, T=24, N=10,000, V=12, D=512;
-  5. serving — indexes a 128-video synthetic corpus with the full-width
-               ViT-B/32 model (seeded random weights, bf16) and answers
-               three requests of 1, 8 and 64 queries through a Searcher;
-               checks the kernels' launch counts in that run, that all
-               scores are finite, and that they match a run of the plain
-               versions on the card.
-The line before the last is a JSON object with each kernel's launches,
-error and times; the last line is the device record.
+  5. serving — indexes a 64-video synthetic corpus (one index batch) with
+               the full-width ViT-B/32 model (seeded random weights, bf16)
+               and answers three requests of 1, 8 and 64 queries through a
+               Searcher; checks the kernels' launch counts in that run,
+               that all scores are finite, and that they match a run of the
+               plain versions on the card;
+  6. K3      — the sublayer's backward kernel against its plain backward at
+               the train step's three shapes, every output, run twice to
+               show bit-equal results;
+  7. K4, K5  — the bank-centrality mean and the similarity backward against
+               their plain versions at the train step's two shapes,
+               (128, 24, 1920, 12, 512) over axis 1 and (1920, 24, 128, 12,
+               512) over axis 0, with ragged masks; K5 run twice;
+  8. train   — full-width model, batch 128, memory bank 15 x 128 = 1920:
+               bank fill, then 3 optimizer steps on distinct batches through
+               the kernels; checks launch counts, finite losses, that
+               parameters moved and the frozen patch embedding did not, and
+               the bank's fresh rows; then the same from the same state
+               through the plain versions on the card, given the kernel
+               run's cluster ids and neighbour masks: losses, gradient
+               norms and parameter updates compared.  --profile adds one
+               profiled step (device time by kernel).
+The line before the last is a JSON object with, for each kernel, its
+launches on each main path (all five counts are set to 0 before each path
+and read after it), error, times and roofline bound; the last line is the
+device record.
 
 Imports only torch, numpy and the port (no JAX).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -47,6 +69,48 @@ K2_TOL = (2e-5, 1e-4)
 # where a one-ulp flip in one layer carries into the next; scores are
 # O(0.1) cosine-like sums (observed max 6.4e-4 on an H100)
 SERVE_TOL = (5e-3, 0.0)
+# K3's fp32 sums over all rows (weight and bias gradients): a bf16 operand
+# that flips by one ulp, where differently ordered fp32 sums straddle a
+# rounding boundary, moves single terms by 2^-8 of their size; the bound is
+# relative to the tensor's largest entry, not elementwise
+K3_SUM_TOL = 2 ** -7
+# kernel train run vs plain train run on the card.  The plain run is given
+# the kernel run's discrete decisions (DPC-KNN cluster ids, the neighbor
+# loss's top-k masks): they are taken on bf16 features, a one-ulp difference
+# flips some of them, and a run with other cluster ids is another function
+# of the weights, not a noisier copy of the same one (at step 2 of this very
+# run 44 text-token assignments in 10 captions move the gradient norm by 5%;
+# with them replayed it agrees to 0.2%: scripts/torch_step_gap.py).  Loss
+# terms: bf16 towers of 12 + 4 layers whose one-ulp flips carry into the
+# features (observed at most 1.4e-3 on an H100).  Gradient norm: steps 1
+# and 2 are taken at bit-identical weights (the schedule's first update is
+# zero; observed at most 2.1e-3); step 3 comes after one update, so the
+# two runs' weights differ there (by the update distances held below), and
+# torch's float-atomic scatter-adds make a run differ from its own repeat
+# by 0.4% of the gradient (same script): observed 1.4e-3, 7.7e-3 and 8.5e-3
+# in three runs of this script.
+# Parameter updates: Adam divides by sqrt(v), so where a gradient entry is
+# near zero its noise is as large as the update; they are held as a
+# relative L2 distance over the whole tensor (observed at most 0.068)
+TRAIN_LOSS_RTOL = 1e-2
+TRAIN_GRAD_NORM_RTOL = (1e-2, 3e-2)      # steps 1-2, step 3
+TRAIN_UPDATE_REL_L2 = 0.15
+
+# NVIDIA's data sheet for the H100 SXM: dense bf16 tensor-core rate, fp32
+# rate outside the tensor cores, device memory rate
+PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+
+
+def bound(flops: float, peak: float, nbytes: float):
+    """(ms, which): the least time the card could take — the larger of the
+    operations over their peak rate and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def time_ms(fn, reps: int) -> float:
@@ -89,20 +153,46 @@ def phase_device():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
     print(f"  torch {torch.__version__} cuda {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    return card
+
+
+LIBS = ("interaction_similarity", "ln_attention_residual",
+        "ln_attention_residual_bwd")
+
+
+def kernel_wrappers():
+    """The five wrappers by kernel; each counts its launches in `.launches`."""
+    from neighborretr_tpu_torch.ops import block_attention as BA
+    from neighborretr_tpu_torch.ops import similarity as S
+    return {"K1": BA.ln_attention_residual,
+            "K2": S.fused_interaction_similarity,
+            "K3": BA.ln_attention_residual_bwd,
+            "K4": S.fused_interaction_mean, "K5": S.fused_similarity_bwd}
+
+
+def counted(fn):
+    """Sets every kernel's count to 0, runs `fn`, reads the counts straight
+    after → (fn's result, launches by kernel)."""
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    return out, {name: w.launches for name, w in wrappers.items()}
 
 
 def phase_build():
     print("== phase 2: build")
     from neighborretr_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    _build.load("interaction_similarity", "ln_attention_residual")
+    _build.load(*LIBS)
     print(f"  built in {time.perf_counter() - t0:.2f} s into {_build.build_dir()}")
-    for name in ("interaction_similarity", "ln_attention_residual"):
+    for name in LIBS:
         log = _build.compiler_log(name)
         regs = [int(w.split()[0]) for w in log.split("Used ")[1:]]
         spills = sum("spill" in ln and "0 bytes spill stores, 0 bytes spill"
@@ -140,9 +230,14 @@ def phase_k1(g):
     print("== phase 3: K1 ln_attention_residual vs its plain version")
     from neighborretr_tpu_torch.ops.block_attention import (
         ln_attention_residual, ln_attention_residual_plain)
+    # the serving run's shapes (a 64-video index batch, 64 queries), then
+    # one train step's at batch 128
     shapes = [("vision", 768, 50, 768, 12, None),
               ("text", 64, 24, 512, 8, "causal"),
-              ("temporal", 64, 12, 512, 8, "keypad")]
+              ("temporal", 64, 12, 512, 8, "keypad"),
+              ("vision train", 1536, 50, 768, 12, None),
+              ("text train", 128, 24, 512, 8, "causal"),
+              ("temporal train", 128, 12, 512, 8, "keypad")]
     rows = {}
     for name, N, L, D, H, kind in shapes:
         args, bias = _attn_inputs(g, N, L, D, kind)
@@ -153,8 +248,12 @@ def phase_k1(g):
         ms = time_ms(lambda: ln_attention_residual(*args, H, bias), 20)
         plain_ms = time_ms(lambda: ln_attention_residual_plain(*args, H, bias),
                            10)
-        print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        rows[name] = (err, ms, plain_ms)
+        M = N * L
+        b_ms, b_by = bound(8 * M * D * D + 4 * N * L * L * D, PEAK_BF16,
+                           nbytes(*args, bias, got))
+        print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})")
+        rows[name] = (err, ms, plain_ms, b_ms, b_by)
     return rows
 
 
@@ -181,24 +280,23 @@ def phase_k2(g):
     err = compare(f"Q={Q} T={T} N={N} V={V} D={D}", got, want, K2_TOL)
     ms = time_ms(lambda: fused_interaction_similarity(*args), 10)
     plain_ms = time_ms(lambda: interaction_similarity(*args), 5)
-    print(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return err, ms, plain_ms
+    b_ms, b_by = bound(2 * Q * T * N * V * D, PEAK_FP32, nbytes(*args, got))
+    print(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by})")
+    return err, ms, plain_ms, b_ms, b_by
 
 
 def phase_serving():
     print("== phase 5: serving run (ViT-B/32 width, bf16, random weights)")
-    from neighborretr_tpu.core.config import Config, ModelConfig
-    from neighborretr_tpu.data.datasets.synthetic import SyntheticDataset
-    from neighborretr_tpu.data.loader import BatchLoader
-    from neighborretr_tpu.data.tokenizer import ClipTokenizer
+    from neighborretr_tpu_torch.core.config import Config, ModelConfig
+    from neighborretr_tpu_torch.data.datasets.synthetic import \
+        SyntheticDataset
+    from neighborretr_tpu_torch.data.loader import BatchLoader
+    from neighborretr_tpu_torch.data.tokenizer import ClipTokenizer
     from neighborretr_tpu_torch import serving
     from neighborretr_tpu_torch.eval import (encode_video_batch,
                                              similarity_matrix_device)
     from neighborretr_tpu_torch.models.weights_io import init_model
-    from neighborretr_tpu_torch.ops.block_attention import \
-        ln_attention_residual
-    from neighborretr_tpu_torch.ops.similarity import \
-        fused_interaction_similarity
 
     cfg = Config(model=ModelConfig())
     m = cfg.model
@@ -208,7 +306,7 @@ def phase_serving():
           f"{m.temporal_layers} temporal, {m.max_frames} frames, "
           f"{m.max_words} words, {m.compute_dtype}")
     model = init_model(m, seed=0, device="cuda")
-    n_videos, batch = 128, 64
+    n_videos, batch = 64, 64
     ds = SyntheticDataset(n=n_videos, seed=2, max_words=m.max_words,
                           max_frames=m.max_frames,
                           resolution=m.clip.image_resolution,
@@ -239,28 +337,31 @@ def phase_serving():
         serving.masked_topk(sim, 8, sim.shape[1])
     torch.cuda.synchronize()
 
-    ln_attention_residual.launches = 0
-    fused_interaction_similarity.launches = 0
-    t0 = time.perf_counter()
-    index = serving.build_video_index(model, cfg, loader(), dataset=ds)
-    torch.cuda.synchronize()
-    t_index = time.perf_counter() - t0
-    searcher = serving.Searcher(model, cfg, index, tok)
-    hits, latencies = [], []
-    for queries in requests:
+    def serve():
         t0 = time.perf_counter()
-        hits.append(searcher.search(queries, topk=5))
+        index = serving.build_video_index(model, cfg, loader(), dataset=ds)
         torch.cuda.synchronize()
-        latencies.append(time.perf_counter() - t0)
-    k1 = ln_attention_residual.launches
-    k2 = fused_interaction_similarity.launches
+        t_index = time.perf_counter() - t0
+        searcher = serving.Searcher(model, cfg, index, tok)
+        hits, latencies = [], []
+        for queries in requests:
+            t0 = time.perf_counter()
+            hits.append(searcher.search(queries, topk=5))
+            torch.cuda.synchronize()
+            latencies.append(time.perf_counter() - t0)
+        return index, t_index, searcher, hits, latencies
+
+    (index, t_index, searcher, hits, latencies), counts = counted(serve)
 
     n_batches = -(-n_videos // batch)
-    want_k1 = (n_batches * (m.clip.vision_layers + m.temporal_layers)
-               + len(requests) * m.clip.transformer_layers)
-    print(f"  launches in the serving run: K1 {k1} (expected {want_k1}), "
-          f"K2 {k2} (expected {len(requests)})")
-    if k1 != want_k1 or k2 != len(requests):
+    want = {"K1": (n_batches * (m.clip.vision_layers + m.temporal_layers)
+                   + len(requests) * m.clip.transformer_layers),
+            "K2": len(requests), "K3": 0, "K4": 0, "K5": 0}
+    print(f"  launches in the serving run: {counts} (expected {want}: per "
+          f"index batch K1 = {m.clip.vision_layers + m.temporal_layers}, per "
+          f"request K1 = {m.clip.transformer_layers} and K2 = 1; no backward "
+          "and no bank mean)")
+    if counts != want:
         raise SystemExit("launch counts do not match the serving path")
     print(f"  index: {len(index['video_ids'])} videos in {t_index:.4f} s = "
           f"{len(index['video_ids']) / t_index:.2f} videos/s "
@@ -286,32 +387,392 @@ def phase_serving():
             raise SystemExit(f"similarities shape {tuple(got.shape)}")
         err = max(err, compare(f"[{len(queries)}, {n_videos}] scores vs plain run",
                                got, want, SERVE_TOL))
-    return k1, k2, err
+    return counts, err
+
+
+def phase_k3(g):
+    print("== phase 6: K3 ln_attention_residual_bwd vs its plain backward")
+    from neighborretr_tpu_torch.ops.block_attention import (
+        ln_attention_residual_bwd, ln_attention_residual_bwd_plain)
+    # one train step's shapes at batch 128: 1536 frames, 128 captions/videos
+    shapes = [("vision", 1536, 50, 768, 12, None),
+              ("text", 128, 24, 512, 8, "causal"),
+              ("temporal", 128, 12, 512, 8, "keypad")]
+    names = ("dln_w", "dln_b", "dw_qkv", "db_qkv", "dw_out", "db_out")
+    rows = {}
+    for name, N, L, D, H, kind in shapes:
+        args, bias = _attn_inputs(g, N, L, D, kind)
+        dy = torch.randn(N, L, D, generator=g, device="cuda").bfloat16()
+        got = ln_attention_residual_bwd(*args, H, dy, bias)
+        torch.cuda.synchronize()
+        want = ln_attention_residual_bwd_plain(*args, H, dy, bias)
+        tag = f"{name} N={N} L={L} D={D} H={H}"
+        err = compare(f"{tag} dx", got[0], want[0], K1_TOL)
+        for out_name, a, b in zip(names, got[1:], want[1:]):
+            scale = b.abs().max().item()
+            e = (a - b).abs().max().item()
+            ok = bool(torch.isfinite(a).all()) and e <= K3_SUM_TOL * scale
+            print(f"  {tag} {out_name}: max_abs_err {e:.6g} against max "
+                  f"|plain| {scale:.6g} (tolerance {K3_SUM_TOL:g}·max|plain|)"
+                  f" {'ok' if ok else 'FAILED'}")
+            if not ok:
+                raise SystemExit(f"K3 {out_name} disagrees with its plain "
+                                 "version")
+            err = max(err, e)
+        again = ln_attention_residual_bwd(*args, H, dy, bias)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise SystemExit("K3: two runs differ in their bits")
+        print(f"  {tag}: two runs bit-equal in all 7 outputs")
+        ms = time_ms(lambda: ln_attention_residual_bwd(*args, H, dy, bias), 10)
+        plain_ms = time_ms(
+            lambda: ln_attention_residual_bwd_plain(*args, H, dy, bias), 3)
+        M = N * L
+        b_ms, b_by = bound(22 * M * D * D + 12 * N * L * L * D, PEAK_BF16,
+                           nbytes(*args, bias, dy, *got))
+        print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})")
+        rows[name] = (err, ms, plain_ms, b_ms, b_by)
+    return rows
+
+
+def phase_k4_k5(g):
+    print("== phase 7: K4 interaction_mean, K5 interaction_similarity_bwd vs "
+          "their plain versions")
+    from neighborretr_tpu_torch.ops import similarity as S
+    dev = "cuda"
+    k4, k5 = {}, {}
+    for A, T, B, V, D, axis in ((128, 24, 1920, 12, 512, 1),
+                                (1920, 24, 128, 12, 512, 0)):
+        tf = torch.randn(A, T, D, generator=g, device=dev)
+        vf = torch.randn(B, V, D, generator=g, device=dev)
+        tlen = torch.randint(4, T + 1, (A,), generator=g, device=dev)
+        vlen = torch.randint(1, V + 1, (B,), generator=g, device=dev)
+        tm = (torch.arange(T, device=dev)[None] < tlen[:, None]).float()
+        vm = (torch.arange(V, device=dev)[None] < vlen[:, None]).float()
+        tw = torch.softmax(torch.randn(A, T, generator=g, device=dev)
+                           .masked_fill(tm == 0, -9e15), -1)
+        vw = torch.softmax(torch.randn(B, V, generator=g, device=dev)
+                           .masked_fill(vm == 0, -9e15), -1)
+        args = (tf, vf, tm, vm, tw, vw)
+        tag = f"A={A} T={T} B={B} V={V} D={D} axis={axis}"
+        flops = 2 * A * T * B * V * D
+
+        got = S.fused_interaction_mean(*args, axis=axis)
+        torch.cuda.synchronize()
+        err = compare(f"K4 {tag}", got, S.interaction_mean(*args, axis=axis),
+                      K2_TOL)
+        ms = time_ms(lambda: S.fused_interaction_mean(*args, axis=axis), 10)
+        plain_ms = time_ms(lambda: S.interaction_mean(*args, axis=axis), 5)
+        b_ms, b_by = bound(flops, PEAK_FP32, nbytes(*args, got))
+        print(f"  K4 axis={axis}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
+              f" bound {b_ms:.4f} ms ({b_by})")
+        k4[axis] = (err, ms, plain_ms, b_ms, b_by)
+
+        # the cotangent the train step hands down: a mean's, spread over
+        # the reduced axis
+        n_red = B if axis == 1 else A
+        cot = torch.randn(A if axis == 1 else B, generator=g, device=dev)
+        gmat = ((cot / n_red)[:, None] if axis == 1
+                else (cot / n_red)[None, :]).expand(A, B).contiguous()
+        prep = S._prepare(*args, True)
+        out = S.fused_similarity_bwd(*prep, gmat)
+        torch.cuda.synchronize()
+        want = S.similarity_bwd_plain(*prep, gmat)
+        err = max(compare(f"K5 {tag} {n}", a, b, K2_TOL)
+                  for n, a, b in zip(("dtn", "dvn", "dtw", "dvw"), out, want))
+        again = S.fused_similarity_bwd(*prep, gmat)
+        if not all(torch.equal(a, b) for a, b in zip(out, again)):
+            raise SystemExit("K5: two runs differ in their bits")
+        print(f"  K5 {tag}: two runs bit-equal in all 4 outputs")
+        ms = time_ms(lambda: S.fused_similarity_bwd(*prep, gmat), 10)
+        plain_ms = time_ms(lambda: S.similarity_bwd_plain(*prep, gmat), 3)
+        # logits once, then (T + V) routed rows per pair on each side
+        b_ms, b_by = bound(flops + 4 * A * B * (T + V) * D, PEAK_FP32,
+                           nbytes(*prep, gmat, *out))
+        print(f"  K5 axis={axis}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
+              f" bound {b_ms:.4f} ms ({b_by})")
+        k5[axis] = (err, ms, plain_ms, b_ms, b_by)
+    return k4, k5
+
+
+# parameters whose updates the kernel run and the plain run are compared on:
+# one of each kind the backward kernels feed (attention weights of all three
+# towers, an MLP behind them, embeddings, the similarity's weight nets, the
+# merge stacks).  Left out: tensors whose entries are near 1 in the CLIP
+# branch (LayerNorm scales, the logit scale), where one step at that
+# branch's learning rate of 1e-7 is below half an fp32 ulp
+TRAIN_COMPARED = (
+    "clip.visual.transformer.resblocks.0.attn.in_proj_weight",
+    "clip.visual.transformer.resblocks.11.attn.out_proj.weight",
+    "clip.visual.transformer.resblocks.5.mlp.c_fc.weight",
+    "clip.visual.class_embedding",
+    "clip.transformer.resblocks.0.attn.in_proj_weight",
+    "clip.transformer.resblocks.11.mlp.c_proj.weight",
+    "clip.text_projection",
+    "transformerClip.resblocks.0.attn.in_proj_weight",
+    "transformerClip.resblocks.3.attn.out_proj.bias",
+    "frame_position_embeddings.weight",
+    "text_weight_fc.0.weight", "video_weight_fc.2.weight",
+    "text_ctm0.score.weight", "video_block0.attn.kv.weight")
+LOSS_TERMS = ("loss", "centrality_loss", "uniform_loss", "neighbor_loss",
+              "kl_loss")
+
+
+@contextlib.contextmanager
+def decisions(log: list, replay=None):
+    """Records every discrete decision of one forward into `log` (the four
+    DPC-KNN cluster assignments, then the neighbor loss's two top-k masks),
+    or hands back the ones in `replay` instead of taking them (a None there
+    is taken anew)."""
+    from neighborretr_tpu_torch.losses import hubness
+    from neighborretr_tpu_torch.models import ctm
+    real_cluster, real_masks = ctm.cluster_dpc_knn, hubness.neighbor_masks
+    feed = iter(replay) if replay is not None else None
+
+    def replayed(real):
+        def fn(*args, **kwargs):
+            out = next(feed) if feed is not None else None
+            if out is None:                 # nothing to replay: decide here
+                out = real(*args, **kwargs)
+            log.append(out)
+            return out
+        return fn
+
+    ctm.cluster_dpc_knn = replayed(real_cluster)
+    hubness.neighbor_masks = replayed(real_masks)
+    try:
+        yield
+    finally:
+        ctm.cluster_dpc_knn, hubness.neighbor_masks = real_cluster, real_masks
+
+
+def phase_train(profile: bool, card: str):
+    print("== phase 8: train run (ViT-B/32 width, bf16, batch 128, bank 1920)")
+    from neighborretr_tpu_torch.core.config import Config
+    from neighborretr_tpu_torch.data.datasets.synthetic import \
+        make_synthetic_batch
+    from neighborretr_tpu_torch.models.weights_io import init_model
+    from neighborretr_tpu_torch.train import memory_bank as MB
+    from neighborretr_tpu_torch.train import step as TS
+
+    cfg = Config()      # the reference's MSR-VTT recipe: batch 128, 15 x 128
+    m, B = cfg.model, cfg.train.batch_size
+    n_fill, n_steps, t_total = cfg.train.mb_batch, 3, 30
+    cap = cfg.train.memory_bank_capacity
+    layers = (m.clip.vision_layers + m.clip.transformer_layers
+              + m.temporal_layers)
+    print(f"  batch {B}, bank {n_fill} x {B} = {cap}, {layers} attention "
+          f"sublayers per pass, sim_dtype {m.sim_dtype}, remat {m.remat}")
+    model = init_model(m, seed=0, device="cuda")
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+
+    t0 = time.perf_counter()
+    host = []
+    for seed in range(7):       # 4 distinct fill batches, 3 step batches
+        b = make_synthetic_batch(m, B, seed=seed)
+        b["idx"] = b["idx"] + B * seed
+        host.append(TS.to_device(b, "cuda"))
+    fill, steps = host[:4], host[4:]
+    print(f"  7 synthetic batches made and moved in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    def run(kernels: bool, replay=None):
+        model.load_state_dict(start)
+        bank = MB.create(cap, m.max_words, m.max_frames, m.width,
+                         device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n_fill):
+            bank = TS.fill_bank_step(model, bank, fill[i % len(fill)], cfg,
+                                     i * B, kernels)
+        torch.cuda.synchronize()
+        t_fill = time.perf_counter() - t0
+        state = TS.create_train_state(model, bank)
+        out = dict(metrics=[], ms=[], t_fill=t_fill, decisions=[])
+        for i, batch in enumerate(steps):
+            if kernels and i == n_steps - 1:   # what the last forward sees
+                out["before_last"] = {k: v.clone() for k, v
+                                      in model.state_dict().items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            log = []
+            with decisions(log, replay[i] if replay else None):
+                state, met = TS.train_step(state, batch, cfg, t_total, gen,
+                                           kernels)
+            torch.cuda.synchronize()
+            out["ms"].append(1e3 * (time.perf_counter() - t0))
+            out["decisions"].append(log)
+            out["metrics"].append({k: v.item() for k, v in met.items()})
+            if i == 1:
+                out["after_two"] = {k: model.state_dict()[k].clone()
+                                    for k in TRAIN_COMPARED}
+        out["state"] = state
+        out["final"] = {k: model.state_dict()[k].clone()
+                        for k in TRAIN_COMPARED + ("clip.visual.conv1.weight",)}
+        return out
+
+    # warm-up outside the counted run: cuBLAS/cuDNN handles and heuristics,
+    # lazy kernel loading, the allocator's pools at the step's sizes
+    warm = TS.create_train_state(model, MB.create(
+        cap, m.max_words, m.max_frames, m.width, device="cuda"))
+    TS.train_step(warm, steps[0], cfg, t_total,
+                  torch.Generator(device="cuda").manual_seed(0))
+    del warm
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    k, counts = counted(lambda: run(True))
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    want = {"K1": (n_fill + n_steps) * layers, "K2": 0,
+            "K3": n_steps * layers, "K4": 2 * n_steps, "K5": 2 * n_steps}
+    print(f"  launches in the train run: {counts} (expected {want}: per step "
+          f"K1 = K3 = {layers}, K4 = K5 = 2 calls; per fill batch K1 = "
+          f"{layers})")
+    if counts != want:
+        raise SystemExit("launch counts do not match the train path")
+    for i, met in enumerate(k["metrics"]):
+        print(f"  step {i + 1}: " + " ".join(f"{n} {v:.5f}"
+                                              for n, v in met.items()))
+        if not all(np.isfinite(v) for v in met.values()):
+            raise SystemExit(f"non-finite metric at step {i + 1}")
+    ms = statistics.median(k["ms"])
+    print(f"  bank fill {k['t_fill']:.3f} s for {n_fill} batches; steps "
+          f"{' / '.join(f'{t:.1f}' for t in k['ms'])} ms, median {ms:.1f} "
+          f"ms/step = {B / ms * 1e3:.2f} pairs/s on {card}; peak device "
+          f"memory {peak_gib:.2f} GiB")
+
+    for name in TRAIN_COMPARED:
+        if torch.equal(k["after_two"][name], start[name]):
+            raise SystemExit(f"{name} did not move in two steps")
+    if not torch.equal(k["final"]["clip.visual.conv1.weight"],
+                       start["clip.visual.conv1.weight"]):
+        raise SystemExit("the frozen patch embedding moved")
+    print(f"  {len(TRAIN_COMPARED)} compared parameters moved after step 2; "
+          "the frozen conv1 did not")
+    bank, last = k["state"].bank, steps[-1]
+    # the last batch's features at the weights its step's forward saw,
+    # encoded again now that the launch counts have been read
+    final = {n: v.clone() for n, v in model.state_dict().items()}
+    model.load_state_dict(k.pop("before_last"))
+    with torch.no_grad():
+        fresh = model.get_text_video_feat(
+            last["text_ids"], last["text_mask"], last["video"],
+            last["video_mask"])
+    model.load_state_dict(final)
+    del final
+    if not torch.equal(bank.ind[:B], last["idx"].to(torch.int32)) or \
+            not torch.equal(bank.ind[B:2 * B], steps[-2]["idx"].to(torch.int32)):
+        raise SystemExit("the bank's head does not hold the newest batches")
+    compare("bank text rows vs the last batch's fresh features",
+            bank.feat_t[:B], fresh[0], (1e-6, 0.0))
+    compare("bank video rows vs the last batch's fresh features",
+            bank.feat_v[:B], fresh[1], (1e-6, 0.0))
+    if not torch.equal(bank.mask_t[:B], last["text_mask"].float()):
+        raise SystemExit("the bank's masks are not the last batch's")
+
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof
+        with prof(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as trace:
+            TS.train_step(k["state"], steps[0], cfg, t_total,
+                          torch.Generator(device="cuda").manual_seed(2))
+            torch.cuda.synchronize()
+        print("  profile of one train step (device time by kernel):")
+        print(trace.key_averages().table(sort_by="cuda_time_total", row_limit=25,
+                                      max_name_column_width=60))
+
+    print("  the same fill and steps through the plain versions on the card, "
+          "with the kernel run's cluster ids and neighbour masks:")
+    p = run(False, k["decisions"])
+    failed = []
+    for i, (a, b) in enumerate(zip(k["metrics"], p["metrics"])):
+        for n in LOSS_TERMS + ("grad_norm",):
+            tol = (TRAIN_GRAD_NORM_RTOL[i >= 2] if n == "grad_norm"
+                   else TRAIN_LOSS_RTOL)
+            rel = abs(a[n] - b[n]) / max(abs(b[n]), 1e-6)
+            ok = np.isfinite(b[n]) and rel <= tol
+            print(f"  step {i + 1} {n}: kernels {a[n]:.6f} plain {b[n]:.6f} "
+                  f"rel {rel:.3g} (tolerance {tol:g}) "
+                  f"{'ok' if ok else 'FAILED'}")
+            if not ok:
+                failed.append(f"step {i + 1} {n}")
+    for name in TRAIN_COMPARED:
+        dk = (k["final"][name] - start[name]).float()
+        dp = (p["final"][name] - start[name]).float()
+        rel = ((dk - dp).norm() / dp.norm().clamp_min(1e-30)).item()
+        ok = rel <= TRAIN_UPDATE_REL_L2
+        print(f"  update of {name}: |Δ| {dp.norm().item():.4g}, kernels vs "
+              f"plain rel L2 {rel:.3g} (tolerance {TRAIN_UPDATE_REL_L2:g}) "
+              f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            failed.append(f"update of {name}")
+    if failed:
+        raise SystemExit("the kernel run disagrees with the plain run: "
+                         + ", ".join(failed))
+    pms = statistics.median(p["ms"])
+    print(f"  plain run: fill {p['t_fill']:.3f} s, median {pms:.1f} ms/step")
+    return counts, ms, pms
 
 
 def main():
-    phase_device()
+    profile = "--profile" in sys.argv[1:]
+    card = phase_device()
     phase_build()
     g = torch.Generator(device="cuda").manual_seed(0)
     k1_rows = phase_k1(g)
-    k2_err, k2_ms, k2_plain = phase_k2(g)
-    k1_launches, k2_launches, _ = phase_serving()
-    err, ms, plain_ms = k1_rows["vision"]
+    k2 = phase_k2(g)
+    serving_counts, _ = phase_serving()
+    k3_rows = phase_k3(g)
+    k4, k5 = phase_k4_k5(g)
+    train_counts, _, _ = phase_train(profile, card)
+
+    def kernel(name, source, replaces, launches, row, timed_at, **extra):
+        err, ms, plain_ms, bound_ms, bound_by = row
+        return {"name": name, "route": "cuda",
+                "source": f"neighborretr_tpu_torch/csrc/{source}",
+                "replaces": f"neighborretr_tpu/ops/{replaces}",
+                "launches": sum(launches.values()),
+                "launches_by_path": launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None,
+                "timed_at": timed_at, **extra}
+
+    def paths(k):     # this run's counts on the two main paths
+        return {"serving": serving_counts[k], "train": train_counts[k]}
+
+    def by_shape(rows):
+        return {str(k): list(r[1:]) for k, r in rows.items()}
+
+    def worst(rows, first):
+        return (max(r[0] for r in rows.values()),) + rows[first][1:]
+
     record = {"kernels": [
-        {"name": "ln_attention_residual", "route": "cuda",
-         "source": "neighborretr_tpu_torch/csrc/ln_attention_residual.cu",
-         "replaces": "neighborretr_tpu/ops/pallas_block_attention.py:500",
-         "launches": k1_launches,
-         "max_abs_err": max(r[0] for r in k1_rows.values()),
-         "ms": ms, "plain_ms": plain_ms,
-         "timed_at": "vision N=768 L=50 D=768 H=12",
-         "ms_by_shape": {k: [r[1], r[2]] for k, r in k1_rows.items()}},
-        {"name": "interaction_similarity", "route": "cuda",
-         "source": "neighborretr_tpu_torch/csrc/interaction_similarity.cu",
-         "replaces": "neighborretr_tpu/ops/pallas_similarity.py:132",
-         "launches": k2_launches, "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain,
-         "timed_at": "Q=64 T=24 N=10000 V=12 D=512"},
+        kernel("ln_attention_residual", "ln_attention_residual.cu",
+               "pallas_block_attention.py:500",
+               paths("K1"),
+               worst(k1_rows, "vision"), "vision N=768 L=50 D=768 H=12",
+               ms_plain_bound_by_shape=by_shape(k1_rows)),
+        kernel("interaction_similarity", "interaction_similarity.cu",
+               "pallas_similarity.py:132",
+               paths("K2"), k2,
+               "Q=64 T=24 N=10000 V=12 D=512"),
+        kernel("ln_attention_residual_bwd", "ln_attention_residual_bwd.cu",
+               "pallas_block_attention.py:534",
+               paths("K3"),
+               worst(k3_rows, "vision"), "vision N=1536 L=50 D=768 H=12",
+               ms_plain_bound_by_shape=by_shape(k3_rows)),
+        kernel("interaction_mean", "interaction_similarity.cu",
+               "pallas_similarity.py:455",
+               paths("K4"), worst(k4, 1),
+               "A=128 T=24 B=1920 V=12 D=512 axis=1",
+               ms_plain_bound_by_shape=by_shape(k4)),
+        kernel("interaction_similarity_bwd", "interaction_similarity.cu",
+               "pallas_similarity.py:336",
+               paths("K5"), worst(k5, 1),
+               "A=128 T=24 B=1920 V=12 D=512 (the axis=1 centrality)",
+               ms_plain_bound_by_shape=by_shape(k5)),
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,7 @@ import logging
 import numpy as np
 import torch
 
-from neighborretr_tpu.core.config import ClipConfig, Config, ModelConfig
+from ..core.config import ClipConfig, Config, ModelConfig
 
 RANDOM_WEIGHTS_SEED = 0
 
@@ -68,13 +68,13 @@ def build_dataset(args, cfg: Config):
     """Synthetic smoke data or a real dataset split."""
     m = cfg.model
     if args.datatype == "synthetic":
-        from neighborretr_tpu.data.datasets.synthetic import SyntheticDataset
+        from ..data.datasets.synthetic import SyntheticDataset
         return SyntheticDataset(
             n=args.synthetic_size or max(32, args.batch_size), seed=2,
             max_words=m.max_words, max_frames=m.max_frames,
             resolution=m.clip.image_resolution, vocab_size=m.clip.vocab_size)
-    from neighborretr_tpu.data.registry import EVAL_SUBSET, build_dataset
-    from neighborretr_tpu.data.tokenizer import ClipTokenizer
+    from ..data.registry import EVAL_SUBSET, build_dataset
+    from ..data.tokenizer import ClipTokenizer
     if args.subset is None and args.datatype not in EVAL_SUBSET:
         raise SystemExit(f"unknown datatype '{args.datatype}'; available: "
                          f"{sorted(EVAL_SUBSET)} (or 'synthetic')")

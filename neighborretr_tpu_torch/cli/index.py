@@ -36,8 +36,8 @@ def main(argv=None):
     add_model_args(p)
     args = p.parse_args(argv)
 
-    from neighborretr_tpu.core.config import ClipConfig
-    from neighborretr_tpu.data.loader import BatchLoader
+    from ..core.config import ClipConfig
+    from ..data.loader import BatchLoader
 
     from .. import serving
     from .common import (build_dataset, load_model, model_config,

@@ -27,7 +27,7 @@ def main(argv=None):
     if not queries:
         raise SystemExit("no queries (pass --query or pipe lines on stdin)")
 
-    from neighborretr_tpu.data.tokenizer import ClipTokenizer
+    from ..data.tokenizer import ClipTokenizer
 
     from .. import serving
     from .common import load_query_model, resolve_device, setup_logger

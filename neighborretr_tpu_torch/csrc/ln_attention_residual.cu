@@ -41,56 +41,15 @@
 // for later PRs: several sequences per block (weight reuse), keeping
 // attn_out on chip, wgmma with TMA-fed shared-memory rings.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
 
 constexpr int HD = 64;              // head dim: every CLIP tower here
 constexpr int A_WARPS = 8;
 constexpr int NT_PER_WARP = 3;      // 3 * HD / 8 = 24 n-tiles over 8 warps
 constexpr int QS = HD + 8;          // q/k shared row stride (bf16)
 static_assert(A_WARPS * 8 == HD, "probs·V: one 8-column n-tile per warp");
-
-__device__ __forceinline__ void mma16816(float* c, uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t ldg32(const bf16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
 
 // ---------------------------------------------------------------------------
 // kernel A: LN -> head's q/k/v -> softmax(q k^T + bias) v  (per sequence, head)

@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from neighborretr_tpu.core.config import ClipConfig
+from ..core.config import ClipConfig
 
 from . import layers as L
 

@@ -7,11 +7,13 @@ dtype the caller passes (bf16 on the card) with fp32 LayerNorm/softmax
 islands, as in the JAX package.
 
 The attention sublayer (LN1 + qkv + attention + out projection + residual)
-is one call to `ops.block_attention.ln_attention_residual`: the CUDA kernel
-for a CUDA tensor, its plain version for a CPU tensor.  `kernels=False`
-calls the plain version on any device — the reference the kernels are
-held to on the card.  Parameters are created uninitialised; see
-weights_io.init_model and weights_io.from_jax_params.
+is one call to `ops.block_attention.ln_attention_sublayer`, one autograd
+node: the CUDA kernels (forward and backward) for a CUDA tensor, their
+plain versions for a CPU tensor.  `kernels=False` calls the plain versions
+on any device — the reference the kernels are held to on the card.  The
+blocks save their activations for the backward (no rematerialisation).
+Parameters are created uninitialised; see weights_io.init_model and
+weights_io.from_jax_params.
 """
 
 from __future__ import annotations
@@ -22,8 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.block_attention import (layer_norm, ln_attention_residual,
-                                   ln_attention_residual_plain, mha)
+from ..ops.block_attention import layer_norm, ln_attention_sublayer, mha
 
 __all__ = ["NEG_INF", "quick_gelu", "layer_norm", "mha", "LayerNorm",
            "MultiheadAttention", "ResidualAttentionBlock", "Transformer",
@@ -100,12 +101,12 @@ class ResidualAttentionBlock(nn.Module):
     def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor],
                 dtype: torch.dtype, kernels: bool = True) -> torch.Tensor:
         """x [N, L, D]; bias [N, L, L] fp32 or None."""
-        attn = ln_attention_residual if kernels else ln_attention_residual_plain
         a = self.attn
-        x = attn(x.to(dtype), self.ln_1.weight, self.ln_1.bias,
-                 a.in_proj_weight.to(dtype), a.in_proj_bias,
-                 a.out_proj.weight.to(dtype), a.out_proj.bias, self.n_head,
-                 bias)
+        x = ln_attention_sublayer(
+            x.to(dtype), self.ln_1.weight, self.ln_1.bias,
+            a.in_proj_weight.to(dtype), a.in_proj_bias,
+            a.out_proj.weight.to(dtype), a.out_proj.bias, self.n_head, bias,
+            kernels)
         return x + self.mlp(self.ln_2(x), dtype)
 
 

@@ -6,7 +6,9 @@ The JAX layouts map onto the reference's torch state-dict names the port's
 modules carry: stacked layer axes unstack into `resblocks.{i}`, the
 [D, 3, D] in_proj becomes torch's [3D, D] `in_proj_weight`, input-major
 linears transpose, and the flattened [P·P·3, width] patch embedding
-becomes the [width, 3, P, P] `conv1.weight`.
+becomes the [width, 3, P, P] `conv1.weight`.  `to_jax_params` is the way
+back: the port's state dict as the JAX package's pytree (numpy leaves), so
+a test can compare every tensor after training steps in both packages.
 """
 
 from __future__ import annotations
@@ -17,12 +19,14 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from neighborretr_tpu.core.config import ModelConfig
+from ..core.config import ModelConfig
 
 from .neighborretr import NeighborRetr, seed_temporal_from_clip
 
 Tree = Dict[str, Any]
 _SEP = "//"   # the JAX package's flat npz key separator
+WEIGHT_NETS = ("text_weight_fc", "video_weight_fc", "text_weight_fc1",
+               "video_weight_fc1")
 
 
 def _block_sd(blocks: Tree, i: int, prefix: str, out: Dict[str, np.ndarray]):
@@ -89,13 +93,113 @@ def state_dict_from_jax_params(params: Tree,
         tmp["frame_position_embeddings"])
     _blocks_sd(tmp["transformer"], cfg.temporal_layers,
                "transformerClip.resblocks", sd)
-    for name in ("text_weight_fc", "video_weight_fc"):
+    for name in WEIGHT_NETS:
         p = params[name]
         sd[f"{name}.0.weight"] = f32(p["fc1"]["w"]).T
         sd[f"{name}.0.bias"] = f32(p["fc1"]["b"])
         sd[f"{name}.2.weight"] = f32(p["fc2"]["w"]).T
         sd[f"{name}.2.bias"] = f32(p["fc2"]["b"])
+    for modality in ("text", "video"):
+        stack = params[f"{modality}_merge"]
+        for i in (0, 1):
+            c, b = stack[f"ctm{i}"], stack[f"block{i}"]
+            cp, bp = f"{modality}_ctm{i}", f"{modality}_block{i}"
+            # Conv1d [C_out, C_in, K] from the JAX [K, C_in, C_out]
+            sd[f"{cp}.conv.conv.weight"] = f32(c["conv"]["w"]).transpose(2, 1, 0)
+            sd[f"{cp}.norm.weight"] = f32(c["norm"]["scale"])
+            sd[f"{cp}.norm.bias"] = f32(c["norm"]["bias"])
+            sd[f"{cp}.score.weight"] = f32(c["score"]["w"]).T
+            sd[f"{cp}.score.bias"] = f32(c["score"]["b"])
+            sd[f"{bp}.norm1.weight"] = f32(b["norm1"]["scale"])
+            sd[f"{bp}.norm1.bias"] = f32(b["norm1"]["bias"])
+            for lin in ("q", "kv", "proj"):
+                sd[f"{bp}.attn.{lin}.weight"] = f32(b[lin]["w"]).T
+                sd[f"{bp}.attn.{lin}.bias"] = f32(b[lin]["b"])
     return sd
+
+
+def _blocks_tree(sd, prefix: str, n: int) -> Tree:
+    """`prefix.{i}.*` blocks of a state dict → the JAX package's stacked
+    transformer pytree (leading layer axis)."""
+    def stack(key, fn=lambda a: a):
+        return np.stack([fn(sd[f"{prefix}.{i}.{key}"]) for i in range(n)])
+
+    d = sd[f"{prefix}.0.ln_1.weight"].shape[0]
+    lin = {name: {"w": stack(f"mlp.{name}.weight", lambda a: a.T),
+                  "b": stack(f"mlp.{name}.bias")} for name in ("c_fc", "c_proj")}
+    return {
+        "ln_1": {"scale": stack("ln_1.weight"), "bias": stack("ln_1.bias")},
+        "attn": {
+            "in_proj": {
+                "w": stack("attn.in_proj_weight",
+                           lambda a: a.T.reshape(d, 3, d)),
+                "b": stack("attn.in_proj_bias", lambda a: a.reshape(3, d))},
+            "out_proj": {"w": stack("attn.out_proj.weight", lambda a: a.T),
+                         "b": stack("attn.out_proj.bias")}},
+        "ln_2": {"scale": stack("ln_2.weight"), "bias": stack("ln_2.bias")},
+        "mlp": lin,
+    }
+
+
+def to_jax_params(state_dict, cfg: ModelConfig) -> Tree:
+    """The port's state dict (tensors or arrays) → the JAX package's
+    parameter pytree with numpy fp32 leaves: the inverse of
+    `state_dict_from_jax_params`."""
+    sd = {k: np.asarray(v.detach().cpu().float() if torch.is_tensor(v) else v,
+                        np.float32) for k, v in state_dict.items()}
+    c = cfg.clip
+    P, width = c.vision_patch_size, c.vision_width
+
+    def ln(prefix):
+        return {"scale": sd[f"{prefix}.weight"], "bias": sd[f"{prefix}.bias"]}
+
+    def lin(prefix):
+        return {"w": sd[f"{prefix}.weight"].T, "b": sd[f"{prefix}.bias"]}
+
+    params: Tree = {
+        "clip": {
+            "visual": {
+                "patch_embed": sd["clip.visual.conv1.weight"].transpose(
+                    2, 3, 1, 0).reshape(P * P * 3, width),
+                "class_embedding": sd["clip.visual.class_embedding"],
+                "positional_embedding": sd["clip.visual.positional_embedding"],
+                "ln_pre": ln("clip.visual.ln_pre"),
+                "transformer": _blocks_tree(
+                    sd, "clip.visual.transformer.resblocks", c.vision_layers),
+                "ln_post": ln("clip.visual.ln_post"),
+                "proj": sd["clip.visual.proj"],
+            },
+            "text": {
+                "token_embedding": sd["clip.token_embedding.weight"],
+                "positional_embedding": sd["clip.positional_embedding"],
+                "transformer": _blocks_tree(sd, "clip.transformer.resblocks",
+                                            c.transformer_layers),
+                "ln_final": ln("clip.ln_final"),
+                "text_projection": sd["clip.text_projection"],
+            },
+            "logit_scale": sd["clip.logit_scale"].reshape(()),
+        },
+        "temporal": {
+            "frame_position_embeddings": sd["frame_position_embeddings.weight"],
+            "transformer": _blocks_tree(sd, "transformerClip.resblocks",
+                                        cfg.temporal_layers),
+        },
+    }
+    for name in WEIGHT_NETS:
+        params[name] = {"fc1": lin(f"{name}.0"), "fc2": lin(f"{name}.2")}
+    for modality in ("text", "video"):
+        stack = {}
+        for i in (0, 1):
+            cp, bp = f"{modality}_ctm{i}", f"{modality}_block{i}"
+            stack[f"ctm{i}"] = {
+                "conv": {"w": sd[f"{cp}.conv.conv.weight"].transpose(2, 1, 0)},
+                "norm": ln(f"{cp}.norm"), "score": lin(f"{cp}.score")}
+            stack[f"block{i}"] = {
+                "norm1": ln(f"{bp}.norm1"),
+                **{name: lin(f"{bp}.attn.{name}")
+                   for name in ("q", "kv", "proj")}}
+        params[f"{modality}_merge"] = stack
+    return params
 
 
 def from_jax_params(params: Tree, cfg: ModelConfig,
@@ -137,8 +241,10 @@ def load_checkpoint(path: str, cfg: ModelConfig, device=None) -> NeighborRetr:
 def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> NeighborRetr:
     """Seeded random weights with the JAX package's init distributions
     (init_params): CLIP scales for the towers, normal(0.02) weight nets,
-    logit_scale 1.0, the temporal tower seeded from the text tower.  The
-    numbers differ from JAX's for the same seed (another generator).
+    torch defaults for the CTM conv and score head, truncated normal(0.02)
+    TC-block linears, logit_scale 1.0, the temporal tower seeded from the
+    text tower.  The numbers differ from JAX's for the same seed (another
+    generator).
 
     Each tensor draws from its own generator, seeded from `seed` and the
     tensor's name — like the JAX package's per-subtree key splits, one
@@ -146,10 +252,19 @@ def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> NeighborRetr:
     model = NeighborRetr(cfg, device=device)
     names = {id(p): n for n, p in model.named_parameters()}
 
-    def normal_(t, std):
-        g = torch.Generator(device=t.device).manual_seed(
+    def gen(t):
+        return torch.Generator(device=t.device).manual_seed(
             seed * 1_000_003 + zlib.crc32(names[id(t)].encode()))
-        t.copy_(torch.randn(t.shape, generator=g, device=t.device) * std)
+
+    def normal_(t, std):
+        t.copy_(torch.randn(t.shape, generator=gen(t), device=t.device) * std)
+
+    def uniform_(t, bound):
+        t.uniform_(-bound, bound, generator=gen(t))
+
+    def trunc_normal_(t, std):
+        torch.nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std,
+                                    generator=gen(t))
 
     def init_transformer(tf, width, layers):
         proj_std = width ** -0.5 * (2 * layers) ** -0.5
@@ -183,9 +298,24 @@ def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> NeighborRetr:
         ln.weight.fill_(1.0)
         ln.bias.zero_()
     clip.logit_scale.fill_(1.0)
-    for mlp in (model.text_weight_fc, model.video_weight_fc):
+    for name in WEIGHT_NETS:
+        mlp = getattr(model, name)
         for lin in (mlp[0], mlp[2]):
             normal_(lin.weight, 0.02)
             lin.bias.zero_()
+    width = cfg.width
+    for modality in ("text", "video"):
+        for i in (0, 1):
+            c_, b_ = (getattr(model, f"{modality}_{kind}{i}")
+                      for kind in ("ctm", "block"))
+            uniform_(c_.conv.conv.weight, (width * 3) ** -0.5)
+            uniform_(c_.score.weight, width ** -0.5)
+            uniform_(c_.score.bias, width ** -0.5)
+            for lnm in (c_.norm, b_.norm1):
+                lnm.weight.fill_(1.0)
+                lnm.bias.zero_()
+            for lin in (b_.attn.q, b_.attn.kv, b_.attn.proj):
+                trunc_normal_(lin.weight, 0.02)
+                lin.bias.zero_()
     seed_temporal_from_clip(model)
     return model.eval().requires_grad_(False)

@@ -1,5 +1,5 @@
-"""Fused pre-LN attention sublayer, forward (↔ neighborretr_tpu/ops/
-pallas_block_attention.py::fused_ln_attention_residual).
+"""Fused pre-LN attention sublayer, forward and backward (↔ neighborretr_tpu/
+ops/pallas_block_attention.py::fused_ln_attention_residual and its custom VJP).
 
     y = x + W_o · MHA(LN(x) · W_qkv + b_qkv) + b_o        per sequence
 
@@ -15,6 +15,14 @@ bf16 operands with fp32 accumulation, and with an fp32 x it is exactly
 layer_norm + fp32 attention + residual.  `ln_attention_residual` is the
 kernel's wrapper: a CPU tensor takes the plain version; a CUDA tensor runs
 csrc/ln_attention_residual.cu, which takes bf16 activations only.
+
+The backward has the same three forms.  `ln_attention_residual_bwd_plain`
+is written out by hand with the TPU kernel's rounding points (g, dattn and
+dqkv are rounded too, which autograd through `.to(bf16).float()` would not
+do); `ln_attention_residual_bwd` runs csrc/ln_attention_residual_bwd.cu on a
+CUDA tensor.  Nothing is saved by the forward but its inputs: the backward
+recomputes LN, qkv and the probabilities.  `ln_attention_sublayer` joins
+forward and backward in one autograd function; it is what the model calls.
 """
 
 from __future__ import annotations
@@ -74,6 +82,64 @@ def ln_attention_residual_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
     return y.to(x.dtype)
 
 
+def ln_attention_residual_bwd_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
+                                    n_head: int, g, bias=None):
+    """The backward kernel's plain version: from g = dy [N, L, D] in x's
+    dtype, (dx in x's dtype; dln_w, dln_b, dw_qkv [3D, D], db_qkv, dw_out
+    [D, D], db_out in fp32).  Recomputes the forward from x.  Operands are
+    rounded to x's dtype where the TPU kernel rounds (h, qkv, scaled q,
+    probs, attn_out, g, dattn, dlogits·scale, dqkv) and multiplied in fp32;
+    db_qkv sums the unrounded dqkv, dLN and dx come from the fp32 dh.  With
+    an fp32 x nothing is rounded and this is the exact gradient."""
+    dt = x.dtype
+    N, L, D = x.shape
+    hd = D // n_head
+    scale = hd ** -0.5
+
+    def rnd(t):
+        return t.to(dt).float()
+
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    xc = x32 - mean
+    rstd = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + LN_EPS)
+    xhat = xc * rstd
+    h = rnd(xhat * ln_w.float() + ln_b.float())
+    wq, wo = rnd(w_qkv), rnd(w_out)
+    qkv = rnd(h @ wq.T + b_qkv.float())
+    q, k, v = (t.reshape(N, L, n_head, hd) for t in qkv.split(D, dim=-1))
+    logits = torch.einsum("nqhd,nkhd->nhqk", rnd(q * scale), k)
+    if bias is not None:
+        logits = logits + bias.float().reshape(N, 1, L, L)
+    probs = torch.softmax(logits, dim=-1)
+    p16 = rnd(probs)
+    attn = rnd(torch.einsum("nhqk,nkhd->nqhd", p16, v).reshape(N, L, D))
+
+    g32 = g.float()
+    g16 = rnd(g32)
+    dw_out = g16.reshape(-1, D).T @ attn.reshape(-1, D)
+    db_out = g32.reshape(-1, D).sum(dim=0)
+    g3 = rnd(g16 @ wo).reshape(N, L, n_head, hd)            # dattn
+    dv = torch.einsum("nhqk,nqhd->nkhd", p16, g3)
+    dprobs = torch.einsum("nqhd,nkhd->nhqk", g3, v)
+    dlogits = probs * (dprobs - (dprobs * probs).sum(dim=-1, keepdim=True))
+    dl16 = rnd(dlogits * scale)
+    dq = torch.einsum("nhqk,nkhd->nqhd", dl16, k)
+    dk = torch.einsum("nhqk,nqhd->nkhd", dl16, q)            # unscaled q
+    dqkv = torch.cat([t.reshape(N, L, D) for t in (dq, dk, dv)], dim=-1)
+    dqkv16 = rnd(dqkv)
+    dh = dqkv16 @ wq
+    dw_qkv = dqkv16.reshape(-1, 3 * D).T @ h.reshape(-1, D)
+    db_qkv = dqkv.reshape(-1, 3 * D).sum(dim=0)
+
+    dln_w = (dh * xhat).reshape(-1, D).sum(dim=0)
+    dln_b = dh.reshape(-1, D).sum(dim=0)
+    gdh = dh * ln_w.float()
+    dx = g32 + rstd * (gdh - gdh.mean(dim=-1, keepdim=True)
+                       - xhat * (gdh * xhat).mean(dim=-1, keepdim=True))
+    return dx.to(dt), dln_w, dln_b, dw_qkv, db_qkv, dw_out, db_out
+
+
 _ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
              + [ctypes.c_void_p])
 
@@ -89,16 +155,9 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def ln_attention_residual(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
-                          n_head: int, bias=None) -> torch.Tensor:
-    """x [N, L, D]; LN params [D]; w_qkv [3D, D], b_qkv [3D]; w_out [D, D],
-    b_out [D]; bias [N, L, L] fp32 or None.  Returns [N, L, D] in x's dtype.
-
-    On CUDA: x and both weights bf16, LN params and biases fp32, all
-    contiguous; head dim 64 and L <= 64.  Anything else raises."""
-    if not x.is_cuda:
-        return ln_attention_residual_plain(x, ln_w, ln_b, w_qkv, b_qkv,
-                                           w_out, b_out, n_head, bias)
+def _check_cuda_args(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, n_head, bias):
+    """What both kernels take: bf16 activations and weights, fp32 LN params
+    and biases, contiguous, head dim 64, L <= 64.  Anything else raises."""
     N, L, D = x.shape
     if x.dtype != torch.bfloat16:
         raise ValueError(
@@ -118,11 +177,25 @@ def ln_attention_residual(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
         _check(name, t, dtype, shape, dev)
     if bias is not None:
         _check("bias", bias, f32, (N, L, L), dev)
+
+
+def ln_attention_residual(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
+                          n_head: int, bias=None) -> torch.Tensor:
+    """x [N, L, D]; LN params [D]; w_qkv [3D, D], b_qkv [3D]; w_out [D, D],
+    b_out [D]; bias [N, L, L] fp32 or None.  Returns [N, L, D] in x's dtype.
+
+    On CUDA: x and both weights bf16, LN params and biases fp32, all
+    contiguous; head dim 64 and L <= 64.  Anything else raises."""
+    if not x.is_cuda:
+        return ln_attention_residual_plain(x, ln_w, ln_b, w_qkv, b_qkv,
+                                           w_out, b_out, n_head, bias)
+    _check_cuda_args(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, n_head, bias)
+    N, L, D = x.shape
     attn = torch.empty_like(x)
     y = torch.empty_like(x)
     fn = _build.function("ln_attention_residual",
                          "ln_attention_residual_fwd", _ARGTYPES)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(x.device):
         err = fn(_build.ptr(x),
                  None if bias is None else _build.ptr(bias),
                  _build.ptr(ln_w), _build.ptr(ln_b), _build.ptr(w_qkv),
@@ -135,3 +208,94 @@ def ln_attention_residual(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
 
 
 ln_attention_residual.launches = 0
+
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 5
+                 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+
+
+def ln_attention_residual_bwd(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
+                              n_head: int, g, bias=None):
+    """Backward of `ln_attention_residual`: the forward's inputs and g = dy
+    [N, L, D] → (dx, dln_w, dln_b, dw_qkv, db_qkv, dw_out, db_out), dx in
+    x's dtype and the rest fp32.  A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel under the forward's conditions (g bf16
+    and contiguous).  Sums over rows are taken in a fixed order, so two
+    calls give the same bits."""
+    if not x.is_cuda:
+        return ln_attention_residual_bwd_plain(
+            x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, n_head, g, bias)
+    _check_cuda_args(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, n_head, bias)
+    N, L, D = x.shape
+    dev = x.device
+    _check("g", g, torch.bfloat16, (N, L, D), dev)
+    M = N * L
+    Mp = -(-M // 64) * 64
+    f32, b16 = torch.float32, torch.bfloat16
+
+    def empty(*shape, dtype=f32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    # plain copies: the "col" operands of dattn = g·W_o and dh = dqkv·W_qkv
+    w_qkv_t = w_qkv.t().contiguous()
+    w_out_t = w_out.t().contiguous()
+    dattn = empty(M, D, dtype=b16)
+    tbuf = empty(6 * D, Mp, dtype=b16)     # dqkv^T | h^T | attn_out^T | g^T
+    if Mp > M:
+        tbuf[:, M:].zero_()
+    dqkv = empty(M, 3 * D, dtype=b16)
+    dh = empty(M, D)
+    part_db = empty(N, 3 * D)
+    part_ln = empty(-(-M // 64), 3 * D)
+    part_w = empty(8, 3 * D, D)            # k-range copies of dW_qkv / dW_o
+    dx = torch.empty_like(x)
+    dln = empty(3, D)
+    dw_qkv, db_qkv, dw_out = empty(3 * D, D), empty(3 * D), empty(D, D)
+    fn = _build.function("ln_attention_residual_bwd",
+                         "ln_attention_residual_bwd", _BWD_ARGTYPES)
+    P = _build.ptr
+    with torch.cuda.device(dev):
+        err = fn(P(x), None if bias is None else P(bias), P(ln_w), P(ln_b),
+                 P(w_qkv), P(b_qkv), P(w_qkv_t), P(w_out_t), P(g), P(dattn),
+                 P(tbuf), P(dqkv), P(dh), P(part_db), P(part_ln), P(part_w),
+                 P(dx), P(dln), P(dw_qkv), P(db_qkv), P(dw_out), N, L, D, n_head, Mp,
+                 LN_EPS, (D // n_head) ** -0.5, _build.stream())
+    _build.check(err, "ln_attention_residual_bwd")
+    ln_attention_residual_bwd.launches += 1
+    return dx, dln[0], dln[1], dw_qkv, db_qkv, dw_out, dln[2]
+
+
+ln_attention_residual_bwd.launches = 0
+
+
+class _LnAttentionSublayer(torch.autograd.Function):
+    """Forward and backward of the sublayer as one autograd node.  Saves its
+    inputs only.  Gradients come back in each input's dtype (a bf16 weight
+    copy gets a bf16-rounded gradient, as in the JAX package, where the cast
+    sits outside the custom VJP); the bias gets none."""
+
+    @staticmethod
+    def forward(ctx, x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, bias, n_head,
+                kernels):
+        ctx.save_for_backward(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, bias)
+        ctx.n_head, ctx.kernels = n_head, kernels
+        fwd = ln_attention_residual if kernels else ln_attention_residual_plain
+        return fwd(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, n_head, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        *args, bias = ctx.saved_tensors
+        bwd = (ln_attention_residual_bwd if ctx.kernels
+               else ln_attention_residual_bwd_plain)
+        grads = bwd(*args, ctx.n_head, g.contiguous(), bias)
+        return (*(gr.to(a.dtype) for gr, a in zip(grads, args)),
+                None, None, None)
+
+
+def ln_attention_sublayer(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
+                          n_head: int, bias=None,
+                          kernels: bool = True) -> torch.Tensor:
+    """y = x + Attn(LN(x)), differentiable in everything but the bias.
+    `kernels=True`: the CUDA kernels on a CUDA tensor, the plain versions
+    on a CPU tensor.  `kernels=False`: the plain versions on any device."""
+    return _LnAttentionSublayer.apply(x, ln_w, ln_b, w_qkv, b_qkv, w_out,
+                                      b_out, bias, n_head, kernels)

@@ -23,8 +23,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from neighborretr_tpu.core.config import Config
-from neighborretr_tpu.data.text import encode_caption
+from .core.config import Config
+from .data.text import encode_caption
 
 from .eval import (encode_text_batch, encode_video_batch,
                    similarity_matrix_device)

@@ -21,6 +21,11 @@ pytestmark = pytest.mark.gpu
 # kernel vs plain: K1 returns bf16 (two bf16 rounding steps); K2 is fp32
 K1_TOL = dict(atol=2 ** -6, rtol=2 ** -6)
 K2_TOL = dict(atol=2e-5, rtol=1e-4)
+# K3's fp32 sums over all rows (weight and bias gradients): bf16 operands
+# that flip by one ulp where differently ordered fp32 sums straddle a
+# rounding boundary move single terms by 2^-8 of their size, so the bound
+# is relative to the tensor's largest entry, not elementwise
+K3_SUM_TOL = 2 ** -7
 
 
 @pytest.fixture
@@ -55,6 +60,71 @@ def test_similarity_kernel_matches_plain(cuda, A, B, T, V, D):
     torch.cuda.synchronize()
     assert S.fused_interaction_similarity.launches == before + 1
     torch.testing.assert_close(got, S.interaction_similarity(*args), **K2_TOL)
+
+
+SIM_SHAPES = [(5, 37, 7, 3, 64), (64, 200, 24, 12, 512), (200, 64, 24, 12, 512),
+              (3, 129, 64, 16, 128)]
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("A,B,T,V,D", SIM_SHAPES)
+def test_mean_kernel_matches_plain(cuda, A, B, T, V, D, axis):
+    args = sim_inputs(A + B, A, B, T, V, D, cuda)
+    before = S.fused_interaction_mean.launches
+    got = S.fused_interaction_mean(*args, axis=axis)
+    torch.cuda.synchronize()
+    assert S.fused_interaction_mean.launches == before + 1
+    assert got.shape == ((A,) if axis == 1 else (B,))
+    torch.testing.assert_close(got, S.interaction_mean(*args, axis=axis),
+                               **K2_TOL)
+    assert torch.equal(got, S.fused_interaction_mean(*args, axis=axis))
+
+
+def test_mean_kernel_refuses_bfloat16(cuda):
+    args = sim_inputs(0, 4, 8, 6, 3, 64, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        S.fused_interaction_mean(*args, axis=1, sim_dtype="bfloat16")
+
+
+@pytest.mark.parametrize("A,B,T,V,D", SIM_SHAPES)
+def test_similarity_backward_kernel_matches_plain(cuda, A, B, T, V, D):
+    """Masked tokens make whole rows of logits tie at 0; duplicated video
+    tokens make ties among live logits too."""
+    tf, vf, tm, vm, tw, vw = sim_inputs(A * B, A, B, T, V, D, cuda)
+    vf[:, V - 1] = vf[:, 0]
+    vm[:, V - 1] = vm[:, 0]
+    tn, vn, tw, vw = S._prepare(tf, vf, tm, vm, tw, vw, True)
+    g = torch.as_tensor(np.random.default_rng(7).standard_normal((A, B)),
+                        dtype=torch.float32, device=cuda)
+    before = S.fused_similarity_bwd.launches
+    got = S.fused_similarity_bwd(tn, vn, tw, vw, g)
+    torch.cuda.synchronize()
+    assert S.fused_similarity_bwd.launches == before + 1
+    want = S.similarity_bwd_plain(tn, vn, tw, vw, g)
+    for name, a, b in zip(("dtn", "dvn", "dtw", "dvw"), got, want):
+        torch.testing.assert_close(a, b, atol=2e-5 * max(A, B) ** 0.5,
+                                   rtol=1e-4, msg=lambda m: f"{name}: {m}")
+    again = S.fused_similarity_bwd(tn, vn, tw, vw, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("axis", [None, 0, 1])
+def test_similarity_autograd_kernels_match_plain(cuda, axis):
+    args = sim_inputs(3, 9, 40, 7, 3, 64, cuda)
+
+    def grads(kernels):
+        leaves = [a.clone().requires_grad_(i in (0, 1, 4, 5))
+                  for i, a in enumerate(args)]
+        if axis is None:
+            out = S.fused_interaction_similarity(*leaves, kernels=kernels)
+        else:
+            out = S.fused_interaction_mean(*leaves, axis=axis,
+                                           kernels=kernels)
+        out.square().sum().backward()
+        return [leaves[i].grad for i in (0, 1, 4, 5)]
+
+    for a, b in zip(grads(True), grads(False)):
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=1e-4)
 
 
 def attn_inputs(seed, N, L, D, bias_kind, device):
@@ -100,6 +170,51 @@ def test_attention_kernel_matches_plain(cuda, N, L, D, H, bias_kind):
     torch.testing.assert_close(got.float(), want.float(), **K1_TOL)
 
 
+@pytest.mark.parametrize("N,L,D,H,bias_kind", [
+    (6, 50, 768, 12, None),          # vision
+    (64, 24, 512, 8, "causal"),      # text
+    (64, 12, 512, 8, "keypad"),      # temporal
+    (3, 5, 64, 1, None),             # N·L not a multiple of 64, one m-tile
+    (2, 64, 128, 2, "causal")])
+def test_attention_backward_kernel_matches_plain(cuda, N, L, D, H, bias_kind):
+    args, bias = attn_inputs(N * L, N, L, D, bias_kind, cuda)
+    rng = np.random.default_rng(N + L)
+    g = torch.as_tensor(rng.standard_normal((N, L, D)).astype(np.float32),
+                        device=cuda).bfloat16()
+    before = BA.ln_attention_residual_bwd.launches
+    got = BA.ln_attention_residual_bwd(*args, H, g, bias)
+    torch.cuda.synchronize()
+    assert BA.ln_attention_residual_bwd.launches == before + 1
+    want = BA.ln_attention_residual_bwd_plain(*args, H, g, bias)
+    assert got[0].dtype == torch.bfloat16
+    torch.testing.assert_close(got[0].float(), want[0].float(), **K1_TOL)
+    names = ("dln_w", "dln_b", "dw_qkv", "db_qkv", "dw_out", "db_out")
+    for name, a, b in zip(names, got[1:], want[1:]):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        err = (a - b).abs().max().item()
+        assert err <= K3_SUM_TOL * b.abs().max().item(), (name, err)
+    again = BA.ln_attention_residual_bwd(*args, H, g, bias)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_attention_sublayer_autograd_runs_both_kernels(cuda):
+    args, bias = attn_inputs(1, 4, 12, 128, "keypad", cuda)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    f, b = BA.ln_attention_residual.launches, \
+        BA.ln_attention_residual_bwd.launches
+    y = BA.ln_attention_sublayer(*leaves, 2, bias)
+    y.float().square().sum().backward()
+    assert BA.ln_attention_residual.launches == f + 1
+    assert BA.ln_attention_residual_bwd.launches == b + 1
+    plain = [a.clone().requires_grad_(True) for a in args]
+    BA.ln_attention_sublayer(*plain, 2, bias, kernels=False
+                             ).float().square().sum().backward()
+    for got, want in zip(leaves, plain):
+        assert got.grad.dtype == got.dtype
+        err = (got.grad.float() - want.grad.float()).abs().max().item()
+        assert err <= 2 ** -5 * want.grad.float().abs().max().item()
+
+
 def test_attention_kernel_refuses_what_it_does_not_take(cuda):
     args, _ = attn_inputs(0, 2, 12, 128, None, cuda)
     with pytest.raises(ValueError, match="bfloat16"):
@@ -109,14 +224,19 @@ def test_attention_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="w_qkv"):
         BA.ln_attention_residual(args[0], args[1], args[2],
                                  args[3].float(), *args[4:], 2)
+    g = torch.zeros_like(args[0])
+    with pytest.raises(ValueError, match="bfloat16"):   # fp32 activations
+        BA.ln_attention_residual_bwd(args[0].float(), *args[1:], 2, g)
+    with pytest.raises(ValueError, match="g must be"):
+        BA.ln_attention_residual_bwd(*args, 2, g.float())
 
 
 def test_serving_path_runs_through_both_kernels(cuda):
     """Tiny towers in bf16 on the card: index + search through the kernels,
     held to the same path through the plain versions."""
-    from neighborretr_tpu.core.config import Config, ModelConfig
-    from neighborretr_tpu.data.datasets.synthetic import SyntheticDataset
-    from neighborretr_tpu.data.loader import BatchLoader
+    from neighborretr_tpu_torch.core.config import Config, ModelConfig
+    from neighborretr_tpu_torch.data.datasets.synthetic import SyntheticDataset
+    from neighborretr_tpu_torch.data.loader import BatchLoader
     from neighborretr_tpu_torch import serving
     from neighborretr_tpu_torch.models.weights_io import init_model
 
@@ -154,3 +274,58 @@ def test_serving_path_runs_through_both_kernels(cuda):
                             kernels=False).similarities(queries)
     assert got.shape == (3, 20) and np.isfinite(got).all()
     np.testing.assert_allclose(got, want, atol=5e-3, rtol=0)
+
+
+def test_train_step_runs_through_the_training_kernels(cuda):
+    """Tiny towers in bf16 on the card: one bank fill and two optimizer
+    steps; launches counted per step, losses held to the plain run."""
+    from neighborretr_tpu_torch.core import config as C
+    from neighborretr_tpu_torch.data.datasets.synthetic import \
+        make_synthetic_batch
+    from neighborretr_tpu_torch.models.weights_io import init_model
+    from neighborretr_tpu_torch.train import memory_bank as MB
+    from neighborretr_tpu_torch.train import step as TS
+
+    m = dc.replace(C.ModelConfig.tiny(max_words=8, max_frames=4),
+                   compute_dtype="bfloat16")
+    B = 8
+    cfg = C.Config(model=m, loss=C.LossConfig(num_neighbors=3),
+                   data=C.DataConfig(max_words=8, max_frames=4),
+                   train=C.TrainConfig(batch_size=B, mb_batch=2))
+    model = init_model(m, seed=0, device=cuda)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    batches = [TS.to_device(make_synthetic_batch(m, B, seed=s), cuda)
+               for s in range(4)]
+    fns = (BA.ln_attention_residual, BA.ln_attention_residual_bwd,
+           S.fused_interaction_mean, S.fused_similarity_bwd,
+           S.fused_interaction_similarity)
+    layers = 2 + 2 + 2                 # vision, text, temporal blocks
+
+    def run(kernels):
+        model.load_state_dict(start)
+        bank = MB.create(2 * B, 8, 4, m.width, device=cuda)
+        for i in range(2):
+            bank = TS.fill_bank_step(model, bank, batches[i], cfg, i * B,
+                                     kernels)
+        state = TS.create_train_state(model, bank)
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        losses = []
+        for batch in batches[2:]:
+            before = [f.launches for f in fns]
+            state, met = TS.train_step(state, batch, cfg, 10, gen, kernels)
+            torch.cuda.synchronize()
+            if kernels:
+                assert [f.launches - b for f, b in zip(fns, before)] == \
+                    [layers, layers, 2, 2, 0]
+            losses.append(met["loss"].item())
+        return losses, state
+
+    got, state = run(True)
+    assert np.isfinite(got).all()
+    assert torch.equal(state.bank.ind[:B], batches[3]["idx"].to(torch.int32))
+    assert not torch.equal(model.clip.text_projection,
+                           start["clip.text_projection"])
+    assert torch.equal(model.clip.visual.conv1.weight,
+                       start["clip.visual.conv1.weight"])
+    want, _ = run(False)
+    np.testing.assert_allclose(got, want, rtol=2e-2)

@@ -20,19 +20,22 @@ from neighborretr_tpu.models import neighborretr as jm
 from neighborretr_tpu.models.weights_io import reference_state_dict_from_params
 from neighborretr_tpu.train.evaluate import similarity_matrix as jax_sim_matrix
 from neighborretr_tpu_torch import eval as peval
+from neighborretr_tpu_torch.core import config as pconfig
 from neighborretr_tpu_torch import serving as pserving
 from neighborretr_tpu_torch.models import weights_io as W
 from neighborretr_tpu_torch.models.neighborretr import local_similarity
 from neighborretr_tpu_torch.ops.video import normalize_frames
 
 W_, F_, B_ = 8, 4, 5
+# the port's own configuration: each package gets one from its dataclasses
+PCFG = pconfig.ModelConfig.tiny(max_words=W_, max_frames=F_)
 
 
 @pytest.fixture(scope="module")
 def setup():
     cfg = ModelConfig.tiny(max_words=W_, max_frames=F_)
     params = jax.device_get(jm.init_params(jax.random.PRNGKey(0), cfg))
-    model = W.from_jax_params(params, cfg)
+    model = W.from_jax_params(params, PCFG)
     rng = np.random.default_rng(0)
     vocab = cfg.clip.vocab_size
     ids = np.zeros((B_, W_), np.int32)
@@ -139,13 +142,13 @@ def test_npz_checkpoint_reader(setup, tmp_path, layout):
         flat["opt_state//mu//x"] = np.zeros(2, np.float32)
     path = str(tmp_path / "ckpt.npz")
     np.savez(path, **flat)
-    loaded = W.load_checkpoint(path, cfg)
+    loaded = W.load_checkpoint(path, PCFG)
     for name, t in model.state_dict().items():
         assert torch.equal(loaded.state_dict()[name], t), name
 
 
 def test_init_model_is_seeded_and_follows_init_params():
-    cfg = ModelConfig.tiny()
+    cfg = pconfig.ModelConfig.tiny()
     a, b = W.init_model(cfg, 0), W.init_model(cfg, 0)
     c = W.init_model(cfg, 1)
     for name, t in a.state_dict().items():
@@ -173,18 +176,24 @@ def test_init_model_is_seeded_and_follows_init_params():
 
 
 def test_port_imports_without_jax():
+    """Every module of the port and chip_smoke import with `jax` blocked,
+    and pull in neither JAX nor any module of the JAX package."""
     code = (
-        "import sys; sys.modules['jax'] = None\n"
-        "import neighborretr_tpu_torch.serving, neighborretr_tpu_torch.eval\n"
-        "import neighborretr_tpu_torch.models.weights_io\n"
-        "import neighborretr_tpu_torch.cli.index, neighborretr_tpu_torch.cli.search\n"
-        "import neighborretr_tpu_torch.cli.common\n"
-        "from neighborretr_tpu.data.tokenizer import ClipTokenizer\n"
-        "from neighborretr_tpu.data.loader import BatchLoader\n"
-        "assert not any(m == 'jax' or m.startswith('jax.') for m, v in "
-        "sys.modules.items() if v is not None)\n"
+        "import importlib, pkgutil, sys\n"
+        "sys.modules['jax'] = None\n"
+        "import neighborretr_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+        "pkg.__name__ + '.')]\n"
+        "assert len(names) > 30, names\n"
+        "for name in names + ['chip_smoke']:\n"
+        "    importlib.import_module(name)\n"
+        "bad = [m for m, v in sys.modules.items() if v is not None and "
+        "(m == 'jax' or m.startswith('jax.') or m == 'jaxlib' or "
+        "m == 'neighborretr_tpu' or m.startswith('neighborretr_tpu.'))]\n"
+        "assert not bad, bad\n"
         "print('ok')\n")
+    root = str(__import__("pathlib").Path(__file__).resolve().parents[1])
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=120)
+                         text=True, timeout=120, cwd=root)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"

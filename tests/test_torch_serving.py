@@ -17,10 +17,14 @@ from neighborretr_tpu.data.datasets.synthetic import SyntheticDataset
 from neighborretr_tpu.data.loader import BatchLoader
 from neighborretr_tpu.models import neighborretr as jm
 from neighborretr_tpu_torch import serving as pserving
+from neighborretr_tpu_torch.core import config as pconfig
 from neighborretr_tpu_torch.models import weights_io as W
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 Wd, F, N = 8, 4, 20
+# each package gets a configuration built from its own dataclasses
+PCFG = pconfig.Config(model=pconfig.ModelConfig.tiny(max_words=Wd,
+                                                     max_frames=F))
 QUERIES = ["a dog runs on the beach", "cooking pasta", "a car", "x y z",
            "people dance at night"]
 
@@ -45,14 +49,14 @@ def setup():
                           resolution=cfg.model.clip.image_resolution,
                           vocab_size=cfg.model.clip.vocab_size)
     params = jax.device_get(jm.init_params(jax.random.PRNGKey(0), cfg.model))
-    model = W.from_jax_params(params, cfg.model)
+    model = W.from_jax_params(params, PCFG.model)
 
     def loader():
         return BatchLoader(ds, 8, shuffle=False, drop_last=False, workers=0,
                            pad_to_batch=True)
 
     j_index = jserving.build_video_index(params, cfg, loader(), dataset=ds)
-    p_index = pserving.build_video_index(model, cfg, loader(), dataset=ds)
+    p_index = pserving.build_video_index(model, PCFG, loader(), dataset=ds)
     return cfg, ds, params, model, loader, j_index, p_index
 
 
@@ -81,7 +85,7 @@ def test_int8_index_matches_jax(setup):
     cfg, ds, params, model, loader, *_ = setup
     j8 = jserving.build_video_index(params, cfg, loader(), dataset=ds,
                                     feature_dtype="int8")
-    p8 = pserving.build_video_index(model, cfg, loader(), dataset=ds,
+    p8 = pserving.build_video_index(model, PCFG, loader(), dataset=ds,
                                     feature_dtype="int8")
     assert p8["v_feat"].dtype == np.int8
     assert np.abs(p8["v_feat"].astype(int) - j8["v_feat"]).max() <= 1
@@ -103,12 +107,12 @@ def test_search_matches_jax(setup):
     cfg, _, params, model, _, j_index, p_index = setup
     tok = StubTokenizer()
     want = jserving.Searcher(params, cfg, j_index, tok).search(QUERIES, 5)
-    got = pserving.Searcher(model, cfg, p_index, tok).search(QUERIES, 5)
+    got = pserving.Searcher(model, PCFG, p_index, tok).search(QUERIES, 5)
     assert [len(r) for r in got] == [5] * len(QUERIES)
     assert_same_hits(got, want)
     # similarity rows agree as well
     np.testing.assert_allclose(
-        pserving.Searcher(model, cfg, p_index, tok).similarities(QUERIES),
+        pserving.Searcher(model, PCFG, p_index, tok).similarities(QUERIES),
         jserving.Searcher(params, cfg, j_index, tok).similarities(QUERIES),
         atol=1e-4, rtol=0)
 
@@ -119,7 +123,7 @@ def test_indexes_cross_between_packages(setup, tmp_path):
     j_path = jserving.save_index(str(tmp_path / "jax_built"), j_index)
     p_path = pserving.save_index(str(tmp_path / "port_built"), p_index)
     # a JAX-built index loads and searches in the port ...
-    port_on_jax = pserving.search(model, cfg, pserving.load_index(j_path),
+    port_on_jax = pserving.search(model, PCFG, pserving.load_index(j_path),
                                   tok, QUERIES, topk=4)
     # ... and a port-built index in the JAX package
     jax_on_port = jserving.search(params, cfg, jserving.load_index(p_path),
@@ -131,7 +135,7 @@ def test_indexes_cross_between_packages(setup, tmp_path):
 
 def test_search_pads_queries_and_buckets_topk(setup):
     cfg, _, _, model, _, _, p_index = setup
-    s = pserving.Searcher(model, cfg, p_index, StubTokenizer(), query_batch=4)
+    s = pserving.Searcher(model, PCFG, p_index, StubTokenizer(), query_batch=4)
     one = s.search(QUERIES[:1], topk=3)
     five = s.search(QUERIES, topk=3)         # 5 → padded to 8 rows
     assert one[0] == five[0]
@@ -142,10 +146,11 @@ def test_search_pads_queries_and_buckets_topk(setup):
 
 def test_check_meta_rejects_other_weights(setup):
     cfg, _, _, _, _, _, p_index = setup
-    other = W.init_model(cfg.model, seed=5)
+    other = W.init_model(PCFG.model, seed=5)
     with pytest.raises(ValueError, match="DIFFERENT CHECKPOINT"):
-        pserving.Searcher(other, cfg, p_index, StubTokenizer())
-    wider = Config(model=ModelConfig.tiny(max_words=Wd, max_frames=F + 1))
+        pserving.Searcher(other, PCFG, p_index, StubTokenizer())
+    wider = pconfig.Config(model=pconfig.ModelConfig.tiny(
+        max_words=Wd, max_frames=F + 1))
     with pytest.raises(ValueError, match="different model config"):
         pserving.check_meta(p_index, wider)
 

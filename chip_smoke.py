@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's two main paths once on one NVIDIA GPU:
-serving (index → search) and training (bank fill → optimizer steps).
+"""Drive the PyTorch/CUDA port's three main paths once on one NVIDIA GPU:
+serving (index → search), the flagship train step (bank fill → optimizer
+steps at 24 words x 12 frames) and the long-token trainer (the train CLI at
+64 words x 64 frames: bank fill, steps, eval, checkpoints, resume).
 
     python3 chip_smoke.py [--profile]
 
@@ -9,8 +11,8 @@ Phases (each prints its own lines; any failure exits non-zero):
   2. build   — builds the hand-written kernels from csrc/ with nvcc, one
                process per source, all started together;
   3. K1      — the fused LN-attention sublayer against its plain version on
-               the card at the serving path's and the train step's shapes
-               (vision, text, temporal);
+               the card at the serving path's, the train step's and the
+               long-token trainer's shapes (vision, text, temporal);
   4. K2      — the similarity kernel against its plain version at
                Q=64, T=24, N=10,000, V=12, D=512;
   5. serving — indexes a 64-video synthetic corpus (one index batch) with
@@ -20,8 +22,8 @@ Phases (each prints its own lines; any failure exits non-zero):
                that all scores are finite, and that they match a run of the
                plain versions on the card;
   6. K3      — the sublayer's backward kernel against its plain backward at
-               the train step's three shapes, every output, run twice to
-               show bit-equal results;
+               the train step's and the long-token trainer's shapes, every
+               output, run twice to show bit-equal results;
   7. K4, K5  — the bank-centrality mean and the similarity backward against
                their plain versions at the train step's two shapes,
                (128, 24, 1920, 12, 512) over axis 1 and (1920, 24, 128, 12,
@@ -34,9 +36,26 @@ Phases (each prints its own lines; any failure exits non-zero):
                through the plain versions on the card, given the kernel
                run's cluster ids and neighbour masks: losses, gradient
                norms and parameter updates compared.  --profile adds one
-               profiled step (device time by kernel).
+               profiled step (device time by kernel);
+  9. K6, K7  — the blocked long-token similarity and its backward against
+               their plain versions at (128, 64, 1920, 64, 512) and (1920,
+               64, 128, 64, 512): real-valued features with ragged masks
+               and duplicated tokens through the wrapper, and inputs whose
+               logits are exact in fp32 for the elementwise check of all
+               four gradients; K7 run twice; the forward also timed at an
+               eval shape;
+ 10. trainer — `neighborretr_tpu_torch.cli.train` at the reference's
+               ActivityNet/DiDeMo recipe widths (64 words, 64 frames, batch
+               128, bank 1920, 8 micro-batches, bf16, depth not cut) on
+               synthetic data: bank fill and two steps, SIGTERM, a second
+               call that resumes from state_preempt.npz and takes the third
+               step, evaluates, saves and tests the best weights; launch
+               counts of all seven kernels, finite losses, R@K, the files
+               read back; then the same three steps uninterrupted through
+               the plain versions (cluster ids and neighbour masks
+               replayed): losses, gradient norms and updates compared.
 The line before the last is a JSON object with, for each kernel, its
-launches on each main path (all five counts are set to 0 before each path
+launches on each main path (all seven counts are set to 0 before each path
 and read after it), error, times and roofline bound; the last line is the
 device record.
 
@@ -95,6 +114,34 @@ K3_SUM_TOL = 2 ** -7
 TRAIN_LOSS_RTOL = 1e-2
 TRAIN_GRAD_NORM_RTOL = (1e-2, 3e-2)      # steps 1-2, step 3
 TRAIN_UPDATE_REL_L2 = 0.15
+# The long-token trainer's kernel runs against reference runs of the same
+# three steps, (loss, gradient norm) by step and the updates' relative L2.
+# KP: K1/K3 in the towers, the plain blocked similarity.  Steps 1 and 2 are
+# taken at bit-identical weights (the schedule's first update is zero) on
+# bit-identical features, so the losses differ by K6's fp32 rounding only
+# and the gradients by what one kernel run differs from its own repeat
+# (torch's float-atomic scatter-adds: 0.6-0.8% of the gradient, 1.5e-4 and
+# 2.8e-4 of its norm; scripts/torch_step_gap.py --long --batch 128
+# --micro_batches 8 on an H100); step 3 follows one update.
+KP_TOL = ((1e-4, 1e-4, 1e-2), (3e-3, 3e-3, 1e-2), 0.05)
+# PLAIN: the plain versions of everything, cluster ids and neighbour masks
+# replayed.  At this shape replaying them leaves more than at 24 words x 12
+# frames: the same script finds the plain gradient 0.014 (step 1) and 0.126
+# (step 2) away from the kernels' as a whole and 0.8% / 2.1% in norm, with
+# K6/K7 cleared (swapping only them for their plain version stays inside
+# the repeat's noise) and the similarity's winners shown not to matter
+# (replaying them changes nothing): the towers' bf16 rounding, amplified by
+# the uniform loss's Sinkhorn on 128 x 128 unnormalised logits at random
+# weights.  Observed in this script: norms 1.5% / 4.0% / 0.05%, losses up to
+# 1.8e-2 (step 3), updates up to 0.076.
+LONG_PLAIN_TOL = ((1e-2, 1e-2, 4e-2), (8e-2, 8e-2, 8e-2), 0.15)
+# K7's feature gradients on real-valued inputs, as a whole tensor: the
+# kernel and cuBLAS round a logit differently in its last bit, and where a
+# max's runner-up lies that close the two versions route its gradient to
+# different tokens; one such row of the 31 million maxima at the bank shapes
+# moves the distance by ~4e-4 (observed on an H100: none, 4e-7..7e-7).  On
+# inputs with exact logits all four gradients are held elementwise.
+K7_REAL_REL_L2 = 1e-3
 
 # NVIDIA's data sheet for the H100 SXM: dense bf16 tensor-core rate, fp32
 # rate outside the tensor cores, device memory rate
@@ -162,18 +209,22 @@ def phase_device():
     return card
 
 
-LIBS = ("interaction_similarity", "ln_attention_residual",
-        "ln_attention_residual_bwd")
+LIBS = ("interaction_similarity", "interaction_similarity_blocked",
+        "ln_attention_residual", "ln_attention_residual_bwd")
 
 
 def kernel_wrappers():
-    """The five wrappers by kernel; each counts its launches in `.launches`."""
+    """The seven wrappers by kernel; each counts its launches in
+    `.launches`."""
     from neighborretr_tpu_torch.ops import block_attention as BA
     from neighborretr_tpu_torch.ops import similarity as S
+    from neighborretr_tpu_torch.ops import similarity_blocked as SB
     return {"K1": BA.ln_attention_residual,
             "K2": S.fused_interaction_similarity,
             "K3": BA.ln_attention_residual_bwd,
-            "K4": S.fused_interaction_mean, "K5": S.fused_similarity_bwd}
+            "K4": S.fused_interaction_mean, "K5": S.fused_similarity_bwd,
+            "K6": SB.fused_interaction_similarity_blocked,
+            "K7": SB.fused_blocked_similarity_bwd}
 
 
 def counted(fn):
@@ -230,14 +281,18 @@ def phase_k1(g):
     print("== phase 3: K1 ln_attention_residual vs its plain version")
     from neighborretr_tpu_torch.ops.block_attention import (
         ln_attention_residual, ln_attention_residual_plain)
-    # the serving run's shapes (a 64-video index batch, 64 queries), then
-    # one train step's at batch 128
+    # the serving run's shapes (a 64-video index batch, 64 queries), one
+    # train step's at batch 128, then the long-token trainer's: 64 words,
+    # 64 frames, the vision tower on one micro-batch of 16 videos
     shapes = [("vision", 768, 50, 768, 12, None),
               ("text", 64, 24, 512, 8, "causal"),
               ("temporal", 64, 12, 512, 8, "keypad"),
               ("vision train", 1536, 50, 768, 12, None),
               ("text train", 128, 24, 512, 8, "causal"),
-              ("temporal train", 128, 12, 512, 8, "keypad")]
+              ("temporal train", 128, 12, 512, 8, "keypad"),
+              ("vision long", 1024, 50, 768, 12, None),
+              ("text long", 128, 64, 512, 8, "causal"),
+              ("temporal long", 128, 64, 512, 8, "keypad")]
     rows = {}
     for name, N, L, D, H, kind in shapes:
         args, bias = _attn_inputs(g, N, L, D, kind)
@@ -356,7 +411,7 @@ def phase_serving():
     n_batches = -(-n_videos // batch)
     want = {"K1": (n_batches * (m.clip.vision_layers + m.temporal_layers)
                    + len(requests) * m.clip.transformer_layers),
-            "K2": len(requests), "K3": 0, "K4": 0, "K5": 0}
+            "K2": len(requests), "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0}
     print(f"  launches in the serving run: {counts} (expected {want}: per "
           f"index batch K1 = {m.clip.vision_layers + m.temporal_layers}, per "
           f"request K1 = {m.clip.transformer_layers} and K2 = 1; no backward "
@@ -394,10 +449,15 @@ def phase_k3(g):
     print("== phase 6: K3 ln_attention_residual_bwd vs its plain backward")
     from neighborretr_tpu_torch.ops.block_attention import (
         ln_attention_residual_bwd, ln_attention_residual_bwd_plain)
-    # one train step's shapes at batch 128: 1536 frames, 128 captions/videos
+    # one train step's shapes at batch 128 (1536 frames, 128 captions and
+    # videos), then the long-token trainer's (64 words, 64 frames, the
+    # vision tower on one micro-batch of 16 videos)
     shapes = [("vision", 1536, 50, 768, 12, None),
               ("text", 128, 24, 512, 8, "causal"),
-              ("temporal", 128, 12, 512, 8, "keypad")]
+              ("temporal", 128, 12, 512, 8, "keypad"),
+              ("vision long", 1024, 50, 768, 12, None),
+              ("text long", 128, 64, 512, 8, "causal"),
+              ("temporal long", 128, 64, 512, 8, "keypad")]
     names = ("dln_w", "dln_b", "dw_qkv", "db_qkv", "dw_out", "db_out")
     rows = {}
     for name, N, L, D, H, kind in shapes:
@@ -519,13 +579,17 @@ LOSS_TERMS = ("loss", "centrality_loss", "uniform_loss", "neighbor_loss",
 
 
 @contextlib.contextmanager
-def decisions(log: list, replay=None):
+def decisions(log: list, replay=None, routing=None, replay_routing=None):
     """Records every discrete decision of one forward into `log` (the four
     DPC-KNN cluster assignments, then the neighbor loss's two top-k masks),
     or hands back the ones in `replay` instead of taking them (a None there
-    is taken anew)."""
+    is taken anew).  routing: a dict that receives, by matrix shape (A, B),
+    the winners the blocked similarity's backward routes by (i1 over v per
+    text token, i2 over t per video token); replay_routing: such a dict,
+    whose winners a plain backward then routes by instead of its own."""
     from neighborretr_tpu_torch.losses import hubness
     from neighborretr_tpu_torch.models import ctm
+    from neighborretr_tpu_torch.ops import similarity_blocked as SB
     real_cluster, real_masks = ctm.cluster_dpc_knn, hubness.neighbor_masks
     feed = iter(replay) if replay is not None else None
 
@@ -538,12 +602,29 @@ def decisions(log: list, replay=None):
             return out
         return fn
 
+    def hook(i1, i2, videos, n_videos):
+        key = (i1.shape[0], n_videos)
+        if replay_routing is not None:
+            r1, r2 = replay_routing[key]
+            return r1[:, videos], r2[:, videos]
+        if key not in routing:
+            routing[key] = tuple(
+                torch.empty((x.shape[0], n_videos, x.shape[2]),
+                            dtype=torch.uint8, device=x.device)
+                for x in (i1, i2))
+        routing[key][0][:, videos] = i1
+        routing[key][1][:, videos] = i2
+        return None
+
     ctm.cluster_dpc_knn = replayed(real_cluster)
     hubness.neighbor_masks = replayed(real_masks)
+    if routing is not None or replay_routing is not None:
+        SB.routing_hook = hook
     try:
         yield
     finally:
         ctm.cluster_dpc_knn, hubness.neighbor_masks = real_cluster, real_masks
+        SB.routing_hook = None
 
 
 def phase_train(profile: bool, card: str):
@@ -626,7 +707,8 @@ def phase_train(profile: bool, card: str):
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     want = {"K1": (n_fill + n_steps) * layers, "K2": 0,
-            "K3": n_steps * layers, "K4": 2 * n_steps, "K5": 2 * n_steps}
+            "K3": n_steps * layers, "K4": 2 * n_steps, "K5": 2 * n_steps,
+            "K6": 0, "K7": 0}
     print(f"  launches in the train run: {counts} (expected {want}: per step "
           f"K1 = K3 = {layers}, K4 = K5 = 2 calls; per fill batch K1 = "
           f"{layers})")
@@ -716,6 +798,431 @@ def phase_train(profile: bool, card: str):
     return counts, ms, pms
 
 
+def _blocked_inputs(g, A, T, B, V, D, exact: bool):
+    """Inputs of the blocked similarity with ragged masks and duplicated
+    tokens.  exact=False: real-valued features for the wrapper (t_feat,
+    v_feat, t_mask, v_mask, tw, vw).  exact=True: prepared inputs (tn, vn,
+    tw, vw) whose entries are multiples of 1/64 up to 1/16, so every logit
+    (a multiple of 1/4096 below 2, cosine-sized) is exact in fp32 in any
+    summation order: the kernel and the plain version then see the same
+    maxima and the same (many) ties, and their gradients can be held
+    elementwise."""
+    dev = "cuda"
+    tlen = torch.randint(4, T + 1, (A,), generator=g, device=dev)
+    vlen = torch.randint(2, V + 1, (B,), generator=g, device=dev)
+    tm = (torch.arange(T, device=dev)[None] < tlen[:, None]).float()
+    vm = (torch.arange(V, device=dev)[None] < vlen[:, None]).float()
+    tw = torch.softmax(torch.randn(A, T, generator=g, device=dev)
+                       .masked_fill(tm == 0, -9e15), -1)
+    vw = torch.softmax(torch.randn(B, V, generator=g, device=dev)
+                       .masked_fill(vm == 0, -9e15), -1)
+    if exact:
+        tf = torch.randint(-4, 5, (A, T, D), generator=g, device=dev) / 64.0
+        vf = torch.randint(-4, 5, (B, V, D), generator=g, device=dev) / 64.0
+    else:
+        tf = torch.randn(A, T, D, generator=g, device=dev)
+        vf = torch.randn(B, V, D, generator=g, device=dev)
+    vf[:, 1] = vf[:, 0]              # ties among live logits over v
+    tf[:, 3] = tf[:, 2]              # and over t
+    if exact:
+        return ((tf * tm[..., None]).contiguous(),
+                (vf * vm[..., None]).contiguous(), tw, vw)
+    return tf, vf, tm, vm, tw, vw
+
+
+def phase_k6_k7(g):
+    print("== phase 9: K6 interaction_similarity_blocked, K7 its backward vs "
+          "their plain versions")
+    from neighborretr_tpu_torch.ops import similarity as S
+    from neighborretr_tpu_torch.ops import similarity_blocked as SB
+    names = ("dtn", "dvn", "dtw", "dvw")
+    k6, k7 = {}, {}
+    for A, T, B, V, D in ((128, 64, 1920, 64, 512), (1920, 64, 128, 64, 512)):
+        tag = f"A={A} T={T} B={B} V={V} D={D}"
+        flops = 2 * A * T * B * V * D
+
+        # through the wrapper, real-valued: forward, and the gradients of a
+        # cotangent of the neighbour loss's scale
+        args = _blocked_inputs(g, A, T, B, V, D, exact=False)
+        cot = torch.randn(A, B, generator=g, device="cuda")
+
+        def grads(kernels):
+            leaves = [a.clone().requires_grad_(i in (0, 1, 4, 5))
+                      for i, a in enumerate(args)]
+            out = SB.fused_interaction_similarity_blocked(*leaves,
+                                                          kernels=kernels)
+            out.backward(cot)
+            return out.detach(), [leaves[i].grad for i in (0, 1, 4, 5)]
+
+        got, gk = grads(True)
+        torch.cuda.synchronize()
+        want, gp = grads(False)
+        err6 = compare(f"K6 {tag}", got, want, K2_TOL)
+        # the weights' gradients depend on the maxima only
+        err7 = max(compare(f"K7 {tag} {n} (real-valued)", a, b, K2_TOL)
+                   for n, a, b in zip(names[2:], gk[2:], gp[2:]))
+        # the features' gradients also on WHICH token attains each max: a
+        # runner-up within the two versions' rounding difference (~1e-8)
+        # routes otherwise and moves one row by 0.5·g·tw·|Δv|; held as a
+        # whole
+        for n, a, b in zip(names[:2], gk[:2], gp[:2]):
+            rel = ((a - b).norm() / b.norm()).item()
+            ok = bool(torch.isfinite(a).all()) and rel <= K7_REAL_REL_L2
+            print(f"  K7 {tag} d{n[1:]} of the features (real-valued): rel "
+                  f"L2 {rel:.3g} (tolerance {K7_REAL_REL_L2:g}) "
+                  f"{'ok' if ok else 'FAILED'}")
+            if not ok:
+                raise SystemExit(f"K7 {n} disagrees with its plain version")
+
+        # exact logits: all four gradients elementwise, twice for the bits
+        tn, vn, tw, vw = _blocked_inputs(g, A, T, B, V, D, exact=True)
+        out, m1, i1 = SB._blocked_fwd(tn, vn, tw, vw, save=True)
+        torch.cuda.synchronize()
+        err6 = max(err6, compare(
+            f"K6 {tag} (exact logits)", out,
+            SB.similarity_blocked_plain(tn, vn, tw, vw), K2_TOL))
+        res = SB.fused_blocked_similarity_bwd(tn, vn, tw, vw, cot, m1, i1)
+        torch.cuda.synchronize()
+        plain = SB.similarity_blocked_bwd_plain(tn, vn, tw, vw, cot)
+        err7 = max(err7, max(compare(f"K7 {tag} {n} (exact logits)", a, b,
+                                     K2_TOL)
+                             for n, a, b in zip(names, res, plain)))
+        again = SB.fused_blocked_similarity_bwd(tn, vn, tw, vw, cot, m1, i1)
+        if not all(torch.equal(a, b) for a, b in zip(res, again)):
+            raise SystemExit("K7: two runs differ in their bits")
+        print(f"  K7 {tag}: two runs bit-equal in all 4 outputs")
+        del plain, again
+
+        prep = S._prepare(*args, False)
+        ms = time_ms(lambda: SB._blocked_fwd(*prep, save=True), 10)
+        plain_ms = time_ms(lambda: SB.similarity_blocked_plain(*prep), 3)
+        b_ms, b_by = bound(flops, PEAK_FP32, nbytes(*prep, out, m1, i1))
+        print(f"  K6 {tag}: kernel {ms:.4f} ms (residuals saved), plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        k6[(A, B)] = (err6, ms, plain_ms, b_ms, b_by)
+        _, m1, i1 = SB._blocked_fwd(*prep, save=True)
+        ms = time_ms(lambda: SB.fused_blocked_similarity_bwd(*prep, cot, m1,
+                                                             i1), 10)
+        plain_ms = time_ms(lambda: SB.similarity_blocked_bwd_plain(*prep, cot),
+                           2)
+        # logits once, then (T + V) routed rows per pair on each side
+        b_ms, b_by = bound(flops + 4 * A * B * (T + V) * D, PEAK_FP32,
+                           nbytes(*prep, cot, m1, i1, *res))
+        print(f"  K7 {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})")
+        k7[(A, B)] = (err7, ms, plain_ms, b_ms, b_by)
+        del res, m1, i1, out
+
+    # the forward at an eval shape: 1,024 captions against 1,024 videos
+    n = 1024
+    args = _blocked_inputs(g, n, 64, n, 64, 512, exact=False)
+    prep = S._prepare(*args, False)
+    out = SB._blocked_fwd(*prep, save=False)[0]
+    torch.cuda.synchronize()
+    rows = slice(0, 128)         # the plain version on the first text block
+    err = compare(f"K6 eval shape [{n}, {n}], first 128 rows", out[rows],
+                  SB.similarity_blocked_plain(prep[0][rows], prep[1],
+                                              prep[2][rows], prep[3]), K2_TOL)
+    ms = time_ms(lambda: SB._blocked_fwd(*prep, save=False), 5)
+    plain_ms = time_ms(lambda: [SB.similarity_blocked_plain(
+        prep[0][s:s + 128], prep[1], prep[2][s:s + 128], prep[3])
+        for s in range(0, n, 128)], 2)
+    b_ms, b_by = bound(2 * n * 64 * n * 64 * 512, PEAK_FP32,
+                       nbytes(*prep, out))
+    print(f"  K6 eval A=B={n}: kernel {ms:.4f} ms, plain (8 row blocks) "
+          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    k6[(n, n)] = (err, ms, plain_ms, b_ms, b_by)
+    return k6, k7
+
+
+TRAINER_ARGV = [
+    "--datatype", "synthetic", "--clip_checkpoint", "random",
+    "--max_words", "64", "--max_frames", "64", "--batch_size", "128",
+    "--mb_batch", "15", "--micro_batches", "8", "--epochs", "1",
+    "--synthetic_size", "384", "--batch_size_val", "256", "--n_display", "1",
+    "--mid_epoch_eval", "0", "--workers", "8", "--seed", "42"]
+
+
+def phase_trainer(profile: bool, card: str):
+    print("== phase 10: long-token trainer (cli/train.py, ViT-B/32 width, "
+          "bf16, 64 words x 64 frames, batch 128, bank 1920, 8 micro-batches)")
+    import shutil
+    import signal
+    import tempfile
+
+    from neighborretr_tpu_torch.cli import train as cli
+    from neighborretr_tpu_torch.core import checkpoint as ckpt
+    from neighborretr_tpu_torch.models import weights_io
+    from neighborretr_tpu_torch.train import loop as LOOP
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    argv = TRAINER_ARGV + ["--output_dir", out_dir]
+    args = cli.parse_args(argv)
+    cfg = cli.build_config(args)
+    m, B = cfg.model, cfg.train.batch_size
+    layers = (m.clip.vision_layers + m.clip.transformer_layers
+              + m.temporal_layers)
+    n_micro, n_steps = cfg.train.micro_batches, args.synthetic_size // B
+    n_test = max(32, args.batch_size_val)
+    print(f"  {' '.join(argv[:-2])}")
+    print(f"  {n_steps} steps per epoch, fill of {n_steps} batches into a "
+          f"bank of {cfg.train.memory_bank_capacity}, test set of {n_test} "
+          f"pairs, "
+          f"{layers} attention sublayers per pass, sim_dtype {m.sim_dtype}")
+    start = {k: v.clone() for k, v in weights_io.init_model(
+        m, cfg.train.seed, "cuda").state_dict().items()
+        if k in TRAIN_COMPARED}
+
+    real_step = LOOP.train_step
+
+    def instrumented(record, stop_after=None, replay=None):
+        """train/loop.py's train_step, timed, its metrics and discrete
+        decisions recorded per global step; SIGTERM after `stop_after`."""
+        def step(state, batch, *a, **kw):
+            i = state.step
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            log = []
+            with decisions(log, replay[i] if replay else None):
+                state, met = real_step(state, batch, *a, **kw)
+            torch.cuda.synchronize()
+            record[i] = dict(ms=1e3 * (time.perf_counter() - t0),
+                             decisions=log,
+                             metrics={k: v.item() for k, v in met.items()})
+            if stop_after is not None and state.step == stop_after:
+                signal.raise_signal(signal.SIGTERM)
+            return state, met
+        return step
+
+    def rows(kind):
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            return [r for r in map(json.loads, f) if r["kind"] == kind]
+
+    try:
+        k = {}
+        torch.cuda.reset_peak_memory_stats()
+
+        def interrupted_then_resumed():
+            LOOP.train_step = instrumented(k, stop_after=n_steps - 1)
+            t0 = time.perf_counter()
+            cut, _ = cli.main(argv)
+            t_cut = time.perf_counter() - t0
+            if cut.step != n_steps - 1:
+                raise SystemExit(f"the interrupted run stopped at step "
+                                 f"{cut.step}, not {n_steps - 1}")
+            ppath = os.path.join(out_dir, "state_preempt.npz")
+            with np.load(ppath) as f:
+                saved = int(f["step"])
+                keys = len(f.files)
+            print(f"  SIGTERM after step {cut.step}: {ppath} holds step "
+                  f"{saved} in {keys} arrays, "
+                  f"{os.path.getsize(ppath) / 2 ** 30:.2f} GiB; run took "
+                  f"{t_cut:.1f} s")
+            if saved != n_steps - 1:
+                raise SystemExit("state_preempt.npz holds the wrong step")
+            del cut
+            LOOP.train_step = instrumented(k)
+            t0 = time.perf_counter()
+            state, tracker = cli.main(argv + ["--resume", "auto"])
+            return state, tracker, t_cut, time.perf_counter() - t0
+
+        try:
+            (state, tracker, t_cut, t_res), counts = counted(
+                interrupted_then_resumed)
+        finally:
+            LOOP.train_step = real_step
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        # per fill batch and per eval batch one pass of the towers; per step
+        # two passes of every micro-batch forward and one backward, the
+        # blocked similarity three times each way; one more per evaluation
+        n_evals = 2                # the epoch's, and the final test
+        eval_batches = -(-n_test // args.batch_size_val)
+        want = {"K1": (n_steps + n_evals * eval_batches) * layers
+                + n_steps * 2 * n_micro * layers,
+                "K2": 0, "K3": n_steps * n_micro * layers, "K4": 0, "K5": 0,
+                "K6": 3 * n_steps + n_evals, "K7": 3 * n_steps}
+        print(f"  launches in the trainer's two runs: {counts} (expected "
+              f"{want}: per step K1 = 2 x {n_micro} x {layers}, K3 = "
+              f"{n_micro} x {layers}, K6 = K7 = 3; per fill or eval batch K1 "
+              f"= {layers}; per evaluation K6 = 1)")
+        if counts != want:
+            raise SystemExit("launch counts do not match the trainer path")
+        if sorted(k) != list(range(n_steps)):
+            raise SystemExit(f"steps taken: {sorted(k)}")
+        for i in range(n_steps):
+            met = k[i]["metrics"]
+            print(f"  step {i + 1}: " + " ".join(f"{n} {v:.5f}"
+                                                  for n, v in met.items()))
+            if not all(np.isfinite(v) for v in met.values()):
+                raise SystemExit(f"non-finite metric at step {i + 1}")
+        train_rows = rows("train")
+        # the interrupted run leaves before it logs its last step
+        if [r["step"] for r in train_rows] != \
+                [s for s in range(1, n_steps + 1) if s != n_steps - 1]:
+            raise SystemExit("metrics.jsonl does not hold the steps expected")
+        for r in train_rows:
+            if abs(r["loss"] - k[r["step"] - 1]["metrics"]["loss"]) > 1e-4:
+                raise SystemExit("metrics.jsonl disagrees with the step")
+        waits = [r["data_wait_s"] for r in train_rows]
+        step_ms = [k[i]["ms"] for i in range(n_steps)]
+        ms = statistics.median(step_ms)
+        print(f"  steps {' / '.join(f'{t:.1f}' for t in step_ms)} ms, median "
+              f"{ms:.1f} ms/step = {B / ms * 1e3:.2f} pairs/s on {card}; "
+              f"loader wait before the logged steps "
+              f"{' / '.join(f'{w:.3f}' for w in waits)} s; peak device memory "
+              f"{peak_gib:.2f} GiB; resumed run {t_res:.1f} s")
+        log = open(os.path.join(out_dir, "log.txt")).read()
+        for line in log.splitlines():
+            if "memory bank filled" in line or "Eval timing" in line:
+                print("  " + line.split(": ", 1)[1])
+        for word in ("exact mid-epoch resume at batch "
+                     f"{n_steps - 1}/{n_steps}", "Final test on best"):
+            if word not in log:
+                raise SystemExit(f"log.txt lacks '{word}'")
+        ev = rows("eval")
+        if len(ev) != 1 or not 0 <= ev[0]["t2v"]["R1"] <= 100:
+            raise SystemExit("no evaluation row in metrics.jsonl")
+        print(f"  eval after step {ev[0]['step']}: t2v R@1 "
+              f"{ev[0]['t2v']['R1']:.2f} R@5 {ev[0]['t2v']['R5']:.2f} R@10 "
+              f"{ev[0]['t2v']['R10']:.2f} MedianR {ev[0]['t2v']['MR']:.1f}; "
+              f"v2t R@1 {ev[0]['v2t']['R1']:.2f} R@5 {ev[0]['v2t']['R5']:.2f} "
+              f"(random weights, {n_test} pairs; best mean R@1 "
+              f"{tracker.best_mean_r1:.2f})")
+
+        # the files, read back
+        if state.step != n_steps or state.opt.step != n_steps:
+            raise SystemExit(f"final state at step {state.step}")
+        name = "clip.text_projection"
+        final = {n: state.model.state_dict()[n].clone()
+                 for n in TRAIN_COMPARED}
+        with np.load(os.path.join(out_dir, "state_epoch0.npz")) as f:
+            if int(f["step"]) != n_steps or int(f["opt_step"]) != n_steps:
+                raise SystemExit("state_epoch0.npz holds the wrong step")
+            saved = torch.as_tensor(f["params//clip//text//text_projection"])
+            bank_ids = f["bank//ind"]
+        if not torch.equal(saved, final[name].cpu()):
+            raise SystemExit("state_epoch0.npz is not the final state")
+        held = min(2 * B * n_steps, len(bank_ids))   # the fill, then the steps
+        if (bank_ids[:held] < 0).any() or (bank_ids[held:] != -1).any():
+            raise SystemExit("the saved bank is not fill + steps over empty")
+        best = weights_io.read_npz_params(os.path.join(out_dir, "best.npz"))
+        if not torch.equal(torch.as_tensor(best["clip"]["text"]
+                                           ["text_projection"]),
+                           final[name].cpu()):
+            raise SystemExit("best.npz is not the evaluated weights")
+        with open(os.path.join(out_dir, "best_metrics.json")) as f:
+            if json.load(f)["best_mean_r1"] != tracker.best_mean_r1:
+                raise SystemExit("best_metrics.json disagrees")
+        if ckpt.latest_resumable(out_dir) != os.path.join(
+                out_dir, "state_epoch0.npz"):
+            raise SystemExit("latest_resumable does not find the epoch state")
+        for n in TRAIN_COMPARED:
+            if torch.equal(final[n], start[n]):
+                raise SystemExit(f"{n} did not move in {n_steps} steps")
+        print(f"  state_preempt.npz, state_epoch0.npz, best.npz and "
+              f"best_metrics.json read back; {len(TRAIN_COMPARED)} compared "
+              "parameters moved")
+
+        if profile:
+            from neighborretr_tpu_torch.data.datasets.synthetic import \
+                make_synthetic_batch
+            from neighborretr_tpu_torch.train import step as TS
+            from torch.profiler import ProfilerActivity, profile as prof
+            batch = TS.to_device(make_synthetic_batch(m, B, seed=9), "cuda")
+            state.bank = state.bank._replace(
+                feat_t=torch.randn_like(state.bank.feat_t),
+                feat_v=torch.randn_like(state.bank.feat_v),
+                mask_t=torch.ones_like(state.bank.mask_t),
+                mask_v=torch.ones_like(state.bank.mask_v))
+            with prof(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as trace:
+                TS.train_step(state, batch, cfg, 3 * n_steps,
+                              LOOP.step_generator(0, 0, "cuda"))
+                torch.cuda.synchronize()
+            print("  profile of one long-token train step (device time by "
+                  "kernel):")
+            print(trace.key_averages().table(
+                sort_by="cuda_time_total", row_limit=25,
+                max_name_column_width=60))
+            del batch
+        del state
+
+        def reference_run(kernels, plain_similarity):
+            """The same three steps, uninterrupted, from the same weights
+            and batches, with the kernel runs' cluster ids and neighbour
+            masks → (per-step records, final compared parameters, s)."""
+            from neighborretr_tpu_torch.models import neighborretr as M
+            shutil.rmtree(out_dir, ignore_errors=True)
+            rec = {}
+            LOOP.train_step = instrumented(
+                rec, replay={i: k[i]["decisions"] for i in k})
+            real_sim = M.local_similarity
+            if plain_similarity:
+                M.local_similarity = (
+                    lambda model, tf, vf, tm, vm, kernels=True:
+                    real_sim(model, tf, vf, tm, vm, False))
+            try:
+                t0 = time.perf_counter()
+                st, _ = LOOP.run_training(
+                    cfg, *cli.build_datasets(args, cfg), device="cuda",
+                    kernels=kernels)
+                seconds = time.perf_counter() - t0
+            finally:
+                LOOP.train_step, M.local_similarity = real_step, real_sim
+            sd = st.model.state_dict()
+            return rec, {n: sd[n].clone() for n in TRAIN_COMPARED}, seconds
+
+        def held(label, rec, params, loss_tol, norm_tol, update_tol):
+            """The kernel runs against a reference run: loss terms,
+            gradient norms and parameter updates; tolerances by step."""
+            failed = []
+            for i in range(n_steps):
+                a, b = k[i]["metrics"], rec[i]["metrics"]
+                for n in LOSS_TERMS + ("grad_norm",):
+                    tol = (norm_tol if n == "grad_norm" else loss_tol)[i]
+                    rel = abs(a[n] - b[n]) / max(abs(b[n]), 1e-6)
+                    ok = np.isfinite(b[n]) and rel <= tol
+                    print(f"  step {i + 1} {n}: kernels"
+                          f"{' (resumed)' if i == n_steps - 1 else ''} "
+                          f"{a[n]:.6f} {label} {b[n]:.6f} rel {rel:.3g} "
+                          f"(tolerance {tol:g}) {'ok' if ok else 'FAILED'}")
+                    if not ok:
+                        failed.append(f"step {i + 1} {n}")
+            for name in TRAIN_COMPARED:
+                dk = (final[name] - start[name]).float()
+                dp = (params[name] - start[name]).float()
+                rel = ((dk - dp).norm() / dp.norm().clamp_min(1e-30)).item()
+                ok = rel <= update_tol
+                print(f"  update of {name}: |Δ| {dp.norm().item():.4g}, "
+                      f"kernels vs {label} rel L2 {rel:.3g} (tolerance "
+                      f"{update_tol:g}) {'ok' if ok else 'FAILED'}")
+                if not ok:
+                    failed.append(f"update of {name}")
+            if failed:
+                raise SystemExit(f"the trainer's kernel runs disagree with the "
+                                 f"{label} run: " + ", ".join(failed))
+
+        print("  the same three steps, uninterrupted, K1/K3 in the towers but "
+              "the PLAIN blocked similarity (the same features reach K6/K7 "
+              "and their plain version):")
+        rec, params, seconds = reference_run(True, plain_similarity=True)
+        held("plain-similarity", rec, params, *KP_TOL)
+        print(f"  plain-similarity run: {seconds:.1f} s in all")
+        del rec, params
+
+        print("  the same three steps, uninterrupted, through the plain "
+              "versions of everything on the card:")
+        p, params, t_plain = reference_run(False, plain_similarity=False)
+        held("plain", p, params, *LONG_PLAIN_TOL)
+        pms = statistics.median(p[i]["ms"] for i in p)
+        print(f"  plain run: {t_plain:.1f} s in all, median {pms:.1f} "
+              "ms/step")
+        return counts, ms, pms
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
 def main():
     profile = "--profile" in sys.argv[1:]
     card = phase_device()
@@ -727,6 +1234,8 @@ def main():
     k3_rows = phase_k3(g)
     k4, k5 = phase_k4_k5(g)
     train_counts, _, _ = phase_train(profile, card)
+    k6, k7 = phase_k6_k7(g)
+    trainer_counts, _, _ = phase_trainer(profile, card)
 
     def kernel(name, source, replaces, launches, row, timed_at, **extra):
         err, ms, plain_ms, bound_ms, bound_by = row
@@ -739,8 +1248,9 @@ def main():
                 "bound_by": bound_by, "library_ms": None,
                 "timed_at": timed_at, **extra}
 
-    def paths(k):     # this run's counts on the two main paths
-        return {"serving": serving_counts[k], "train": train_counts[k]}
+    def paths(k):     # this run's counts on the three main paths
+        return {"serving": serving_counts[k], "train": train_counts[k],
+                "trainer": trainer_counts[k]}
 
     def by_shape(rows):
         return {str(k): list(r[1:]) for k, r in rows.items()}
@@ -773,6 +1283,18 @@ def main():
                paths("K5"), worst(k5, 1),
                "A=128 T=24 B=1920 V=12 D=512 (the axis=1 centrality)",
                ms_plain_bound_by_shape=by_shape(k5)),
+        kernel("interaction_similarity_blocked",
+               "interaction_similarity_blocked.cu",
+               "pallas_similarity_blocked.py:172",
+               paths("K6"), worst(k6, (128, 1920)),
+               "A=128 T=64 B=1920 V=64 D=512, residuals saved",
+               ms_plain_bound_by_shape=by_shape(k6)),
+        kernel("interaction_similarity_blocked_bwd",
+               "interaction_similarity_blocked.cu",
+               "pallas_similarity_blocked.py:342",
+               paths("K7"), worst(k7, (128, 1920)),
+               "A=128 T=64 B=1920 V=64 D=512",
+               ms_plain_bound_by_shape=by_shape(k7)),
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,8 @@ centrality.  Module names follow the reference's state dict
 
 Kernel dispatch: a CPU tensor runs the plain PyTorch versions; a CUDA
 tensor runs the hand-written kernels (ops/block_attention.py,
-ops/similarity.py), and the attention kernel raises under
+ops/similarity.py, ops/similarity_blocked.py), and the attention kernel
+raises under
 compute_dtype='float32'.  `kernels=False` runs the plain versions on any
 device: the reference a kernel run is held to.
 """
@@ -23,8 +24,8 @@ from torch import nn
 from ..core.config import ModelConfig
 from ..ops.similarity import (fused_interaction_mean,
                               fused_interaction_similarity, global_similarity,
-                              interaction_similarity,
-                              interaction_similarity_chunked)
+                              interaction_similarity)
+from ..ops.similarity_blocked import fused_interaction_similarity_blocked
 from ..ops.video import normalize_frames
 from . import ctm
 from . import layers as L
@@ -108,26 +109,25 @@ def token_weights(mlp: nn.Sequential, feat: torch.Tensor,
 
 def local_similarity(model: NeighborRetr, t_feat, v_feat, t_mask, v_mask,
                      kernels: bool = True) -> torch.Tensor:
-    """The reference's local_level: S [A, B] with v2t = S.T."""
+    """The reference's local_level: S [A, B] with v2t = S.T.  Long-token
+    shapes (T·V >= 2048, the 64-word / 64-frame recipes) take the blocked
+    form, which never builds the whole [A, T, B, V] logits: its kernels on
+    a CUDA tensor, its plain chunked version on the CPU or under
+    `kernels=False`."""
     tw = token_weights(model.text_weight_fc, t_feat, t_mask)
     vw = token_weights(model.video_weight_fc, v_feat, v_mask)
     T, V = t_feat.shape[1], v_feat.shape[1]
     if T * V >= 2048:
-        # long-token shapes: the TPU package runs its blocked kernel
-        # (pallas_similarity_blocked.py) here, which is not ported yet
-        if kernels and t_feat.is_cuda:
-            raise NotImplementedError(
-                f"T·V = {T * V} >= 2048 needs the blocked similarity kernel, "
-                "which this port does not have yet")
-        return interaction_similarity_chunked(t_feat, v_feat, t_mask, v_mask,
-                                              tw, vw)
+        return fused_interaction_similarity_blocked(
+            t_feat, v_feat, t_mask, v_mask, tw, vw, kernels=kernels)
     sim = fused_interaction_similarity if kernels else interaction_similarity
     return sim(t_feat, v_feat, t_mask, v_mask, tw, vw)
 
 
 def bank_fusion_supported(cfg: ModelConfig) -> bool:
     """The similarity→mean kernel covers the flat-kernel shapes; long-token
-    configs (T·V ≥ 2048) wait for the blocked similarity kernel."""
+    configs (T·V >= 2048) build the full bank matrices with the blocked
+    similarity (the JAX package's rule)."""
     return cfg.max_words * cfg.max_frames < 2048
 
 

@@ -23,6 +23,11 @@ the first index, so autograd of the plain forward is no reference there.
 
 `global_similarity` (↔ ops/similarity.py::global_similarity) is the
 unmasked, unnormalised form over the merged global tokens.
+
+These kernels keep one thread's V maxima in registers and take V <= 16; the
+long-token shapes (T·V >= 2048, up to 64 x 64) have their own kernels in
+ops/similarity_blocked.py, and models/neighborretr.py::local_similarity
+routes by shape.
 """
 
 from __future__ import annotations
@@ -102,11 +107,14 @@ def _first_argmax(x: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.where(hit, pos, n).amin(dim=dim, keepdim=True)
 
 
-def similarity_bwd_plain(tn, vn, tw, vw, g):
+def similarity_bwd_plain(tn, vn, tw, vw, g, route=None):
     """Backward of S = kernel(tn, vn, tw, vw) for the cotangent g [A, B],
     written out: tn [A, T, D] and vn [B, V, D] are the normalised, masked
     features the kernels take.  Returns (dtn, dvn, dtw, dvw).  Each max
-    routes to the first index that attains it."""
+    routes to the first index that attains it.  route: a diagnostic's
+    function (i1 [A, T, B, 1], i2 [A, 1, B, V]) → (i1, i2) that sees the
+    routing (the winner over v per text token, over t per video token) and
+    may hand back another to use."""
     A, T, D = tn.shape
     B, V, _ = vn.shape
     logits = (tn.reshape(A * T, D) @ vn.reshape(B * V, D).T).reshape(A, T, B, V)
@@ -117,9 +125,12 @@ def similarity_bwd_plain(tn, vn, tw, vw, g):
     dvw = torch.einsum("ab,abv->bv", half_g, m2)
     c1 = half_g[:, None, :] * tw[:, :, None]                  # [A, T, B]
     c2 = half_g[:, :, None] * vw[None, :, :]                  # [A, B, V]
+    i1, i2 = _first_argmax(logits, 3), _first_argmax(logits, 1)
+    if route is not None:
+        i1, i2 = route(i1, i2)
     dlogits = torch.zeros_like(logits)
-    dlogits.scatter_(3, _first_argmax(logits, 3), c1[..., None])
-    dlogits.scatter_add_(1, _first_argmax(logits, 1), c2[:, None])
+    dlogits.scatter_(3, i1, c1[..., None])
+    dlogits.scatter_add_(1, i2, c2[:, None])
     dl = dlogits.reshape(A * T, B * V)
     dtn = (dl @ vn.reshape(B * V, D)).reshape(A, T, D)
     dvn = (dl.T @ tn.reshape(A * T, D)).reshape(B, V, D)
@@ -286,7 +297,8 @@ def fused_interaction_similarity(t_feat, v_feat, t_mask, v_mask, t_weight,
     CPU tensors take the plain version; CUDA tensors launch the kernel (fp32
     end to end, no TF32) after the masks are folded into the normalised
     features, as the TPU wrapper does, with the backward kernel behind it.
-    Kernel limits: T <= 64, V <= 16, D % 32 == 0.  `kernels=False` is the
+    Kernel limits: T <= 64, V <= 16, D % 32 == 0 (longer videos:
+    ops/similarity_blocked.py).  `kernels=False` is the
     reference the backward kernel is held to, on any device: the plain
     forward on the same prepared inputs with the written-out first-index
     backward."""

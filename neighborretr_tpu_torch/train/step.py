@@ -9,10 +9,13 @@ The entry points are the ones the JAX package's bench drives:
 on a CUDA device the attention sublayers (forward and backward) and the two
 memory-bank centralities run the hand-written kernels; on the CPU they run
 the plain versions.  `kernels=False` runs the plain versions on any device.
-The in-batch B×B similarity is the plain matmul form by design, as in the
-JAX package.  Micro-batching, on-device augmentation, the explicit-SPMD and
-pipeline forms and the host-resident bank are not ported: asking for one
-raises.
+The in-batch B×B similarity is the plain matmul form by design at the short
+shapes, as in the JAX package; at the long-token shapes (T·V >= 2048) it and
+the two bank matrices run the blocked similarity (ops/similarity_blocked.py).
+`train.micro_batches > 1` encodes the batch in that many sequential
+micro-batches with exact gradients (see `_microbatched_backward`).
+On-device augmentation, remat, the explicit-SPMD and pipeline forms and the
+host-resident bank are not ported: asking for one raises.
 """
 
 from __future__ import annotations
@@ -51,7 +54,6 @@ def create_train_state(model: M.NeighborRetr, bank: MemoryBank,
 def _check_supported(cfg: Config) -> None:
     t = cfg.train
     unported = {
-        "train.micro_batches > 1": t.micro_batches > 1,
         "train.explicit_spmd": t.explicit_spmd,
         "train.pipeline_parallel > 1": t.pipeline_parallel > 1,
         "train.fsdp": t.fsdp,
@@ -74,22 +76,43 @@ def to_device(batch: Dict[str, object], device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(batch[k]).to(device) for k in keys}
 
 
+def _encode_microbatches(model, batch, n: int, kernels: bool):
+    """Features of the whole batch, encoded `n` rows-slices at a time."""
+    B = batch["text_ids"].shape[0]
+    if B % n:
+        raise ValueError(f"batch {B} is not divisible by micro_batches={n}")
+    feats = [model.get_text_video_feat(
+        *(batch[k][s:s + B // n]
+          for k in ("text_ids", "text_mask", "video", "video_mask")), kernels)
+        for s in range(0, B, B // n)]
+    return (torch.cat([f[0] for f in feats]),
+            torch.cat([f[1] for f in feats]))
+
+
 def compute_losses(model: M.NeighborRetr, cfg: Config,
                    batch: Dict[str, torch.Tensor], bank: MemoryBank,
-                   noise=None, kernels: bool = True
+                   noise=None, kernels: bool = True, features=None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Global-batch loss → (total, aux with every term and the fresh
     features).  noise: `models.neighborretr.draw_cluster_noise`'s draws, or
-    None for deterministic clustering."""
+    None for deterministic clustering.  features: the batch's (text, video)
+    features where the caller has encoded them already (micro-batching);
+    otherwise the towers run here, in `train.micro_batches` slices."""
     mcfg, lcfg = cfg.model, cfg.loss
-    text_feat, video_feat = model.get_text_video_feat(
-        batch["text_ids"], batch["text_mask"], batch["video"],
-        batch["video_mask"], kernels)
+    if features is not None:
+        text_feat, video_feat = features
+    elif cfg.train.micro_batches > 1:
+        text_feat, video_feat = _encode_microbatches(
+            model, batch, cfg.train.micro_batches, kernels)
+    else:
+        text_feat, video_feat = model.get_text_video_feat(
+            batch["text_ids"], batch["text_mask"], batch["video"],
+            batch["video_mask"], kernels)
     t_mask = batch["text_mask"].float()
     v_mask = batch["video_mask"].float()
 
     # in-batch local similarity: the plain form at the short shapes; the
-    # long-token shapes (T·V >= 2048) ask for the blocked kernel
+    # long-token shapes (T·V >= 2048) run the blocked kernel
     long_tokens = text_feat.shape[1] * video_feat.shape[1] >= 2048
     s_local = M.local_similarity(model, text_feat, video_feat, t_mask, v_mask,
                                  kernels=kernels and long_tokens)
@@ -152,6 +175,35 @@ def compute_losses(model: M.NeighborRetr, cfg: Config,
     return total, aux
 
 
+def _microbatched_backward(model, cfg: Config, batch, bank: MemoryBank, noise,
+                           kernels: bool) -> Dict[str, torch.Tensor]:
+    """Exact large-batch gradients with the towers' activations of one
+    micro-batch at a time (GradCache, Gao et al. 2021; ↔ the JAX package's
+    `_microbatched_features`, there a map over checkpointed encodes).  The
+    contrastive losses need the full B×B matrix, so the loss is not split:
+    pass 1 encodes the micro-batches without a graph; the loss runs on those
+    features as leaves and its backward leaves their cotangents (and the
+    gradients of everything behind the towers); pass 2 encodes each
+    micro-batch again with a graph and backpropagates its slice of the
+    cotangents.  Gradients accumulate in `.grad` and equal the monolithic
+    ones; the price is one extra forward of the towers.  Returns aux."""
+    n = cfg.train.micro_batches
+    with torch.no_grad():
+        feats = _encode_microbatches(model, batch, n, kernels)
+    leaves = tuple(f.requires_grad_(True) for f in feats)
+    total, aux = compute_losses(model, cfg, batch, bank, noise, kernels,
+                                features=leaves)
+    total.backward()
+    B = leaves[0].shape[0]
+    keys = ("text_ids", "text_mask", "video", "video_mask")
+    for s in range(0, B, B // n):
+        rows = slice(s, s + B // n)
+        out = model.get_text_video_feat(*(batch[k][rows] for k in keys),
+                                        kernels)
+        torch.autograd.backward(out, [leaf.grad[rows] for leaf in leaves])
+    return aux
+
+
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor], cfg: Config,
                t_total: int, generator: Optional[torch.Generator] = None,
                kernels: bool = True
@@ -172,8 +224,13 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], cfg: Config,
                                      generator, batch["text_ids"].device)
 
     model.zero_grad(set_to_none=True)
-    total, aux = compute_losses(model, cfg, batch, state.bank, noise, kernels)
-    total.backward()
+    if cfg.train.micro_batches > 1:
+        aux = _microbatched_backward(model, cfg, batch, state.bank, noise,
+                                     kernels)
+    else:
+        total, aux = compute_losses(model, cfg, batch, state.bank, noise,
+                                    kernels)
+        total.backward()
 
     params = dict(model.named_parameters())
     # a parameter the loss does not reach (the `*_fc1` nets at one merged

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where do a kernel train step and a plain train step part on the card?
 
-    python3 scripts/torch_step_gap.py [--device cuda|cpu] [--tiny] [--steps N]
+    python3 scripts/torch_step_gap.py [--device cuda|cpu] [--tiny] [--long]
+                                      [--steps N] [--deterministic]
 
 `chip_smoke.py` runs the train path twice from the same weights, through the
 hand-written kernels and through their plain versions.  The first update of
@@ -31,6 +32,20 @@ backward, `index_add_`) use float atomics on CUDA, so equal bits need
 --deterministic, which asks torch for its ordered forms.  With --device cpu
 --tiny the kernels' wrappers run their plain versions (a rehearsal of the
 control flow only).
+
+--long takes the long-token recipe's shapes (64 words x 64 frames; batch 16
+and a bank of 240 so that one monolithic backward fits; --batch 128
+--micro_batches 8 takes the trainer's own step instead), where the in-batch
+matrix and both bank matrices go through the blocked similarity.  Its
+backward routes every max to one winning token, and on synthetic videos,
+whose 64 noise frames give near-identical features, the winners are decided
+by differences as small as the towers' bf16 rounding.  Two more variants
+separate that from a fault of the kernels:
+
+  Kp  kernel towers, PLAIN blocked similarity, K's decisions: the same
+      features as K, so the same winners; what is left is K6/K7 against
+      their plain version inside a real step
+  Pr  as Pd, and the plain backward routes by K's winners (replayed)
 """
 
 from __future__ import annotations
@@ -61,14 +76,29 @@ LOSS_TERMS = ("loss", "centrality_loss", "uniform_loss", "neighbor_loss",
               "kl_loss")
 
 
-def gradient(model, cfg, batch, bank, noise, kernels, replay=None):
+def gradient(model, cfg, batch, bank, noise, kernels, replay=None,
+             routing=None, replay_routing=None, plain_similarity=False):
     """One forward and backward at the model's weights → (gradients by name,
-    the decisions taken, the loss terms and fresh features)."""
+    the decisions taken, the loss terms and fresh features).  routing /
+    replay_routing: see chip_smoke.decisions; plain_similarity: the local
+    similarity through its plain version whatever `kernels` says."""
     log: list = []
     model.zero_grad(set_to_none=True)
-    with decisions(log, replay):
-        total, aux = TS.compute_losses(model, cfg, batch, bank, noise, kernels)
-    total.backward()
+    real_sim = M.local_similarity
+    if plain_similarity:
+        M.local_similarity = (lambda model, tf, vf, tm, vm, kernels=True:
+                              real_sim(model, tf, vf, tm, vm, False))
+    try:
+        with decisions(log, replay, routing, replay_routing):
+            if cfg.train.micro_batches > 1:     # GradCache, as train_step
+                aux = TS._microbatched_backward(model, cfg, batch, bank,
+                                                noise, kernels)
+            else:
+                total, aux = TS.compute_losses(model, cfg, batch, bank, noise,
+                                               kernels)
+                total.backward()
+    finally:
+        M.local_similarity = real_sim
     grads = {n: (p.grad.detach().clone() if p.grad is not None
                  else torch.zeros_like(p))
              for n, p in model.named_parameters()
@@ -113,6 +143,16 @@ def main():
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--tiny", action="store_true",
                     help="a tiny fp32 model and batch 8 (CPU rehearsal)")
+    ap.add_argument("--long", action="store_true",
+                    help="64 words x 64 frames, batch 16, bank 240: the "
+                         "blocked similarity's routing taken apart")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="batch size (default: the recipe's 128, 16 under "
+                         "--long, 8 under --tiny)")
+    ap.add_argument("--micro_batches", type=int, default=1,
+                    help="take each gradient in this many micro-batches "
+                         "(GradCache), as train_step does: --long --batch 128 "
+                         "--micro_batches 8 is the trainer's step")
     ap.add_argument("--deterministic", action="store_true",
                     help="torch.use_deterministic_algorithms(True)")
     ap.add_argument("--steps", type=int, default=2,
@@ -142,8 +182,23 @@ def main():
             loss=C.LossConfig(num_neighbors=3),
             data=C.DataConfig(max_words=8, max_frames=4),
             train=C.TrainConfig(batch_size=8, mb_batch=2))
+    elif args.long:
+        cfg = C.Config(
+            model=C.ModelConfig(max_words=64, max_frames=64),
+            data=C.DataConfig(max_words=64, max_frames=64),
+            train=C.TrainConfig(batch_size=16, mb_batch=15))
     else:
         cfg = C.Config()
+    if args.tiny and args.long:
+        cfg = dataclasses.replace(
+            cfg, model=dataclasses.replace(
+                C.ModelConfig.tiny(max_words=64, max_frames=32),
+                cluster_noise=True),
+            data=C.DataConfig(max_words=64, max_frames=32))
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, batch_size=args.batch or cfg.train.batch_size,
+        micro_batches=args.micro_batches))
+    long_tokens = cfg.model.max_words * cfg.model.max_frames >= 2048
     m, B, n_fill = cfg.model, cfg.train.batch_size, cfg.train.mb_batch
     first_lr = bertadam.SCHEDULES[cfg.optim.schedule](
         0.0, cfg.optim.warmup_proportion)
@@ -181,7 +236,9 @@ def main():
         noise = (M.draw_cluster_noise(m, B, gen, dev) if m.cluster_noise
                  else None)
         print(f"== step {i + 1} (weights = start, batch {i + 1})")
-        K, dec_k, aux_k = gradient(model, cfg, batch, banks[True], noise, True)
+        route_k: dict = {}
+        K, dec_k, aux_k = gradient(model, cfg, batch, banks[True], noise, True,
+                                   routing=route_k if long_tokens else None)
         K2 = gradient(model, cfg, batch, banks[True], noise, True)[0]
         print("  K taken again at once: " + same_bits(K, K2))
         # and straight after another batch went through the kernels: a
@@ -192,9 +249,16 @@ def main():
         print("  K taken again after another batch's backward: "
               + same_bits(K, K2))
         del K2
+        route_p: dict = {}
         P, dec_p, aux_p = gradient(model, cfg, batch, banks[False], noise,
-                                   False)
+                                   False,
+                                   routing=route_p if long_tokens else None)
         print("  decisions that differ, K vs P: " + differing(dec_k, dec_p))
+        for key in sorted(route_k):
+            for side, a, b in zip(("over v", "over t"), route_k[key],
+                                  route_p[key]):
+                print(f"  winners {side} that differ, K vs P, matrix {key}: "
+                      f"{int((a != b).sum())} of {a.numel()}")
         for n in LOSS_TERMS:
             a, b = aux_k[n].item(), aux_p[n].item()
             print(f"  {n}: K {a:.6f} P {b:.6f} rel {abs(a - b) / abs(b):.3g}")
@@ -212,6 +276,14 @@ def main():
                                      False, [None] * 4 + dec_k[4:])[0]),
                     ("Pbd", gradient(model, cfg, batch, banks[True], noise,
                                      False, dec_k)[0]))
+        if long_tokens:
+            variants += (
+                ("Kp ", gradient(model, cfg, batch, banks[True], noise, True,
+                                 dec_k, plain_similarity=True)[0]),
+                ("Pr ", gradient(model, cfg, batch, banks[False], noise,
+                                 False, dec_k, replay_routing=route_k)[0]),
+                ("Pbr", gradient(model, cfg, batch, banks[True], noise,
+                                 False, dec_k, replay_routing=route_k)[0]))
         for tag, G in variants:
             n_ = norm(G)
             print(f"  {tag} grad_norm {n_:.6f} rel to K {abs(n_ - nk) / nk:.3g}"

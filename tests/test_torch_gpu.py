@@ -15,6 +15,7 @@ import torch
 
 from neighborretr_tpu_torch.ops import block_attention as BA
 from neighborretr_tpu_torch.ops import similarity as S
+from neighborretr_tpu_torch.ops import similarity_blocked as SB
 
 pytestmark = pytest.mark.gpu
 
@@ -125,6 +126,92 @@ def test_similarity_autograd_kernels_match_plain(cuda, axis):
 
     for a, b in zip(grads(True), grads(False)):
         torch.testing.assert_close(a, b, atol=2e-5, rtol=1e-4)
+
+
+# the blocked kernels at small shapes (odd token counts, tiles with several
+# captions and videos, ragged edges) and at the long-token train step's
+# three: in-batch, text x bank videos, bank texts x videos
+BLOCKED_SHAPES = [(5, 37, 7, 3, 64), (3, 9, 64, 64, 32), (9, 5, 33, 17, 48),
+                  (130, 70, 64, 16, 128), (128, 128, 64, 64, 512),
+                  (128, 1920, 64, 64, 512), (1920, 128, 64, 64, 512)]
+
+
+def exact_inputs(seed, A, B, T, V, D, device):
+    """Prepared inputs whose logits are exact in fp32 in any summation
+    order (entries are multiples of 1/8 up to 1/2, D <= 512), so the kernel
+    and the plain version see the same maxima and the same ties, of which
+    there are many; masked tokens are zero rows."""
+    rng = np.random.default_rng(seed)
+    tm = np.arange(T)[None] < rng.integers(1, T + 1, A)[:, None]
+    vm = np.arange(V)[None] < rng.integers(1, V + 1, B)[:, None]
+    tn = rng.integers(-4, 5, (A, T, D)) / 8.0 * tm[..., None]
+    vn = rng.integers(-4, 5, (B, V, D)) / 8.0 * vm[..., None]
+    vn[:, V - 1] = vn[:, 0]                     # duplicated video tokens
+    arrays = (tn, vn, rng.dirichlet(np.ones(T), size=A),
+              rng.dirichlet(np.ones(V), size=B), rng.standard_normal((A, B)))
+    return [torch.as_tensor(np.asarray(a, np.float32), device=device)
+            for a in arrays]
+
+
+@pytest.mark.parametrize("A,B,T,V,D", BLOCKED_SHAPES)
+def test_blocked_similarity_kernel_matches_plain(cuda, A, B, T, V, D):
+    args = sim_inputs(A + B, A, B, T, V, D, cuda)
+    before = SB.fused_interaction_similarity_blocked.launches
+    got = SB.fused_interaction_similarity_blocked(*args)
+    torch.cuda.synchronize()
+    assert SB.fused_interaction_similarity_blocked.launches == before + 1
+    want = SB.fused_interaction_similarity_blocked(*args, kernels=False)
+    torch.testing.assert_close(got, want, **K2_TOL)
+
+
+@pytest.mark.parametrize("A,B,T,V,D", BLOCKED_SHAPES)
+def test_blocked_backward_kernel_matches_plain(cuda, A, B, T, V, D):
+    """On inputs with exact logits every gradient agrees elementwise, ties
+    included, and two runs give the same bits."""
+    tn, vn, tw, vw, g = exact_inputs(A * B, A, B, T, V, D, cuda)
+    out, m1, i1 = SB._blocked_fwd(tn, vn, tw, vw, save=True)
+    torch.testing.assert_close(out, SB.similarity_blocked_plain(tn, vn, tw, vw),
+                               **K2_TOL)
+    before = SB.fused_blocked_similarity_bwd.launches
+    got = SB.fused_blocked_similarity_bwd(tn, vn, tw, vw, g, m1, i1)
+    torch.cuda.synchronize()
+    assert SB.fused_blocked_similarity_bwd.launches == before + 1
+    want = SB.similarity_blocked_bwd_plain(tn, vn, tw, vw, g)
+    for name, a, b in zip(("dtn", "dvn", "dtw", "dvw"), got, want):
+        torch.testing.assert_close(a, b, atol=2e-5 * max(A, B) ** 0.5,
+                                   rtol=1e-4, msg=lambda m: f"{name}: {m}")
+    again = SB.fused_blocked_similarity_bwd(tn, vn, tw, vw, g, m1, i1)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_blocked_autograd_kernels_match_plain(cuda):
+    """Through the wrapper (masks, normalisation, residuals) at a small
+    long-token shape; real-valued logits, where a near-tie may route
+    otherwise in the two versions, so the features' gradients are held as a
+    whole."""
+    args = sim_inputs(5, 6, 20, 64, 32, 64, cuda)
+
+    def grads(kernels):
+        leaves = [a.clone().requires_grad_(i in (0, 1, 4, 5))
+                  for i, a in enumerate(args)]
+        out = SB.fused_interaction_similarity_blocked(*leaves, kernels=kernels)
+        out.square().sum().backward()
+        return [leaves[i].grad for i in (0, 1, 4, 5)]
+
+    k, p = grads(True), grads(False)
+    for a, b in zip(k[2:], p[2:]):              # the weights' gradients
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=1e-4)
+    for a, b in zip(k[:2], p[:2]):
+        assert ((a - b).norm() / b.norm()).item() <= 1e-3
+
+
+def test_blocked_kernel_refuses_what_it_does_not_take(cuda):
+    args = sim_inputs(0, 2, 3, 65, 32, 64, cuda)
+    with pytest.raises(ValueError, match="T, V <= 64"):
+        SB.fused_interaction_similarity_blocked(*args)
+    args = sim_inputs(0, 2, 3, 64, 32, 24, cuda)
+    with pytest.raises(ValueError, match="D % 16"):
+        SB.fused_interaction_similarity_blocked(*args)
 
 
 def attn_inputs(seed, N, L, D, bias_kind, device):

@@ -208,8 +208,9 @@ def test_losses_with_cluster_noise_match_jax():
 
 def test_unported_options_raise():
     cfg = make_config(tc)
-    for section, change in (("train", dict(micro_batches=2)),
-                            ("train", dict(explicit_spmd=True)),
+    tstep._check_supported(dc.replace(cfg, train=dc.replace(
+        cfg.train, micro_batches=2)))           # ported: GradCache, two passes
+    for section, change in (("train", dict(explicit_spmd=True)),
                             ("train", dict(pipeline_parallel=2)),
                             ("train", dict(bank_placement="host")),
                             ("data", dict(augment_backend="device")),

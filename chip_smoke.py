@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's three main paths once on one NVIDIA GPU:
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU:
 serving (index → search), the flagship train step (bank fill → optimizer
-steps at 24 words x 12 frames) and the long-token trainer (the train CLI at
-64 words x 64 frames: bank fill, steps, eval, checkpoints, resume).
+steps at 24 words x 12 frames), the long-token trainer (the train CLI at
+64 words x 64 frames: bank fill, steps, eval, checkpoints, resume), then
+serving and the train step again on the `attention_impl="fused"` route, and
+the index/search CLIs and rematerialised train steps at ViT-L/14@336px.
 
     python3 chip_smoke.py [--profile]
 
@@ -34,9 +36,11 @@ Phases (each prints its own lines; any failure exits non-zero):
                parameters moved and the frozen patch embedding did not, and
                the bank's fresh rows; then the same from the same state
                through the plain versions on the card, given the kernel
-               run's cluster ids and neighbour masks: losses, gradient
+               run's cluster ids and neighbour masks and, for the last
+               step, the state its last step started from: losses, gradient
                norms and parameter updates compared.  --profile adds one
-               profiled step (device time by kernel);
+               profiled step (device time by kernel), here and in phases
+               10, 12 and 13;
   9. K6, K7  — the blocked long-token similarity and its backward against
                their plain versions at (128, 64, 1920, 64, 512) and (1920,
                64, 128, 64, 512): real-valued features with ragged masks
@@ -51,11 +55,32 @@ Phases (each prints its own lines; any failure exits non-zero):
                call that resumes from state_preempt.npz and takes the third
                step, evaluates, saves and tests the best weights; launch
                counts of all seven kernels, finite losses, R@K, the files
-               read back; then the same three steps uninterrupted through
+               read back; then the same three steps in one run through
                the plain versions (cluster ids and neighbour masks
-               replayed): losses, gradient norms and updates compared.
+               replayed, the last step taken from the kernel runs'
+               state_preempt.npz): losses, gradient norms and updates
+               compared.
+ 11. K8, K9  — the packed-qkv attention kernel and its backward against
+               their plain versions at every tower's shape: ViT-B/32 vision
+               (N=1536, L=50), text (L=24, 64, causal∧padding bias), temporal
+               (L=12, 64, key-padding bias), ViT-B/16 (L=197) and
+               ViT-L/14@336px (L=577, 16 heads); all of dqkv; K9 run twice;
+               `scaled_dot_product_attention` timed beside them as the
+               library's yardstick (the port never calls it);
+ 12. fused   — phases 5 and 8 again with attention_impl="fused": every
+               attention sublayer through K8/K9 and none through K1/K3; the
+               train run held to a run with only K8/K9 swapped for their
+               plain version;
+ 13. ViT-L   — ViT-L/14@336px at full depth (24 x 1024 vision at 577 tokens,
+               12 x 768 text, seeded random weights, attention_impl="auto":
+               the vision tower lands on K8/K9, text and temporal on K1/K3):
+               cli/index.py + cli/search.py on 16 synthetic videos, then
+               train steps at batch 16, bank 240 under remat "full" (2
+               steps), remat "attn" and video_chunk_frames=48 (1 step each,
+               from the same state): launch counts, peak memory and step-1
+               loss per setting; the CLIs and one step at ViT-B/16 too.
 The line before the last is a JSON object with, for each kernel, its
-launches on each main path (all seven counts are set to 0 before each path
+launches on each main path (all nine counts are set to 0 before each path
 and read after it), error, times and roofline bound; the last line is the
 device record.
 
@@ -101,29 +126,39 @@ K3_SUM_TOL = 2 ** -7
 # run 44 text-token assignments in 10 captions move the gradient norm by 5%;
 # with them replayed it agrees to 0.2%: scripts/torch_step_gap.py).  Loss
 # terms: bf16 towers of 12 + 4 layers whose one-ulp flips carry into the
-# features (observed at most 1.4e-3 on an H100).  Gradient norm: steps 1
-# and 2 are taken at bit-identical weights (the schedule's first update is
-# zero; observed at most 2.1e-3); step 3 comes after one update, so the
-# two runs' weights differ there (by the update distances held below), and
-# torch's float-atomic scatter-adds make a run differ from its own repeat
-# by 0.4% of the gradient (same script): observed 1.4e-3, 7.7e-3 and 8.5e-3
-# in three runs of this script.
+# features (observed at most 1.4e-3 on an H100).  Gradient norm: every
+# step of both runs is taken at bit-identical weights, moments and bank:
+# steps 1 and 2 because the schedule's first update is zero (observed at
+# most 5.1e-3), step 3 because the plain run takes it from the state the
+# kernel run's step 3 started from (observed 3.7e-4 and 3.1e-3; that state
+# differs from run to run).  Left to run free the two part there
+# by what a run differs from its own repeat, not by what the kernels do
+# (torch's float-atomic scatter-adds move a gradient by 0.4%, same script;
+# observed 1.4e-3 ... 1.1e-2 of step 3's norm in ten runs of this script).
 # Parameter updates: Adam divides by sqrt(v), so where a gradient entry is
 # near zero its noise is as large as the update; they are held as a
-# relative L2 distance over the whole tensor (observed at most 0.068)
+# relative L2 distance over the whole tensor (observed at most 0.038;
+# 0.077 while the two runs ran free)
 TRAIN_LOSS_RTOL = 1e-2
 TRAIN_GRAD_NORM_RTOL = (1e-2, 3e-2)      # steps 1-2, step 3
 TRAIN_UPDATE_REL_L2 = 0.15
 # The long-token trainer's kernel runs against reference runs of the same
-# three steps, (loss, gradient norm) by step and the updates' relative L2.
-# KP: K1/K3 in the towers, the plain blocked similarity.  Steps 1 and 2 are
-# taken at bit-identical weights (the schedule's first update is zero) on
-# bit-identical features, so the losses differ by K6's fp32 rounding only
-# and the gradients by what one kernel run differs from its own repeat
-# (torch's float-atomic scatter-adds: 0.6-0.8% of the gradient, 1.5e-4 and
-# 2.8e-4 of its norm; scripts/torch_step_gap.py --long --batch 128
-# --micro_batches 8 on an H100); step 3 follows one update.
-KP_TOL = ((1e-4, 1e-4, 1e-2), (3e-3, 3e-3, 1e-2), 0.05)
+# three steps: loss terms, gradient norm and the updates' relative L2.
+# Every step of both is taken at bit-identical weights, moments and bank:
+# steps 1 and 2 because the schedule's first update is zero, step 3 because
+# the reference run takes it from the kernel runs' own state_preempt.npz.
+# Left to run free, two runs part at step 3 by what one run differs from its
+# own repeat: torch's float-atomic scatter-adds move step 2's gradient by
+# 0.6-0.8% (1.5e-4 and 2.8e-4 of its norm; scripts/torch_step_gap.py --long
+# --batch 128 --micro_batches 8 on an H100), Adam's m / sqrt(v) turns that
+# into up to 5% of an update, and the uniform loss's Sinkhorn on 128 x 128
+# unnormalised logits into 2e-4 ... 1.1e-2 of step 3's loss in seven runs of
+# this script, which says nothing about a kernel.
+# KP: K1/K3 in the towers, the plain blocked similarity.  The same features
+# reach K6/K7 and their plain version, so the losses differ by K6's fp32
+# rounding only (observed at most 2e-7) and the gradients by the repeat's
+# noise (norms: at most 1.8e-4; updates: at most 7.7e-3).
+KP_TOL = ((1e-4, 1e-4, 1e-4), (3e-3, 3e-3, 3e-3), 0.05)
 # PLAIN: the plain versions of everything, cluster ids and neighbour masks
 # replayed.  At this shape replaying them leaves more than at 24 words x 12
 # frames: the same script finds the plain gradient 0.014 (step 1) and 0.126
@@ -132,8 +167,10 @@ KP_TOL = ((1e-4, 1e-4, 1e-2), (3e-3, 3e-3, 1e-2), 0.05)
 # the repeat's noise) and the similarity's winners shown not to matter
 # (replaying them changes nothing): the towers' bf16 rounding, amplified by
 # the uniform loss's Sinkhorn on 128 x 128 unnormalised logits at random
-# weights.  Observed in this script: norms 1.5% / 4.0% / 0.05%, losses up to
-# 1.8e-2 (step 3), updates up to 0.076.
+# weights.  Observed in this script: norms 1.5% / 4.0% / 0.06%, losses
+# 1.9e-3 and 4.4e-3 at steps 1 and 2 (the same in every run) and 1.1e-3 and
+# 5.3e-3 at step 3, whose weights are the kernel run's and differ from run to
+# run; updates up to 0.012.
 LONG_PLAIN_TOL = ((1e-2, 1e-2, 4e-2), (8e-2, 8e-2, 8e-2), 0.15)
 # K7's feature gradients on real-valued inputs, as a whole tensor: the
 # kernel and cuBLAS round a logit differently in its last bit, and where a
@@ -209,13 +246,15 @@ def phase_device():
     return card
 
 
-LIBS = ("interaction_similarity", "interaction_similarity_blocked",
-        "ln_attention_residual", "ln_attention_residual_bwd")
+LIBS = ("frame_attention", "interaction_similarity",
+        "interaction_similarity_blocked", "ln_attention_residual",
+        "ln_attention_residual_bwd")
 
 
 def kernel_wrappers():
-    """The seven wrappers by kernel; each counts its launches in
+    """The nine wrappers by kernel; each counts its launches in
     `.launches`."""
+    from neighborretr_tpu_torch.ops import attention as A
     from neighborretr_tpu_torch.ops import block_attention as BA
     from neighborretr_tpu_torch.ops import similarity as S
     from neighborretr_tpu_torch.ops import similarity_blocked as SB
@@ -224,7 +263,8 @@ def kernel_wrappers():
             "K3": BA.ln_attention_residual_bwd,
             "K4": S.fused_interaction_mean, "K5": S.fused_similarity_bwd,
             "K6": SB.fused_interaction_similarity_blocked,
-            "K7": SB.fused_blocked_similarity_bwd}
+            "K7": SB.fused_blocked_similarity_bwd,
+            "K8": A.frame_attention, "K9": A.frame_attention_bwd}
 
 
 def counted(fn):
@@ -341,8 +381,15 @@ def phase_k2(g):
     return err, ms, plain_ms, b_ms, b_by
 
 
-def phase_serving():
-    print("== phase 5: serving run (ViT-B/32 width, bf16, random weights)")
+def phase_serving(attention_impl="auto"):
+    """attention_impl "auto": phase 5, the sublayer kernel's route (K1).
+    "fused": the same run on the attention kernel's route (K8), part of
+    phase 12."""
+    fused = attention_impl == "fused"
+    print(f"== phase {'12a' if fused else '5'}: serving run (ViT-B/32 width, "
+          f"bf16, random weights, attention_impl={attention_impl!r})")
+    import dataclasses as dc
+
     from neighborretr_tpu_torch.core.config import Config, ModelConfig
     from neighborretr_tpu_torch.data.datasets.synthetic import \
         SyntheticDataset
@@ -353,7 +400,8 @@ def phase_serving():
                                              similarity_matrix_device)
     from neighborretr_tpu_torch.models.weights_io import init_model
 
-    cfg = Config(model=ModelConfig())
+    cfg = Config(model=dc.replace(ModelConfig(),
+                                  attention_impl=attention_impl))
     m = cfg.model
     print(f"  model: {m.clip.vision_layers}x{m.clip.vision_width} vision "
           f"(patch {m.clip.vision_patch_size}, {m.clip.image_resolution}px), "
@@ -409,13 +457,15 @@ def phase_serving():
     (index, t_index, searcher, hits, latencies), counts = counted(serve)
 
     n_batches = -(-n_videos // batch)
-    want = {"K1": (n_batches * (m.clip.vision_layers + m.temporal_layers)
-                   + len(requests) * m.clip.transformer_layers),
-            "K2": len(requests), "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0}
+    fwd = "K8" if fused else "K1"     # the route's forward attention kernel
+    want = dict.fromkeys(kernel_wrappers(), 0)
+    want[fwd] = (n_batches * (m.clip.vision_layers + m.temporal_layers)
+                 + len(requests) * m.clip.transformer_layers)
+    want["K2"] = len(requests)
     print(f"  launches in the serving run: {counts} (expected {want}: per "
-          f"index batch K1 = {m.clip.vision_layers + m.temporal_layers}, per "
-          f"request K1 = {m.clip.transformer_layers} and K2 = 1; no backward "
-          "and no bank mean)")
+          f"index batch {fwd} = {m.clip.vision_layers + m.temporal_layers}, "
+          f"per request {fwd} = {m.clip.transformer_layers} and K2 = 1; no "
+          "backward and no bank mean)")
     if counts != want:
         raise SystemExit("launch counts do not match the serving path")
     print(f"  index: {len(index['video_ids'])} videos in {t_index:.4f} s = "
@@ -627,8 +677,30 @@ def decisions(log: list, replay=None, routing=None, replay_routing=None):
         SB.routing_hook = None
 
 
-def phase_train(profile: bool, card: str):
-    print("== phase 8: train run (ViT-B/32 width, bf16, batch 128, bank 1920)")
+@contextlib.contextmanager
+def plain_attention():
+    """Swaps the attention kernel and its backward (K8, K9) for their plain
+    versions, and nothing else."""
+    from neighborretr_tpu_torch.ops import attention as A
+    real = A.frame_attention, A.frame_attention_bwd
+    A.frame_attention, A.frame_attention_bwd = (A.attention_plain,
+                                                A.attention_bwd_plain)
+    try:
+        yield
+    finally:
+        A.frame_attention, A.frame_attention_bwd = real
+
+
+def phase_train(profile: bool, card: str, attention_impl="auto"):
+    """attention_impl "auto": phase 8, the sublayer kernels' route (K1, K3),
+    held to a run through the plain versions of everything.  "fused": the
+    same run on the attention kernels' route (K8, K9), part of phase 12,
+    held to a run with only K8/K9 swapped for their plain version."""
+    fused = attention_impl == "fused"
+    print(f"== phase {'12b' if fused else '8'}: train run (ViT-B/32 width, "
+          f"bf16, batch 128, bank 1920, attention_impl={attention_impl!r})")
+    import dataclasses as dc
+
     from neighborretr_tpu_torch.core.config import Config
     from neighborretr_tpu_torch.data.datasets.synthetic import \
         make_synthetic_batch
@@ -637,6 +709,8 @@ def phase_train(profile: bool, card: str):
     from neighborretr_tpu_torch.train import step as TS
 
     cfg = Config()      # the reference's MSR-VTT recipe: batch 128, 15 x 128
+    cfg = dc.replace(cfg, model=dc.replace(cfg.model,
+                                           attention_impl=attention_impl))
     m, B = cfg.model, cfg.train.batch_size
     n_fill, n_steps, t_total = cfg.train.mb_batch, 3, 30
     cap = cfg.train.memory_bank_capacity
@@ -657,7 +731,10 @@ def phase_train(profile: bool, card: str):
     print(f"  7 synthetic batches made and moved in "
           f"{time.perf_counter() - t0:.2f} s")
 
-    def run(kernels: bool, replay=None):
+    def run(kernels: bool, replay=None, carry=None):
+        """Fill and steps from the start weights.  carry: the state another
+        run's last step started from (its "before_last"); this run's last
+        step is then taken from that state, not from its own."""
         model.load_state_dict(start)
         bank = MB.create(cap, m.max_words, m.max_frames, m.width,
                          device="cuda")
@@ -672,9 +749,23 @@ def phase_train(profile: bool, card: str):
         state = TS.create_train_state(model, bank)
         out = dict(metrics=[], ms=[], t_fill=t_fill, decisions=[])
         for i, batch in enumerate(steps):
-            if kernels and i == n_steps - 1:   # what the last forward sees
-                out["before_last"] = {k: v.clone() for k, v
-                                      in model.state_dict().items()}
+            if i == n_steps - 1 and carry is None:
+                # what the last step starts from: the weights on the card,
+                # the moments and the bank on the host
+                out["before_last"] = dict(
+                    weights={k: v.clone() for k, v
+                             in model.state_dict().items()},
+                    m={n: t.cpu() for n, t in state.opt.m.items()},
+                    v={n: t.cpu() for n, t in state.opt.v.items()},
+                    bank=tuple(t.cpu() for t in state.bank))
+            elif i == n_steps - 1:
+                model.load_state_dict(carry["weights"])
+                state = TS.TrainState(
+                    model=model, step=state.step,
+                    opt=state.opt._replace(
+                        m={n: t.cuda() for n, t in carry["m"].items()},
+                        v={n: t.cuda() for n, t in carry["v"].items()}),
+                    bank=MB.MemoryBank(*(t.cuda() for t in carry["bank"])))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             log = []
@@ -706,12 +797,13 @@ def phase_train(profile: bool, card: str):
     k, counts = counted(lambda: run(True))
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    want = {"K1": (n_fill + n_steps) * layers, "K2": 0,
-            "K3": n_steps * layers, "K4": 2 * n_steps, "K5": 2 * n_steps,
-            "K6": 0, "K7": 0}
+    fwd, bwd = ("K8", "K9") if fused else ("K1", "K3")
+    want = dict.fromkeys(kernel_wrappers(), 0)
+    want.update({fwd: (n_fill + n_steps) * layers, bwd: n_steps * layers,
+                 "K4": 2 * n_steps, "K5": 2 * n_steps})
     print(f"  launches in the train run: {counts} (expected {want}: per step "
-          f"K1 = K3 = {layers}, K4 = K5 = 2 calls; per fill batch K1 = "
-          f"{layers})")
+          f"{fwd} = {bwd} = {layers}, K4 = K5 = 2 calls; per fill batch {fwd} "
+          f"= {layers})")
     if counts != want:
         raise SystemExit("launch counts do not match the train path")
     for i, met in enumerate(k["metrics"]):
@@ -737,7 +829,7 @@ def phase_train(profile: bool, card: str):
     # the last batch's features at the weights its step's forward saw,
     # encoded again now that the launch counts have been read
     final = {n: v.clone() for n, v in model.state_dict().items()}
-    model.load_state_dict(k.pop("before_last"))
+    model.load_state_dict(k["before_last"]["weights"])
     with torch.no_grad():
         fresh = model.get_text_video_feat(
             last["text_ids"], last["text_mask"], last["video"],
@@ -765,9 +857,21 @@ def phase_train(profile: bool, card: str):
         print(trace.key_averages().table(sort_by="cuda_time_total", row_limit=25,
                                       max_name_column_width=60))
 
-    print("  the same fill and steps through the plain versions on the card, "
-          "with the kernel run's cluster ids and neighbour masks:")
-    p = run(False, k["decisions"])
+    if fused:
+        # the features of the two runs differ by the kernels' one-ulp flips,
+        # as in phase 8's swap of K1/K3 and unlike the trainer's swap of
+        # K6/K7 (which see the same features): phase 8's tolerances
+        print("  the same fill and steps with only K8/K9 swapped for their "
+              "plain version, with the kernel run's cluster ids and "
+              "neighbour masks, step 3 from the state its step 3 started "
+              "from:")
+        with plain_attention():
+            p = run(True, k["decisions"], k["before_last"])
+    else:
+        print("  the same fill and steps through the plain versions on the "
+              "card, with the kernel run's cluster ids and neighbour masks, "
+              "step 3 from the state its step 3 started from:")
+        p = run(False, k["decisions"], k["before_last"])
     failed = []
     for i, (a, b) in enumerate(zip(k["metrics"], p["metrics"])):
         for n in LOSS_TERMS + ("grad_norm",):
@@ -935,6 +1039,351 @@ def phase_k6_k7(g):
     return k6, k7
 
 
+# K8 returns bf16 like K1: two bf16 rounding steps.  K9's dqkv too, with the
+# absolute part against the tensor's largest entry: dK and dV sum L products
+# of either sign, so an entry near zero carries the rounding of the large
+# terms that cancelled in it
+K9_TOL_OF_MAX = 2 ** -7
+INDEX_REL_L2 = 3e-2
+
+
+def _qkv_inputs(g, N, L, H, bias_kind):
+    """Packed qkv with unit-variance entries (what the qkv projection of a
+    LayerNorm output gives), a cotangent, and the bias."""
+    dev, D = "cuda", 64 * H
+    qkv = torch.randn(N, L, 3 * D, generator=g, device=dev).bfloat16()
+    dout = torch.randn(N, L, D, generator=g, device=dev).bfloat16()
+    bias = None
+    if bias_kind is not None:
+        lens = torch.randint(1, L + 1, (N,), generator=g, device=dev)
+        j = torch.arange(L, device=dev)
+        if bias_kind == "causal":      # text: causal ∧ padding, -1e9 each
+            pad = torch.where(j[None, :] < lens[:, None], 0.0, -1e9)
+            causal = torch.where(j[None, :] > j[:, None], -1e9, 0.0)
+            bias = causal[None] + pad[:, None, :]
+        else:                          # temporal: key padding, -1e6
+            pad = torch.where(j[None, :] < lens[:, None], 0.0, -1e6)
+            bias = pad[:, None, :].expand(N, L, L)
+        bias = bias.contiguous()
+    return qkv, dout, bias
+
+
+def phase_k8_k9(g):
+    print("== phase 11: K8 frame_attention, K9 its backward vs their plain "
+          "versions")
+    import torch.nn.functional as F
+
+    from neighborretr_tpu_torch.ops import attention as A
+    # the fused route's shapes: one train step at batch 128 (1536 frames, 128
+    # captions and videos), the long recipes' 64 words / 64 frames, then one
+    # batch of 16 videos x 12 frames at ViT-B/16 and at ViT-L/14@336px
+    shapes = [("vision", 1536, 50, 12, None),
+              ("text", 128, 24, 8, "causal"),
+              ("temporal", 128, 12, 8, "keypad"),
+              ("text long", 128, 64, 8, "causal"),
+              ("temporal long", 128, 64, 8, "keypad"),
+              ("vision ViT-B/16", 192, 197, 12, None),
+              ("vision ViT-L/14@336px", 192, 577, 16, None)]
+    k8, k9 = {}, {}
+    for name, N, L, H, kind in shapes:
+        D = 64 * H
+        qkv, dout, bias = _qkv_inputs(g, N, L, H, kind)
+        tag = f"{name} N={N} L={L} H={H}"
+        got = A.frame_attention(qkv, H, bias)
+        torch.cuda.synchronize()
+        want = A.attention_plain(qkv, H, bias)
+        err8 = compare(f"K8 {tag}", got, want, K1_TOL)
+        dqkv = A.frame_attention_bwd(qkv, H, dout, bias)
+        torch.cuda.synchronize()
+        dwant = A.attention_bwd_plain(qkv, H, dout, bias)
+        err9 = max(compare(f"K9 {tag} {part}", a, b,
+                           (K9_TOL_OF_MAX * b.abs().max().item(), 2 ** -6))
+                   for part, a, b in zip(("dq", "dk", "dv"),
+                                         dqkv.float().split(D, -1),
+                                         dwant.float().split(D, -1)))
+        if not torch.equal(dqkv, A.frame_attention_bwd(qkv, H, dout, bias)):
+            raise SystemExit("K9: two runs differ in their bits")
+        print(f"  K9 {tag}: two runs bit-equal in all of dqkv")
+        del want, dwant
+
+        # the library's call for the same function, as a yardstick only:
+        # strided [N, H, L, 64] views of the packed buffer, the bias in the
+        # operands' type
+        q, k, v = (t.view(N, L, H, 64).transpose(1, 2)
+                   for t in qkv.split(D, dim=-1))
+        mask = None if bias is None else bias.bfloat16()[:, None]
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        lib = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+        lib_err = (lib.transpose(1, 2).reshape(N, L, D).float()
+                   - got.float()).abs().max().item()
+        lib_g = dout.view(N, L, H, 64).transpose(1, 2)
+
+        reps = 5 if L > 64 else 20
+        ms = time_ms(lambda: A.frame_attention(qkv, H, bias), reps)
+        plain_ms = time_ms(lambda: A.attention_plain(qkv, H, bias), 3)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask), reps)
+        b_ms, b_by = bound(4 * N * L * L * D, PEAK_BF16,
+                           nbytes(qkv, bias, got))
+        print(f"  K8 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"scaled_dot_product_attention {lib_ms:.4f} ms (max |Δ| to the "
+              f"kernel {lib_err:.3g}), bound {b_ms:.4f} ms ({b_by})")
+        k8[name] = (err8, ms, plain_ms, b_ms, b_by, lib_ms)
+        ms = time_ms(lambda: A.frame_attention_bwd(qkv, H, dout, bias), reps)
+        plain_ms = time_ms(lambda: A.attention_bwd_plain(qkv, H, dout, bias),
+                           2)
+        lib_ms = time_ms(lambda: torch.autograd.grad(
+            lib, leaves, lib_g, retain_graph=True), reps)
+        b_ms, b_by = bound(10 * N * L * L * D, PEAK_BF16,
+                           nbytes(qkv, bias, dout, dqkv))
+        print(f"  K9 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"scaled_dot_product_attention's backward {lib_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})")
+        k9[name] = (err9, ms, plain_ms, b_ms, b_by, lib_ms)
+        del lib, leaves, dqkv, got
+    return k8, k9
+
+
+def phase_backbone(name: str, settings, card: str, profile: bool = False):
+    """The index and search CLIs on 16 synthetic videos, then train steps at
+    batch 16 x 12 frames x 24 words against a bank of 15 x 16 = 240, with a
+    larger backbone at full depth (seeded random weights, bf16,
+    attention_impl="auto": the vision tower's sequences are longer than the
+    sublayer kernel takes and go to K8/K9, text and temporal stay on K1/K3).
+    settings: (label, ModelConfig changes, steps) — every setting starts
+    from the same weights, bank, batches and noise, so their first steps
+    compute the same function.  profile: one more step under the first
+    setting, profiled.  → (counts of the CLIs, counts per setting)."""
+    import dataclasses as dc
+    import tempfile
+
+    from neighborretr_tpu_torch import serving
+    from neighborretr_tpu_torch.cli import index as cli_index
+    from neighborretr_tpu_torch.cli import search as cli_search
+    from neighborretr_tpu_torch.cli.common import RANDOM_WEIGHTS_SEED
+    from neighborretr_tpu_torch.core.config import (ClipConfig, Config,
+                                                    ModelConfig, TrainConfig)
+    from neighborretr_tpu_torch.data.datasets.synthetic import (
+        SyntheticDataset, make_synthetic_batch)
+    from neighborretr_tpu_torch.eval import encode_video_batch
+    from neighborretr_tpu_torch.models.weights_io import init_model
+    from neighborretr_tpu_torch.train import memory_bank as MB
+    from neighborretr_tpu_torch.train import step as TS
+
+    clip = ClipConfig.from_name(name)
+    m = ModelConfig(clip=clip)
+    L = clip.grid_size ** 2 + 1
+    layers = clip.vision_layers + clip.transformer_layers + m.temporal_layers
+    small = clip.transformer_layers + m.temporal_layers   # on K1/K3
+    print(f"  {name}: {clip.vision_layers}x{clip.vision_width} vision at "
+          f"{L} tokens ({clip.vision_heads} heads, {clip.image_resolution}px),"
+          f" {clip.transformer_layers}x{clip.transformer_width} text, "
+          f"{m.temporal_layers} temporal, embed {clip.embed_dim}")
+    n_videos, B = 16, 16
+    queries = ["a man is cooking pasta in a kitchen",
+               "dog catching a frisbee on the beach"]
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_index_") as tmp:
+        path = os.path.join(tmp, "index.npz")
+        common = ["--base_encoder", name, "--device", "cuda"]
+
+        def clis():
+            t0 = time.perf_counter()
+            cli_index.main(["--datatype", "synthetic", "--synthetic_size",
+                            str(n_videos), "--batch_size", str(n_videos),
+                            "--out", path, "--workers", "4"] + common)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            argv = ["--index", path] + common
+            for q in queries:
+                argv += ["--query", q]
+            cli_search.main(argv)
+            torch.cuda.synchronize()
+            return t1 - t0, time.perf_counter() - t1
+
+        (t_index, t_search), cli_counts = counted(clis)
+        index = serving.load_index(path)
+    want = dict.fromkeys(kernel_wrappers(), 0)
+    want.update({"K8": clip.vision_layers, "K1": small, "K2": 1})
+    print(f"  launches in cli.index + cli.search: {cli_counts} (expected "
+          f"{want}: the vision tower's {clip.vision_layers} sublayers at L = "
+          f"{L} on K8, temporal and text on K1)")
+    if cli_counts != want:
+        raise SystemExit(f"launch counts do not match the {name} CLIs")
+    feats = torch.as_tensor(index["v_feat"].astype(np.float32))
+    if feats.shape != (n_videos, m.max_frames, clip.embed_dim) or \
+            not torch.isfinite(feats).all():
+        raise SystemExit(f"index features {tuple(feats.shape)} not finite")
+    print(f"  index of {n_videos} videos in {t_index:.2f} s (model built, "
+          f"{n_videos / t_index:.2f} videos/s), search of {len(queries)} "
+          f"queries in {t_search:.2f} s (model built)")
+
+    # the first videos again through the plain versions, same seeded weights
+    model = init_model(m, RANDOM_WEIGHTS_SEED, "cuda")
+    ds = SyntheticDataset(n=n_videos, seed=2, max_words=m.max_words,
+                          max_frames=m.max_frames,
+                          resolution=clip.image_resolution,
+                          vocab_size=clip.vocab_size)
+    rows = [ds.item(i) for i in range(2)]
+    plain = encode_video_batch(model, np.stack([r["video"] for r in rows]),
+                               np.stack([r["video_mask"] for r in rows]),
+                               kernels=False).cpu()
+    # unnormalised fp16 features behind bf16 towers of up to 24 + 4 layers,
+    # where a one-ulp flip (2^-8) in one layer carries into the next: held
+    # as a whole
+    rel = ((feats[:2] - plain).norm() / plain.norm()).item()
+    ok = rel <= INDEX_REL_L2
+    print(f"  {name} index rows of 2 videos vs the plain versions: rel L2 "
+          f"{rel:.3g} (tolerance {INDEX_REL_L2:g}) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise SystemExit(f"{name}: the index disagrees with the plain "
+                         "versions")
+    del plain
+
+    # ---- train steps
+    base = Config(model=m, train=TrainConfig(batch_size=B, mb_batch=15))
+    cap, n_fill, t_total = base.train.memory_bank_capacity, 15, 30
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    host = []
+    for seed in range(6):          # 4 distinct fill batches, 2 step batches
+        b = make_synthetic_batch(m, B, seed=seed)
+        b["idx"] = b["idx"] + B * seed
+        host.append(TS.to_device(b, "cuda"))
+    fill, steps = host[:4], host[4:]
+    bank0 = MB.create(cap, m.max_words, m.max_frames, m.width, device="cuda")
+    t0 = time.perf_counter()
+    for i in range(n_fill):
+        bank0 = TS.fill_bank_step(model, bank0, fill[i % len(fill)], base,
+                                  i * B)
+    torch.cuda.synchronize()
+    print(f"  bank of {cap} filled in {time.perf_counter() - t0:.2f} s")
+
+    # warm-up outside the counted runs: cuBLAS heuristics and the allocator's
+    # pools at this backbone's sizes, under the first setting
+    model.cfg = dc.replace(m, **settings[0][1])
+    TS.train_step(TS.create_train_state(
+        model, MB.MemoryBank(*(t.clone() for t in bank0))), steps[0],
+        dc.replace(base, model=model.cfg), t_total,
+        torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+
+    results = {}
+    for label, changes, n_steps in settings:
+        cfg = dc.replace(base, model=dc.replace(m, **changes))
+        model.cfg = cfg.model        # what the towers read
+        model.load_state_dict(start)
+        state = TS.create_train_state(
+            model, MB.MemoryBank(*(t.clone() for t in bank0)))
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        def run():
+            st, mets, ms = state, [], []
+            for batch in steps[:n_steps]:
+                t0 = time.perf_counter()
+                st, met = TS.train_step(st, batch, cfg, t_total, gen)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+                mets.append({k: v.item() for k, v in met.items()})
+            return mets, ms
+
+        (mets, ms), counts = counted(run)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        for i, met in enumerate(mets):
+            print(f"  {label} step {i + 1}: " + " ".join(
+                f"{n} {v:.5f}" for n, v in met.items()))
+            if not all(np.isfinite(v) for v in met.values()):
+                raise SystemExit(f"{name} {label}: non-finite metric")
+        # per step: every sublayer once forward and once backward, and once
+        # more forward where its block (or its chunk) is rematerialised as a
+        # whole; the temporal tower never is
+        mc = cfg.model
+        chunks = (-(-B * m.max_frames // mc.video_chunk_frames)
+                  if mc.video_chunk_frames else 0)
+        again = bool(chunks) or (mc.remat and mc.remat_policy != "attn")
+        text_again = mc.remat and mc.remat_policy != "attn"
+        per = max(chunks, 1)
+        want = dict.fromkeys(kernel_wrappers(), 0)
+        want.update({
+            "K8": n_steps * per * clip.vision_layers * (2 if again else 1),
+            "K9": n_steps * per * clip.vision_layers,
+            "K1": n_steps * (small + (clip.transformer_layers if text_again
+                                      else 0)),
+            "K3": n_steps * small, "K4": 2 * n_steps, "K5": 2 * n_steps})
+        print(f"  {label}: launches {counts} (expected {want}), steps "
+              f"{' / '.join(f'{t:.0f}' for t in ms)} ms = "
+              f"{B / min(ms) * 1e3:.2f} pairs/s on {card}, peak device "
+              f"memory {peak:.2f} GiB")
+        if counts != want:
+            raise SystemExit(f"launch counts do not match {name} {label}")
+        sd = model.state_dict()
+        if not torch.equal(sd["clip.visual.conv1.weight"],
+                           start["clip.visual.conv1.weight"]):
+            raise SystemExit("the frozen patch embedding moved")
+        if n_steps >= 2 and torch.equal(sd["clip.text_projection"],
+                                        start["clip.text_projection"]):
+            raise SystemExit("clip.text_projection did not move in two steps")
+        results[label] = dict(counts=counts, metrics=mets, ms=ms, peak=peak)
+        del state
+
+    # every setting's first step is the same function of the same inputs:
+    # rematerialisation and chunking change what is kept, not what is
+    # computed.  Held to what one step differs from its own repeat by
+    # (torch's float-atomic scatter-adds; chunks also give the products
+    # other shapes): the loss to 1e-4, the gradient norm to 1e-2
+    first = next(iter(results))
+    for label, r in list(results.items())[1:]:
+        for key, tol in (("loss", 1e-4), ("grad_norm", 1e-2)):
+            a, b = r["metrics"][0][key], results[first]["metrics"][0][key]
+            rel = abs(a - b) / abs(b)
+            same = "bit-equal" if a == b else f"rel {rel:.3g}"
+            print(f"  step 1 {key}: {label} {a:.7f} vs {first} {b:.7f} "
+                  f"({same}, tolerance {tol:g}) "
+                  f"{'ok' if rel <= tol else 'FAILED'}")
+            if rel > tol:
+                raise SystemExit(f"{name}: step 1 {key} differs between "
+                                 f"{label} and {first}")
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof
+        label, changes, _ = settings[0]
+        model.cfg = dc.replace(m, **changes)
+        model.load_state_dict(start)
+        state = TS.create_train_state(
+            model, MB.MemoryBank(*(t.clone() for t in bank0)))
+        with prof(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as trace:
+            TS.train_step(state, steps[0], dc.replace(base, model=model.cfg),
+                          t_total,
+                          torch.Generator(device="cuda").manual_seed(2))
+            torch.cuda.synchronize()
+        print(f"  profile of one {name} train step under {label} (device "
+              "time by kernel):")
+        print(trace.key_averages().table(sort_by="cuda_time_total",
+                                         row_limit=25,
+                                         max_name_column_width=60))
+        del state
+    del model, start
+    torch.cuda.empty_cache()
+    return cli_counts, results
+
+
+def phase_vit_l(card: str, profile: bool = False):
+    print("== phase 13: ViT-L/14@336px (depth not cut) and ViT-B/16: index and "
+          "search CLIs, rematerialised train steps")
+    _, b16 = phase_backbone("ViT-B/16", [("no remat", {}, 1)], card)
+    cli_counts, res = phase_backbone("ViT-L/14@336px", [
+        ("remat full", dict(remat=True, remat_policy="full"), 2),
+        ("remat attn", dict(remat=True, remat_policy="attn"), 1),
+        ("video_chunk_frames=48", dict(remat=True, video_chunk_frames=48), 1),
+    ], card, profile)
+    counts = dict(cli_counts)
+    for r in list(res.values()) + list(b16.values()):
+        for k, v in r["counts"].items():
+            counts[k] += v
+    return counts, res
+
+
 TRAINER_ARGV = [
     "--datatype", "synthetic", "--clip_checkpoint", "random",
     "--max_words", "64", "--max_frames", "64", "--batch_size", "128",
@@ -956,6 +1405,7 @@ def phase_trainer(profile: bool, card: str):
     from neighborretr_tpu_torch.train import loop as LOOP
 
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    carried = out_dir + "_state_preempt.npz"   # outlives the reference runs
     argv = TRAINER_ARGV + ["--output_dir", out_dir]
     args = cli.parse_args(argv)
     cfg = cli.build_config(args)
@@ -975,11 +1425,17 @@ def phase_trainer(profile: bool, card: str):
 
     real_step = LOOP.train_step
 
-    def instrumented(record, stop_after=None, replay=None):
+    def instrumented(record, stop_after=None, replay=None, carry=None):
         """train/loop.py's train_step, timed, its metrics and discrete
-        decisions recorded per global step; SIGTERM after `stop_after`."""
+        decisions recorded per global step; SIGTERM after `stop_after`.
+        carry: a train-state file that holds the state before the last step;
+        the last step is then taken from that state, not the run's own."""
         def step(state, batch, *a, **kw):
             i = state.step
+            if carry is not None and i == n_steps - 1:
+                state = ckpt.load_train_state(carry, state)
+                if state.step != i:
+                    raise SystemExit(f"{carry} holds step {state.step}")
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             log = []
@@ -1038,10 +1494,11 @@ def phase_trainer(profile: bool, card: str):
         # blocked similarity three times each way; one more per evaluation
         n_evals = 2                # the epoch's, and the final test
         eval_batches = -(-n_test // args.batch_size_val)
-        want = {"K1": (n_steps + n_evals * eval_batches) * layers
-                + n_steps * 2 * n_micro * layers,
-                "K2": 0, "K3": n_steps * n_micro * layers, "K4": 0, "K5": 0,
-                "K6": 3 * n_steps + n_evals, "K7": 3 * n_steps}
+        want = dict.fromkeys(kernel_wrappers(), 0)
+        want.update({"K1": (n_steps + n_evals * eval_batches) * layers
+                     + n_steps * 2 * n_micro * layers,
+                     "K3": n_steps * n_micro * layers,
+                     "K6": 3 * n_steps + n_evals, "K7": 3 * n_steps})
         print(f"  launches in the trainer's two runs: {counts} (expected "
               f"{want}: per step K1 = 2 x {n_micro} x {layers}, K3 = "
               f"{n_micro} x {layers}, K6 = K7 = 3; per fill or eval batch K1 "
@@ -1147,16 +1604,20 @@ def phase_trainer(profile: bool, card: str):
                 max_name_column_width=60))
             del batch
         del state
+        shutil.move(os.path.join(out_dir, "state_preempt.npz"), carried)
 
         def reference_run(kernels, plain_similarity):
-            """The same three steps, uninterrupted, from the same weights
-            and batches, with the kernel runs' cluster ids and neighbour
-            masks → (per-step records, final compared parameters, s)."""
+            """The same three steps in one run, from the same weights and
+            batches, with the kernel runs' cluster ids and neighbour masks;
+            the last step from the state the kernel runs took it from (their
+            state_preempt.npz), so that every step of both is taken at the
+            same weights, moments and bank → (per-step records, final
+            compared parameters, s)."""
             from neighborretr_tpu_torch.models import neighborretr as M
             shutil.rmtree(out_dir, ignore_errors=True)
             rec = {}
             LOOP.train_step = instrumented(
-                rec, replay={i: k[i]["decisions"] for i in k})
+                rec, replay={i: k[i]["decisions"] for i in k}, carry=carried)
             real_sim = M.local_similarity
             if plain_similarity:
                 M.local_similarity = (
@@ -1203,16 +1664,18 @@ def phase_trainer(profile: bool, card: str):
                 raise SystemExit(f"the trainer's kernel runs disagree with the "
                                  f"{label} run: " + ", ".join(failed))
 
-        print("  the same three steps, uninterrupted, K1/K3 in the towers but "
-              "the PLAIN blocked similarity (the same features reach K6/K7 "
-              "and their plain version):")
+        print("  the same three steps in one run, step 3 from the kernel "
+              "runs' state_preempt.npz, K1/K3 in the towers but the PLAIN "
+              "blocked similarity (the same features reach K6/K7 and their "
+              "plain version):")
         rec, params, seconds = reference_run(True, plain_similarity=True)
         held("plain-similarity", rec, params, *KP_TOL)
         print(f"  plain-similarity run: {seconds:.1f} s in all")
         del rec, params
 
-        print("  the same three steps, uninterrupted, through the plain "
-              "versions of everything on the card:")
+        print("  the same three steps in one run, step 3 from the kernel "
+              "runs' state_preempt.npz, through the plain versions of "
+              "everything on the card:")
         p, params, t_plain = reference_run(False, plain_similarity=False)
         held("plain", p, params, *LONG_PLAIN_TOL)
         pms = statistics.median(p[i]["ms"] for i in p)
@@ -1221,6 +1684,8 @@ def phase_trainer(profile: bool, card: str):
         return counts, ms, pms
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
+        if os.path.exists(carried):
+            os.remove(carried)
 
 
 def main():
@@ -1233,24 +1698,35 @@ def main():
     serving_counts, _ = phase_serving()
     k3_rows = phase_k3(g)
     k4, k5 = phase_k4_k5(g)
-    train_counts, _, _ = phase_train(profile, card)
+    train_counts, block_ms, _ = phase_train(profile, card)
     k6, k7 = phase_k6_k7(g)
     trainer_counts, _, _ = phase_trainer(profile, card)
+    k8, k9 = phase_k8_k9(g)
+    fused_serving_counts, _ = phase_serving("fused")
+    fused_train_counts, fused_ms, _ = phase_train(profile, card, "fused")
+    print(f"  ViT-B/32 train step, batch 128, on {card}: {fused_ms:.1f} ms on "
+          f"the attention_impl='fused' route (K8/K9), {block_ms:.1f} ms on "
+          "the sublayer kernels' route (K1/K3, phase 8)")
+    backbone_counts, _ = phase_vit_l(card, profile)
 
     def kernel(name, source, replaces, launches, row, timed_at, **extra):
-        err, ms, plain_ms, bound_ms, bound_by = row
+        err, ms, plain_ms, bound_ms, bound_by, *library_ms = row
         return {"name": name, "route": "cuda",
                 "source": f"neighborretr_tpu_torch/csrc/{source}",
                 "replaces": f"neighborretr_tpu/ops/{replaces}",
                 "launches": sum(launches.values()),
                 "launches_by_path": launches, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": None,
+                "bound_by": bound_by,
+                "library_ms": library_ms[0] if library_ms else None,
                 "timed_at": timed_at, **extra}
 
-    def paths(k):     # this run's counts on the three main paths
+    def paths(k):     # this run's counts on the main paths
         return {"serving": serving_counts[k], "train": train_counts[k],
-                "trainer": trainer_counts[k]}
+                "trainer": trainer_counts[k],
+                "fused_serving": fused_serving_counts[k],
+                "fused_train": fused_train_counts[k],
+                "larger_backbones": backbone_counts[k]}
 
     def by_shape(rows):
         return {str(k): list(r[1:]) for k, r in rows.items()}
@@ -1295,6 +1771,20 @@ def main():
                paths("K7"), worst(k7, (128, 1920)),
                "A=128 T=64 B=1920 V=64 D=512",
                ms_plain_bound_by_shape=by_shape(k7)),
+        kernel("frame_attention", "frame_attention.cu",
+               "pallas_attention.py:290",
+               paths("K8"), worst(k8, "vision ViT-L/14@336px"),
+               "vision ViT-L/14@336px N=192 L=577 H=16",
+               also_replaces=["pallas_attention.py:430",
+                              "pallas_attention.py:496"],
+               ms_plain_bound_library_by_shape=by_shape(k8)),
+        kernel("frame_attention_bwd", "frame_attention.cu",
+               "pallas_attention.py:329",
+               paths("K9"), worst(k9, "vision ViT-L/14@336px"),
+               "vision ViT-L/14@336px N=192 L=577 H=16",
+               also_replaces=["pallas_attention.py:459",
+                              "pallas_attention.py:525"],
+               ms_plain_bound_library_by_shape=by_shape(k9)),
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

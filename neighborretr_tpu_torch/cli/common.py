@@ -26,6 +26,16 @@ def setup_logger() -> logging.Logger:
     return logging.getLogger("neighborretr_tpu_torch")
 
 
+def add_attention_impl_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--attention_impl", default="auto",
+                   choices=["auto", "einsum", "fused", "fused_block"],
+                   help="the towers' attention: the whole sublayer in one "
+                        "kernel (fused_block; sequences over 64 tokens take "
+                        "fused), the attention kernel on packed qkv "
+                        "(fused), plain PyTorch (einsum); auto = "
+                        "fused_block on CUDA in bf16, else einsum")
+
+
 def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--tiny", action="store_true",
                    help="tiny towers for smoke runs")
@@ -39,6 +49,10 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
                         "checkpoint)")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
+    add_attention_impl_arg(p)
+    p.add_argument("--video_chunk_frames", type=int, default=0,
+                   help="run the vision tower on N frames at a time; 0 = "
+                        "off")
 
 
 def resolve_device(name: str) -> torch.device:
@@ -61,6 +75,8 @@ def model_config(args, max_frames: int, vocab_size: int = None) -> Config:
         m = ModelConfig(clip=ClipConfig.from_name(args.base_encoder),
                         max_words=args.max_words, max_frames=max_frames,
                         temporal_layers=args.num_hidden_layers)
+    m = dc.replace(m, attention_impl=args.attention_impl,
+                   video_chunk_frames=args.video_chunk_frames)
     return Config(model=m)
 
 
@@ -87,6 +103,9 @@ def build_dataset(args, cfg: Config):
 
 def load_model(args, cfg: Config, device: torch.device, logger):
     from ..models import weights_io
+    from ..models.neighborretr import resolve_fused_attention
+    # an --attention_impl the configuration cannot serve fails here
+    resolve_fused_attention(cfg.model, device)
     if args.checkpoint:
         model = weights_io.load_checkpoint(args.checkpoint, cfg.model, device)
         logger.info("Loaded checkpoint %s", args.checkpoint)

@@ -20,18 +20,17 @@ import dataclasses as dc
 
 from ..core.config import (ClipConfig, Config, DataConfig, LossConfig,
                            ModelConfig, OptimizerConfig, TrainConfig, validate)
-from .common import resolve_device
+from .common import add_attention_impl_arg, resolve_device
 
 # flags the JAX CLI has and the port does not honour yet: asking for one
 # (a value other than the default shown) exits
 UNPORTED = {
-    "num_devices": None, "remat": False, "remat_policy": "full",
-    "attention_impl": "auto", "use_pallas": "auto", "unroll_layers": False,
-    "explicit_spmd": False, "bank_placement": "device",
+    "num_devices": None, "use_pallas": "auto", "explicit_spmd": False,
+    "bank_placement": "device",
     "opt_moments_placement": "device", "tensor_parallel": 1,
     "pipeline_parallel": 1, "pipeline_microbatches": 0, "fsdp": False,
     "coordinator": None, "num_processes": None, "process_id": None,
-    "video_chunk_frames": 0, "remat_skip_last": 0, "debug_nans": False,
+    "debug_nans": False,
 }
 
 
@@ -107,15 +106,28 @@ def parse_args(argv=None):
     p.add_argument("--packed_dir", default="")
     p.add_argument("--profile_dir", default=None,
                    help="write a torch.profiler trace of early steps here")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialise the text and vision blocks in the "
+                        "backward (memory for a second forward)")
+    p.add_argument("--remat_policy", default="full",
+                   choices=["full", "dots", "attn"],
+                   help="what a rematerialised block keeps: its input "
+                        "(full), also the attention sublayer's output "
+                        "(attn), or that and the MLP's hidden and output "
+                        "(dots)")
+    p.add_argument("--remat_skip_last", type=int, default=0,
+                   help="with --remat: the last N vision blocks save "
+                        "everything")
+    p.add_argument("--video_chunk_frames", type=int, default=0,
+                   help="run the vision tower on N frames at a time, each "
+                        "chunk rematerialised as a whole; 0 = off")
+    add_attention_impl_arg(p)
+    p.add_argument("--unroll_layers", action="store_true",
+                   help="accepted for the JAX CLI's sake: the port's loop "
+                        "over layers is always unrolled")
     # the JAX CLI's flags for options that are not ported
     p.add_argument("--num_devices", type=int, default=None)
-    p.add_argument("--remat", action="store_true")
-    p.add_argument("--remat_policy", default="full",
-                   choices=["full", "dots", "attn"])
-    p.add_argument("--attention_impl", default="auto",
-                   choices=["auto", "einsum", "fused", "fused_block"])
     p.add_argument("--use_pallas", default="auto", choices=["auto", "on", "off"])
-    p.add_argument("--unroll_layers", action="store_true")
     p.add_argument("--explicit_spmd", action="store_true")
     p.add_argument("--bank_placement", default="device",
                    choices=["device", "host"])
@@ -128,8 +140,6 @@ def parse_args(argv=None):
     p.add_argument("--coordinator", default=None)
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
-    p.add_argument("--video_chunk_frames", type=int, default=0)
-    p.add_argument("--remat_skip_last", type=int, default=0)
     p.add_argument("--debug_nans", action="store_true")
     return p.parse_args(argv)
 
@@ -165,6 +175,11 @@ def build_config(args) -> Config:
                             max_words=args.max_words,
                             max_frames=args.max_frames,
                             temporal_layers=args.num_hidden_layers)
+    model = dc.replace(model, attention_impl=args.attention_impl,
+                       remat=args.remat, remat_policy=args.remat_policy,
+                       remat_skip_last=args.remat_skip_last,
+                       video_chunk_frames=args.video_chunk_frames,
+                       unroll_layers=args.unroll_layers)
     return Config(
         model=model,
         loss=LossConfig(centrality_scale=args.centrality_scale,
@@ -234,6 +249,7 @@ def main(argv=None):
     device = resolve_device(args.device)
 
     from ..core.checkpoint import latest_resumable
+    from ..models.neighborretr import resolve_fused_attention
     from ..train.loop import run_training
     from ..utils.logging import setup_logger
 
@@ -253,6 +269,8 @@ def main(argv=None):
 
     cfg = build_config(args)
     validate(cfg, 1)
+    # an --attention_impl the configuration cannot serve fails here
+    resolve_fused_attention(cfg.model, device)
     logger = setup_logger(output_dir=args.output_dir)
     if note:
         logger.info(note)

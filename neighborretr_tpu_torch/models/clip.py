@@ -37,10 +37,11 @@ class VisionTransformer(nn.Module):
         self.proj = L.empty_param(width, cfg.embed_dim, device=device)
 
     def forward(self, images: torch.Tensor, dtype: torch.dtype,
-                kernels: bool = True) -> torch.Tensor:
+                kernels: bool = True, **tower) -> torch.Tensor:
         """images [N, H, W, 3] normalised (NHWC) → projected CLS [N, E]
         (the JAX package's `project_hidden=False`: only the CLS token goes
-        through ln_post and proj)."""
+        through ln_post and proj).  tower: layers.Transformer.forward's
+        route and remat arguments."""
         N = images.shape[0]
         x = F.conv2d(images.to(dtype).permute(0, 3, 1, 2),
                      self.conv1.weight.to(dtype), stride=self.patch_size)
@@ -48,7 +49,7 @@ class VisionTransformer(nn.Module):
         cls = self.class_embedding.to(dtype).expand(N, 1, -1)
         x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(dtype)
         x = self.ln_pre(x)
-        x = self.transformer(x, None, dtype, kernels)
+        x = self.transformer(x, None, dtype, kernels, **tower)
         cls_tok = self.ln_post(x[:, 0, :])
         return cls_tok.to(dtype) @ self.proj.to(dtype)
 
@@ -71,13 +72,15 @@ class CLIP(nn.Module):
         self.logit_scale = nn.Parameter(torch.empty((), device=device))
 
     def encode_text(self, text_ids: torch.Tensor, text_mask: torch.Tensor,
-                    dtype: torch.dtype, kernels: bool = True) -> torch.Tensor:
+                    dtype: torch.dtype, kernels: bool = True,
+                    **tower) -> torch.Tensor:
         """text_ids [B, L] (0-padded), text_mask [B, L] {0,1} → projected
         hidden [B, L, E] under the causal ∧ key-padding bias.  (The EoT
-        feature the JAX package also returns feeds only training.)"""
+        feature the JAX package also returns feeds only training.)  tower:
+        layers.Transformer.forward's route and remat arguments."""
         Lq = text_ids.shape[1]
         x = (self.token_embedding.weight[text_ids.long()].to(dtype)
              + self.positional_embedding[:Lq].to(dtype))
         bias = L.causal_bias(Lq, x.device) + L.padding_bias(text_mask)
-        x = self.transformer(x, bias, dtype, kernels)
+        x = self.transformer(x, bias, dtype, kernels, **tower)
         return self.ln_final(x).to(dtype) @ self.text_projection.to(dtype)

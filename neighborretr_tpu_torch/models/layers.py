@@ -6,29 +6,46 @@ Modules hold fp32 parameters under the reference's state-dict names
 dtype the caller passes (bf16 on the card) with fp32 LayerNorm/softmax
 islands, as in the JAX package.
 
-The attention sublayer (LN1 + qkv + attention + out projection + residual)
-is one call to `ops.block_attention.ln_attention_sublayer`, one autograd
-node: the CUDA kernels (forward and backward) for a CUDA tensor, their
-plain versions for a CPU tensor.  `kernels=False` calls the plain versions
-on any device — the reference the kernels are held to on the card.  The
-blocks save their activations for the backward (no rematerialisation).
-Parameters are created uninitialised; see weights_io.init_model and
-weights_io.from_jax_params.
+The attention sublayer has the JAX package's three routes, chosen by
+`fused_attention` (models/neighborretr.py::resolve_fused_attention):
+  "block"  LN1 + qkv + attention + out projection + residual as one call to
+           `ops.block_attention.ln_attention_sublayer`, one autograd node
+           (L <= 64 on the card; a longer sequence there takes the next
+           route, see `attention_route`);
+  True     layer_norm → F.linear (packed qkv) →
+           `ops.attention.fused_frame_attention` → F.linear → residual: the
+           attention kernel at any L;
+  False    the plain `mha` under autograd, on any device and in any dtype.
+A CUDA tensor runs the hand-written kernels (forward and backward), a CPU
+tensor their plain versions; `kernels=False` calls the plain versions on
+any device — the reference the kernels are held to on the card.
+
+`Transformer` rematerialises its blocks under `remat` (torch.utils.
+checkpoint, non-reentrant), by the JAX package's three policies; see
+`ResidualAttentionBlock.forward`.  Parameters are created uninitialised; see
+weights_io.init_model and weights_io.from_jax_params.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from ..ops.attention import fused_frame_attention
 from ..ops.block_attention import layer_norm, ln_attention_sublayer, mha
 
 __all__ = ["NEG_INF", "quick_gelu", "layer_norm", "mha", "LayerNorm",
            "MultiheadAttention", "ResidualAttentionBlock", "Transformer",
-           "causal_bias", "padding_bias", "linear"]
+           "causal_bias", "padding_bias", "linear", "attention_route",
+           "REMAT_POLICIES", "BLOCK_KERNEL_MAX_L"]
+
+REMAT_POLICIES = ("full", "attn", "dots")
+# the longest sequence csrc/ln_attention_residual*.cu take
+BLOCK_KERNEL_MAX_L = 64
 
 NEG_INF = -1e9
 
@@ -82,9 +99,11 @@ class MLP(nn.Module):
         self.c_proj = skip_init(nn.Linear, 4 * d_model, d_model,
                                 device=device)
 
+    def hidden(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return quick_gelu(linear(x, self.c_fc, dtype))
+
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        return linear(quick_gelu(linear(x, self.c_fc, dtype)), self.c_proj,
-                      dtype)
+        return linear(self.hidden(x, dtype), self.c_proj, dtype)
 
 
 class ResidualAttentionBlock(nn.Module):
@@ -98,20 +117,100 @@ class ResidualAttentionBlock(nn.Module):
         self.ln_2 = LayerNorm(d_model, device=device)
         self.mlp = MLP(d_model, device=device)
 
-    def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor],
-                dtype: torch.dtype, kernels: bool = True) -> torch.Tensor:
-        """x [N, L, D]; bias [N, L, L] fp32 or None."""
+    def attention(self, x: torch.Tensor, bias: Optional[torch.Tensor],
+                  dtype: torch.dtype, kernels: bool = True,
+                  fused_attention: Union[bool, str] = "block",
+                  lean: bool = False) -> torch.Tensor:
+        """The attention sublayer x + Attn(LN1(x)) → [N, L, D] in `dtype`.
+        lean: keep for the backward only what the route cannot do without
+        (its input; on the kernel route also qkv and the attention's
+        output) and compute the rest again there."""
         a = self.attn
-        x = ln_attention_sublayer(
-            x.to(dtype), self.ln_1.weight, self.ln_1.bias,
-            a.in_proj_weight.to(dtype), a.in_proj_bias,
-            a.out_proj.weight.to(dtype), a.out_proj.bias, self.n_head, bias,
-            kernels)
-        return x + self.mlp(self.ln_2(x), dtype)
+        route = attention_route(fused_attention, x.shape[1], x.is_cuda)
+        x = x.to(dtype)
+        if route == "block":        # saves its inputs only, as it is
+            return ln_attention_sublayer(
+                x, self.ln_1.weight, self.ln_1.bias,
+                a.in_proj_weight.to(dtype), a.in_proj_bias,
+                a.out_proj.weight.to(dtype), a.out_proj.bias, self.n_head,
+                bias, kernels)
+        if route:
+            def packed_qkv(x):
+                return F.linear(self.ln_1(x), a.in_proj_weight.to(dtype),
+                                a.in_proj_bias.to(dtype))
+
+            qkv = _checkpoint(packed_qkv, x) if lean else packed_qkv(x)
+            out = fused_frame_attention(qkv, self.n_head, bias, kernels)
+            return x + linear(out, a.out_proj, dtype)
+
+        def einsum(x):
+            out = mha(self.ln_1(x), a.in_proj_weight, a.in_proj_bias,
+                      a.out_proj.weight, a.out_proj.bias, self.n_head, bias)
+            return (x.float() + out).to(dtype)
+
+        return _checkpoint(einsum, x) if lean else einsum(x)
+
+    def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor],
+                dtype: torch.dtype, kernels: bool = True,
+                fused_attention: Union[bool, str] = "block",
+                remat: Optional[str] = None) -> torch.Tensor:
+        """x [N, L, D]; bias [N, L, L] fp32 or None.  remat: None saves
+        every activation the backward wants; else one of REMAT_POLICIES
+        (↔ layers.REMAT_POLICIES), which keep
+          "full"  the block's input only: the whole block runs again in the
+                  backward;
+          "attn"  also the attention sublayer's output: the MLP runs again,
+                  the attention kernel's forward does not;
+          "dots"  the attention sublayer's output, the MLP's hidden
+                  activation and its output: LayerNorms, the attention and
+                  the first MLP product run again."""
+        def attention(x, lean=False):
+            return self.attention(x, bias, dtype, kernels, fused_attention,
+                                  lean)
+
+        def mlp(x):
+            return x + self.mlp(self.ln_2(x), dtype)
+
+        if remat is None:
+            return mlp(attention(x))
+        if remat == "full":
+            return _checkpoint(lambda x: mlp(attention(x)), x)
+        if remat == "attn":
+            return _checkpoint(mlp, attention(x, lean=True))
+        if remat == "dots":
+            x = _checkpoint(attention, x)
+            hidden = _checkpoint(
+                lambda x: self.mlp.hidden(self.ln_2(x), dtype), x)
+            return x + linear(hidden, self.mlp.c_proj, dtype)
+        raise ValueError(f"remat policy {remat!r} is not one of "
+                         f"{REMAT_POLICIES}")
+
+
+def _checkpoint(fn, x):
+    """fn(x) now, and again in the backward instead of keeping what it
+    saved.  The towers draw no random numbers, so no generator state is
+    kept."""
+    return checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False)
+
+
+def attention_route(fused_attention: Union[bool, str], L: int,
+                    on_cuda: bool) -> Union[bool, str]:
+    """The route a sequence of length L takes: `fused_attention`, except
+    that "block" past the sublayer kernel's longest sequence on the card
+    goes one level down, to the attention kernel (↔ layers.block_apply past
+    its own bound)."""
+    if fused_attention not in (False, True, "block"):
+        raise ValueError(f"fused_attention must be False, True or 'block', "
+                         f"got {fused_attention!r}")
+    if fused_attention == "block" and on_cuda and L > BLOCK_KERNEL_MAX_L:
+        return True
+    return fused_attention
 
 
 class Transformer(nn.Module):
-    """Stack of residual blocks (↔ layers.transformer_apply)."""
+    """Stack of residual blocks (↔ layers.transformer_apply, its unrolled
+    form: the loop over layers is always a Python loop here, so the JAX
+    package's `unroll_layers` changes nothing)."""
 
     def __init__(self, width: int, layers: int, heads: int, device=None):
         super().__init__()
@@ -120,15 +219,27 @@ class Transformer(nn.Module):
             for _ in range(layers))
 
     def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor],
-                dtype: torch.dtype, kernels: bool = True) -> torch.Tensor:
+                dtype: torch.dtype, kernels: bool = True,
+                fused_attention: Union[bool, str] = "block",
+                remat: bool = False, remat_policy: str = "full",
+                remat_skip_last: int = 0) -> torch.Tensor:
         """attn_bias: additive fp32 bias broadcastable to [N, 1, L, L]; it is
-        expanded once to the per-sequence [N, L, L] the blocks take."""
+        expanded once to the per-sequence [N, L, L] the blocks take.
+        remat: rematerialise each block in the backward by `remat_policy`,
+        but for the last `remat_skip_last` blocks, which save everything
+        (their activations die soonest in the backward)."""
+        if remat and remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {remat_policy!r} is not one of "
+                             f"{REMAT_POLICIES}")
         bias = None
         if attn_bias is not None:
             N, L = x.shape[0], x.shape[1]
             bias = attn_bias.float().expand(N, 1, L, L)[:, 0].contiguous()
-        for block in self.resblocks:
-            x = block(x, bias, dtype, kernels)
+        remat = remat and torch.is_grad_enabled()
+        n = len(self.resblocks)
+        for i, block in enumerate(self.resblocks):
+            policy = remat_policy if remat and i < n - remat_skip_last else None
+            x = block(x, bias, dtype, kernels, fused_attention, policy)
         return x
 
 

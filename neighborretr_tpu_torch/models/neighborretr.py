@@ -7,19 +7,21 @@ centrality.  Module names follow the reference's state dict
 
 Kernel dispatch: a CPU tensor runs the plain PyTorch versions; a CUDA
 tensor runs the hand-written kernels (ops/block_attention.py,
-ops/similarity.py, ops/similarity_blocked.py), and the attention kernel
-raises under
-compute_dtype='float32'.  `kernels=False` runs the plain versions on any
-device: the reference a kernel run is held to.
+ops/attention.py, ops/similarity.py, ops/similarity_blocked.py).
+`kernels=False` runs the plain versions on any device: the reference a
+kernel run is held to.  `cfg.attention_impl` picks the towers' attention
+route (`resolve_fused_attention`); `cfg.remat*` and
+`cfg.video_chunk_frames` trade a second forward for activation memory.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.config import ModelConfig
 from ..ops.similarity import (fused_interaction_mean,
@@ -74,28 +76,93 @@ class NeighborRetr(nn.Module):
     def get_text_feat(self, text_ids: torch.Tensor, text_mask: torch.Tensor,
                       kernels: bool = True) -> torch.Tensor:
         """[B, W] ids/mask → [B, W, E] projected token hidden (fp32)."""
-        return self.clip.encode_text(text_ids, text_mask, self.compute_dtype,
-                                     kernels).float()
+        cfg = self.cfg
+        return self.clip.encode_text(
+            text_ids, text_mask, self.compute_dtype, kernels,
+            fused_attention=resolve_fused_attention(cfg, text_ids.device),
+            remat=cfg.remat, remat_policy=cfg.remat_policy).float()
 
     def get_video_feat(self, video: torch.Tensor, video_mask: torch.Tensor,
                        kernels: bool = True) -> torch.Tensor:
         """[B, F, H, W, 3] frames + [B, F] mask → [B, F, E] temporal
-        features (fp32).  uint8 pixels are CLIP-normalised on the device."""
-        dtype = self.compute_dtype
+        features (fp32).  uint8 pixels are CLIP-normalised on the device.
+
+        cfg.video_chunk_frames: the vision tower runs on that many frames
+        at a time, one chunk after another, each rematerialised as a whole
+        in the backward, so activations are bounded by one chunk and only
+        the chunks' inputs and outputs persist; per-layer remat is off
+        inside a chunk.  A chunk that does not divide B·F pads the frame
+        axis up to a multiple (the pad rows are dropped)."""
+        cfg, dtype = self.cfg, self.compute_dtype
+        fused = resolve_fused_attention(cfg, video.device)
         if video.dtype == torch.uint8:
             video = normalize_frames(video, dtype)
         B, F = video_mask.shape
         frames = video.reshape((B * F,) + tuple(video.shape[2:]))
-        cls = self.clip.visual(frames, dtype, kernels)
+
+        def encode_frames(fr, remat):
+            return self.clip.visual(
+                fr, dtype, kernels, fused_attention=fused, remat=remat,
+                remat_policy=cfg.remat_policy,
+                remat_skip_last=cfg.remat_skip_last)
+
+        chunk, total = cfg.video_chunk_frames, B * F
+        if chunk and total > chunk:
+            pad = (-total) % chunk
+            if pad:
+                frames = torch.cat(
+                    [frames, frames.new_zeros((pad,) + frames.shape[1:])])
+
+            def encode_chunk(fr):
+                if not torch.is_grad_enabled():
+                    return encode_frames(fr, False)
+                return checkpoint(encode_frames, fr, False,
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
+
+            cls = torch.cat([encode_chunk(frames[s:s + chunk])
+                             for s in range(0, total + pad, chunk)])[:total]
+        else:
+            cls = encode_frames(frames, cfg.remat)
         frame_feat = cls.reshape(B, F, -1).float()
         return aggregate_video_features(self, frame_feat, video_mask, dtype,
-                                        kernels)
+                                        kernels, fused)
 
     def get_text_video_feat(self, text_ids, text_mask, video, video_mask,
                             kernels: bool = True
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
         return (self.get_text_feat(text_ids, text_mask, kernels),
                 self.get_video_feat(video, video_mask, kernels))
+
+
+def resolve_fused_attention(cfg: ModelConfig, device) -> Union[bool, str]:
+    """cfg.attention_impl → what `layers.ResidualAttentionBlock` takes: False
+    (the plain einsum form under autograd), True (the attention kernel on
+    packed qkv, ops/attention.py) or "block" (the whole attention sublayer
+    in one kernel, ops/block_attention.py; a sequence it cannot serve goes
+    to the attention kernel, `layers.attention_route`).  'auto' → "block"
+    on a CUDA device with bf16 compute, else False.
+
+    Precision contract: both kernels multiply in bf16 by design (fp32
+    softmax and LayerNorm islands).  Under compute_dtype='float32' the only
+    faithful form is the einsum one: 'auto' falls back to it, and asking
+    for a kernel route raises."""
+    impl = cfg.attention_impl
+    if impl in ("fused_block", "fused"):
+        if cfg.compute_dtype != "bfloat16":
+            raise ValueError(
+                f"attention_impl='{impl}' computes its MXU "
+                "dots in bfloat16 by design; with compute_dtype="
+                f"'{cfg.compute_dtype}' use attention_impl='einsum' (or "
+                "switch compute_dtype to 'bfloat16')")
+        return "block" if impl == "fused_block" else True
+    if impl == "einsum":
+        return False
+    if impl != "auto":
+        raise ValueError(f"attention_impl must be one of auto, einsum, fused, "
+                         f"fused_block; got {impl!r}")
+    on_cuda = torch.device(device).type == "cuda"
+    return "block" if on_cuda and cfg.compute_dtype == "bfloat16" else False
 
 
 def token_weights(mlp: nn.Sequential, feat: torch.Tensor,

@@ -32,6 +32,7 @@ import ctypes
 import torch
 
 from . import _build
+from .attention import attention_core
 
 LN_EPS = 1e-5
 
@@ -52,23 +53,16 @@ def mha(h, w_qkv, b_qkv, w_out, b_out, n_head: int,
     """Plain multi-head self-attention, einsum form (↔ models/layers.py::mha
     with fused=False): h [N, L, D] post-LN, bias [N, L, L] or None.
     Operands are rounded to h's dtype at the TPU kernel's rounding points
-    and multiplied in fp32; returns the fp32 sublayer output before the
+    and multiplied in fp32 (the attention itself is ops/attention.py's
+    `attention_core`); returns the fp32 sublayer output before the
     residual."""
     dt = h.dtype
-    N, L, D = h.shape
-    hd = D // n_head
 
     def rnd(t):                      # round to the operand dtype, keep fp32
         return t.to(dt).float()
 
-    qkv = rnd(h.float() @ rnd(w_qkv).T + b_qkv.float())
-    q, k, v = (t.reshape(N, L, n_head, hd) for t in qkv.split(D, dim=-1))
-    q = rnd(q * hd ** -0.5)
-    logits = torch.einsum("nqhd,nkhd->nhqk", q, k)
-    if bias is not None:
-        logits = logits + bias.float().reshape(N, 1, L, L)
-    probs = rnd(torch.softmax(logits, dim=-1))
-    out = rnd(torch.einsum("nhqk,nkhd->nqhd", probs, v).reshape(N, L, D))
+    qkv = (h.float() @ rnd(w_qkv).T + b_qkv.float()).to(dt)
+    out, _ = attention_core(qkv, n_head, bias)
     return out @ rnd(w_out).T + b_out.float()
 
 
@@ -92,9 +86,7 @@ def ln_attention_residual_bwd_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
     db_qkv sums the unrounded dqkv, dLN and dx come from the fp32 dh.  With
     an fp32 x nothing is rounded and this is the exact gradient."""
     dt = x.dtype
-    N, L, D = x.shape
-    hd = D // n_head
-    scale = hd ** -0.5
+    D = x.shape[-1]
 
     def rnd(t):
         return t.to(dt).float()
@@ -106,27 +98,14 @@ def ln_attention_residual_bwd_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
     xhat = xc * rstd
     h = rnd(xhat * ln_w.float() + ln_b.float())
     wq, wo = rnd(w_qkv), rnd(w_out)
-    qkv = rnd(h @ wq.T + b_qkv.float())
-    q, k, v = (t.reshape(N, L, n_head, hd) for t in qkv.split(D, dim=-1))
-    logits = torch.einsum("nqhd,nkhd->nhqk", rnd(q * scale), k)
-    if bias is not None:
-        logits = logits + bias.float().reshape(N, 1, L, L)
-    probs = torch.softmax(logits, dim=-1)
-    p16 = rnd(probs)
-    attn = rnd(torch.einsum("nhqk,nkhd->nqhd", p16, v).reshape(N, L, D))
+    qkv = (h @ wq.T + b_qkv.float()).to(dt)
 
     g32 = g.float()
     g16 = rnd(g32)
+    g3 = rnd(g16 @ wo)                                       # dattn
+    attn, dqkv = attention_core(qkv, n_head, bias, g3)
     dw_out = g16.reshape(-1, D).T @ attn.reshape(-1, D)
     db_out = g32.reshape(-1, D).sum(dim=0)
-    g3 = rnd(g16 @ wo).reshape(N, L, n_head, hd)            # dattn
-    dv = torch.einsum("nhqk,nqhd->nkhd", p16, g3)
-    dprobs = torch.einsum("nqhd,nkhd->nhqk", g3, v)
-    dlogits = probs * (dprobs - (dprobs * probs).sum(dim=-1, keepdim=True))
-    dl16 = rnd(dlogits * scale)
-    dq = torch.einsum("nhqk,nkhd->nqhd", dl16, k)
-    dk = torch.einsum("nhqk,nqhd->nkhd", dl16, q)            # unscaled q
-    dqkv = torch.cat([t.reshape(N, L, D) for t in (dq, dk, dv)], dim=-1)
     dqkv16 = rnd(dqkv)
     dh = dqkv16 @ wq
     dw_qkv = dqkv16.reshape(-1, 3 * D).T @ h.reshape(-1, D)

@@ -13,9 +13,11 @@ The in-batch B×B similarity is the plain matmul form by design at the short
 shapes, as in the JAX package; at the long-token shapes (T·V >= 2048) it and
 the two bank matrices run the blocked similarity (ops/similarity_blocked.py).
 `train.micro_batches > 1` encodes the batch in that many sequential
-micro-batches with exact gradients (see `_microbatched_backward`).
-On-device augmentation, remat, the explicit-SPMD and pipeline forms and the
-host-resident bank are not ported: asking for one raises.
+micro-batches with exact gradients (see `_microbatched_backward`);
+`model.remat*` and `model.video_chunk_frames` rematerialise the towers
+(models/layers.py, models/neighborretr.py); `model.attention_impl` picks the
+attention route.  On-device augmentation, the explicit-SPMD and pipeline
+forms and the host-resident bank are not ported: asking for one raises.
 """
 
 from __future__ import annotations
@@ -51,7 +53,15 @@ def create_train_state(model: M.NeighborRetr, bank: MemoryBank,
     return TrainState(model=model, opt=opt, bank=bank, step=0)
 
 
-def _check_supported(cfg: Config) -> None:
+def _check_supported(cfg: Config, model: Optional[M.NeighborRetr] = None
+                     ) -> None:
+    """Raises for an option that is not ported, and for a model built from
+    another ModelConfig than `cfg.model` (the towers read the model's own:
+    attention route, remat, frame chunks)."""
+    if model is not None and model.cfg != cfg.model:
+        raise ValueError(
+            "the model was built from another ModelConfig than cfg.model; "
+            "build it from cfg.model, or set model.cfg")
     t = cfg.train
     unported = {
         "train.explicit_spmd": t.explicit_spmd,
@@ -61,8 +71,6 @@ def _check_supported(cfg: Config) -> None:
         "optim.moments_placement='host'":
             cfg.optim.moments_placement != "device",
         "data.augment_backend='device'": cfg.data.augment_backend == "device",
-        "model.remat": cfg.model.remat,
-        "model.video_chunk_frames": cfg.model.video_chunk_frames > 0,
     }
     asked = [k for k, v in unported.items() if v]
     if asked:
@@ -213,8 +221,8 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], cfg: Config,
     cfg.model.cluster_noise is set.  Updates the model in place and returns
     the state with the new optimizer state, bank and step count, and the
     metrics (every loss term, grad_norm, logit_scale)."""
-    _check_supported(cfg)
     model = state.model
+    _check_supported(cfg, model)
     noise = None
     if cfg.model.cluster_noise:
         if generator is None:
@@ -257,7 +265,7 @@ def fill_bank_step(model: M.NeighborRetr, bank: MemoryBank,
                    batch: Dict[str, torch.Tensor], cfg: Config, offset: int,
                    kernels: bool = True) -> MemoryBank:
     """Epoch-start bank fill: encode one batch and write it at `offset`."""
-    _check_supported(cfg)
+    _check_supported(cfg, model)
     text_feat, video_feat = model.get_text_video_feat(
         batch["text_ids"], batch["text_mask"], batch["video"],
         batch["video_mask"], kernels)

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from neighborretr_tpu_torch.ops import attention as A
 from neighborretr_tpu_torch.ops import block_attention as BA
 from neighborretr_tpu_torch.ops import similarity as S
 from neighborretr_tpu_torch.ops import similarity_blocked as SB
@@ -416,3 +417,164 @@ def test_train_step_runs_through_the_training_kernels(cuda):
                        start["clip.visual.conv1.weight"])
     want, _ = run(False)
     np.testing.assert_allclose(got, want, rtol=2e-2)
+
+
+# ---------------------------------------------------------------------------
+# the packed-qkv attention kernels (ops/attention.py)
+# ---------------------------------------------------------------------------
+
+def qkv_inputs(seed, N, L, H, bias_kind, device):
+    """Packed qkv with unit-variance entries (what a qkv projection of a
+    LayerNorm output gives), a cotangent, and the bias."""
+    rng = np.random.default_rng(seed)
+    D = 64 * H
+
+    def t(a, dtype):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device
+                               ).to(dtype)
+
+    qkv = t(rng.standard_normal((N, L, 3 * D)), torch.bfloat16)
+    g = t(rng.standard_normal((N, L, D)), torch.bfloat16)
+    bias = None
+    if bias_kind is not None:
+        lens = rng.integers(1, L + 1, size=N)
+        j = np.arange(L)
+        fill = -1e9 if bias_kind == "causal" else -1e6
+        pad = np.where(j[None] < lens[:, None], 0.0, fill)[:, None, :]
+        b = np.broadcast_to(pad, (N, L, L))
+        if bias_kind == "causal":
+            b = b + np.where(j[None, :] > j[:, None], -1e9, 0.0)[None]
+        bias = t(np.ascontiguousarray(b), torch.float32)
+    return qkv, g, bias
+
+
+# every tower's sequence length (temporal 12, text 24, ViT-B/32 50, the long
+# recipes' 64, ViT-B/16 197, ViT-L/14@336px 577) and head count, off and on
+# the kernels' 64-row tiles, with and without a bias
+QKV_SHAPES = [(L, H, kind) for L in (12, 24, 50, 64, 197, 577)
+              for H, kind in ((8, None), (12, "keypad"), (16, "causal"))]
+QKV_SHAPES += [(1, 1, None), (65, 2, "causal"), (128, 1, None)]
+
+
+@pytest.mark.parametrize("L,H,bias_kind", QKV_SHAPES)
+def test_frame_attention_kernel_matches_plain(cuda, L, H, bias_kind):
+    qkv, _, bias = qkv_inputs(L * H, 5, L, H, bias_kind, cuda)
+    before = A.frame_attention.launches
+    got = A.frame_attention(qkv, H, bias)
+    torch.cuda.synchronize()
+    assert A.frame_attention.launches == before + 1
+    want = A.attention_plain(qkv, H, bias)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), **K1_TOL)
+    assert torch.equal(got, A.frame_attention(qkv, H, bias))
+
+
+@pytest.mark.parametrize("L,H,bias_kind", QKV_SHAPES)
+def test_frame_attention_backward_kernel_matches_plain(cuda, L, H, bias_kind):
+    """All of dqkv; sums over query tiles are taken in one block in a fixed
+    order (no float atomics), so a second call gives the same bits.
+    Tolerance: K1's two bf16 roundings, against the largest entry for the
+    entries near zero (dK and dV sum L terms of either sign)."""
+    qkv, g, bias = qkv_inputs(L + H, 5, L, H, bias_kind, cuda)
+    before = A.frame_attention_bwd.launches
+    got = A.frame_attention_bwd(qkv, H, g, bias)
+    torch.cuda.synchronize()
+    assert A.frame_attention_bwd.launches == before + 1
+    want = A.attention_bwd_plain(qkv, H, g, bias)
+    assert got.dtype == torch.bfloat16 and got.shape == qkv.shape
+    D = 64 * H
+    for name, a, b in zip(("dq", "dk", "dv"), got.float().split(D, -1),
+                          want.float().split(D, -1)):
+        assert torch.isfinite(a).all(), name
+        err = (a - b).abs()
+        bound = 2 ** -6 * b.abs() + 2 ** -7 * b.abs().max()
+        assert (err <= bound).all(), (name, err.max().item())
+    assert torch.equal(got, A.frame_attention_bwd(qkv, H, g, bias))
+
+
+def test_fused_frame_attention_autograd_runs_both_kernels(cuda):
+    qkv, g, bias = qkv_inputs(3, 4, 24, 2, "causal", cuda)
+    f, b = A.frame_attention.launches, A.frame_attention_bwd.launches
+    x = qkv.clone().requires_grad_(True)
+    A.fused_frame_attention(x, 2, bias).backward(g)
+    assert (A.frame_attention.launches, A.frame_attention_bwd.launches) == \
+        (f + 1, b + 1)
+    y = qkv.clone().requires_grad_(True)
+    A.fused_frame_attention(y, 2, bias, kernels=False).backward(g)
+    assert (A.frame_attention.launches, A.frame_attention_bwd.launches) == \
+        (f + 1, b + 1)
+    err = (x.grad.float() - y.grad.float()).abs().max().item()
+    assert err <= 2 ** -6 * y.grad.float().abs().max().item()
+
+
+def test_frame_attention_kernel_refuses_what_it_does_not_take(cuda):
+    qkv, g, bias = qkv_inputs(0, 2, 12, 2, "keypad", cuda)
+    with pytest.raises(ValueError, match="bfloat16"):    # fp32 activations
+        A.frame_attention(qkv.float(), 2)
+    with pytest.raises(ValueError, match="bfloat16"):
+        A.frame_attention_bwd(qkv.float(), 2, g)
+    with pytest.raises(ValueError, match="head dim 64"):
+        A.frame_attention(qkv, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        A.frame_attention(qkv.transpose(0, 1), 2)
+    with pytest.raises(ValueError, match="bias"):
+        A.frame_attention(qkv, 2, bias[:1])
+    with pytest.raises(ValueError, match="g must be"):
+        A.frame_attention_bwd(qkv, 2, g.float())
+    with pytest.raises(ValueError, match="cpu"):
+        A.frame_attention(qkv, 2, bias.cpu())
+
+
+@pytest.mark.parametrize("impl,policy,want", [
+    # launches of (K1, K3, attention forward, attention backward) in one
+    # compute_losses + backward on tiny towers of 2 + 2 + 2 blocks
+    ("fused_block", None, (6, 6, 0, 0)), ("fused", None, (0, 0, 6, 6)),
+    ("fused", "full", (0, 0, 10, 6)), ("fused", "attn", (0, 0, 6, 6)),
+    ("fused", "dots", (0, 0, 10, 6)), ("fused_block", "full", (10, 6, 0, 0))])
+def test_attention_impl_and_remat_change_what_launches(cuda, impl, policy,
+                                                       want):
+    from neighborretr_tpu_torch.core import config as C
+    from neighborretr_tpu_torch.data.datasets.synthetic import \
+        make_synthetic_batch
+    from neighborretr_tpu_torch.models.weights_io import init_model
+    from neighborretr_tpu_torch.train import memory_bank as MB
+    from neighborretr_tpu_torch.train import step as TS
+
+    def losses(kernels, **model):
+        m = dc.replace(C.ModelConfig.tiny(max_words=8, max_frames=4),
+                       compute_dtype="bfloat16", cluster_noise=False,
+                       attention_impl=impl, **model)
+        cfg = C.Config(model=m, loss=C.LossConfig(num_neighbors=3),
+                       data=C.DataConfig(max_words=8, max_frames=4),
+                       train=C.TrainConfig(batch_size=8, mb_batch=2))
+        model = init_model(m, seed=0, device=cuda)
+        bank = MB.create(16, 8, 4, m.width, device=cuda)._replace(
+            feat_t=torch.randn(16, 8, m.width, device=cuda),
+            feat_v=torch.randn(16, 4, m.width, device=cuda),
+            mask_t=torch.ones(16, 8, device=cuda),
+            mask_v=torch.ones(16, 4, device=cuda))
+        TS.create_train_state(model, bank)
+        total, _ = TS.compute_losses(
+            model, cfg, TS.to_device(make_synthetic_batch(m, 8, seed=1), cuda),
+            bank, kernels=kernels)
+        total.backward()
+        return total.item(), model.clip.text_projection.grad.clone()
+
+    fns = (BA.ln_attention_residual, BA.ln_attention_residual_bwd,
+           A.frame_attention, A.frame_attention_bwd)
+    before = [f.launches for f in fns]
+    remat = dict(remat=True, remat_policy=policy) if policy else {}
+    got, grad = losses(True, **remat)
+    torch.cuda.synchronize()
+    assert tuple(f.launches - b for f, b in zip(fns, before)) == want
+    plain, plain_grad = losses(False, **remat)
+    assert np.isfinite(got) and abs(got - plain) <= 2e-2 * abs(plain)
+    assert ((grad - plain_grad).norm() <= 0.1 * plain_grad.norm()).item()
+    if policy:      # remat changes no value: the same kernels on the same
+        # inputs.  Bit-equality is the CPU tests' to show; on the card
+        # torch's float-atomic scatter-adds make one forward differ from its
+        # own repeat (2e-5 to 2e-4 of this loss on an H100, where the noise
+        # flips a DPC-KNN cluster id), so this holds the plain run's bounds
+        same, same_grad = losses(True)
+        assert abs(same - got) <= 2e-2 * abs(got)
+        assert ((same_grad - grad).norm() <= 0.1 * grad.norm()).item()

@@ -271,8 +271,8 @@ def test_train_cli_smoke_writes_the_files_and_resumes(tmp_path):
 
 def test_train_cli_refuses_unported_options_and_missing_gpu(tmp_path):
     out = str(tmp_path / "refused")
-    for flags, word in ((["--remat"], "--remat"),
-                        (["--video_chunk_frames", "16"], "--video_chunk_frames"),
+    for flags, word in ((["--fsdp"], "--fsdp"),
+                        (["--tensor_parallel", "2"], "--tensor_parallel"),
                         (["--augment_backend", "device"], "augment_backend"),
                         (["--clip_checkpoint", "ViT-B-32.pt"], "clip_checkpoint")):
         done = run_cli("--output_dir", out, *flags)

@@ -210,11 +210,13 @@ def test_unported_options_raise():
     cfg = make_config(tc)
     tstep._check_supported(dc.replace(cfg, train=dc.replace(
         cfg.train, micro_batches=2)))           # ported: GradCache, two passes
+    tstep._check_supported(dc.replace(cfg, model=dc.replace(
+        cfg.model, remat=True, video_chunk_frames=8)))   # ported: checkpoints
     for section, change in (("train", dict(explicit_spmd=True)),
                             ("train", dict(pipeline_parallel=2)),
                             ("train", dict(bank_placement="host")),
                             ("data", dict(augment_backend="device")),
-                            ("model", dict(remat=True))):
+                            ("train", dict(fsdp=True))):
         bad = dc.replace(cfg, **{section: dc.replace(getattr(cfg, section),
                                                      **change)})
         with pytest.raises(NotImplementedError, match="not ported"):

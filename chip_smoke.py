@@ -3,8 +3,10 @@
 serving (index → search), the flagship train step (bank fill → optimizer
 steps at 24 words x 12 frames), the long-token trainer (the train CLI at
 64 words x 64 frames: bank fill, steps, eval, checkpoints, resume), then
-serving and the train step again on the `attention_impl="fused"` route, and
-the index/search CLIs and rematerialised train steps at ViT-L/14@336px.
+serving and the train step again on the `attention_impl="fused"` route, the
+index/search CLIs and rematerialised train steps at ViT-L/14@336px, the
+kernel check of the sublayer without LayerNorm (`fused_attention_sublayer`),
+and the flagship trainer under `--augment_backend device`.
 
     python3 chip_smoke.py [--profile]
 
@@ -79,8 +81,28 @@ Phases (each prints its own lines; any failure exits non-zero):
                steps), remat "attn" and video_chunk_frames=48 (1 step each,
                from the same state): launch counts, peak memory and step-1
                loss per setting; the CLIs and one step at ViT-B/16 too.
+ 14. K10, K11 — the sublayer without LayerNorm and residual and its
+               backward (`fused_attention_sublayer`, which no model path
+               calls, as in the JAX package): its kernel check first, the
+               counterpart of scripts/pallas_tpu_check.py's block check
+               (N=768, L=50, H=12: forward and backward through the public
+               function, each weight gradient within 5% of the fp32 plain
+               composition), then both kernels against their plain versions
+               at that shape, the train step's vision shape (N=1536) and the
+               text and temporal shapes with their biases, K11 twice;
+               `nn.MultiheadAttention` timed beside them as the library's
+               yardstick (the port never calls it);
+ 15. augment — the device RandAugment: (a) on the card against the CPU on
+               one structured batch of 8 x 12 x 224² with draws fixed so
+               that each of the 16 ops fires; (b) its time and peak memory
+               on a flagship batch of 128 x 12 x 224² under
+               rand-m7-n4-mstd0.5-inc1; (c) `cli.train --augment_backend
+               device` at the MSR-VTT recipe widths (ViT-B/32, 24 words x 12
+               frames, batch 128, bank 15 x 128 cut by the data's length to
+               3 x 128, bf16): bank fill, 3 steps, eval; launch counts,
+               finite losses, R@K, every augmented batch changed.
 The line before the last is a JSON object with, for each kernel, its
-launches on each main path (all nine counts are set to 0 before each path
+launches on each main path (all eleven counts are set to 0 before each path
 and read after it), error, times and roofline bound; the last line is the
 device record.
 
@@ -252,7 +274,7 @@ LIBS = ("frame_attention", "interaction_similarity",
 
 
 def kernel_wrappers():
-    """The nine wrappers by kernel; each counts its launches in
+    """The eleven wrappers by kernel; each counts its launches in
     `.launches`."""
     from neighborretr_tpu_torch.ops import attention as A
     from neighborretr_tpu_torch.ops import block_attention as BA
@@ -264,7 +286,8 @@ def kernel_wrappers():
             "K4": S.fused_interaction_mean, "K5": S.fused_similarity_bwd,
             "K6": SB.fused_interaction_similarity_blocked,
             "K7": SB.fused_blocked_similarity_bwd,
-            "K8": A.frame_attention, "K9": A.frame_attention_bwd}
+            "K8": A.frame_attention, "K9": A.frame_attention_bwd,
+            "K10": BA.attention_sublayer, "K11": BA.attention_sublayer_bwd}
 
 
 def counted(fn):
@@ -1384,6 +1407,319 @@ def phase_vit_l(card: str, profile: bool = False):
     return counts, res
 
 
+# the kernel check's own bound (scripts/pallas_tpu_check.py's block check):
+# each weight gradient of the bf16 kernels within 5% of the fp32 plain
+# composition, relative to the tensor's largest entry
+K10_CHECK_REL = 0.05
+
+
+def phase_k10_k11(g):
+    print("== phase 14: K10 attention_sublayer, K11 its backward: the kernel "
+          "check, then against their plain versions")
+    import torch.nn as nn
+
+    from neighborretr_tpu_torch.ops import block_attention as BA
+    dev = "cuda"
+
+    # the kernel check (N=768, L=50, H=12: ViT-B/32's vision tower at index
+    # batch 64): weights N(0, 0.02), zero biases, h N(0, 1), loss sum(y),
+    # through the public function as a user calls it
+    N, L, D, H = 768, 50, 768, 12
+    h = torch.randn(N, L, D, generator=g, device=dev)
+    w = [torch.randn(3 * D, D, generator=g, device=dev) * 0.02,
+         torch.zeros(3 * D, device=dev),
+         torch.randn(D, D, generator=g, device=dev) * 0.02,
+         torch.zeros(D, device=dev)]
+
+    def check():
+        leaves = [t.clone().requires_grad_(True) for t in [h] + w]
+        BA.fused_attention_sublayer(*leaves, H).float().sum().backward()
+        torch.cuda.synchronize()
+        return [t.grad for t in leaves]
+
+    grads, check_counts = counted(check)
+    want = dict.fromkeys(kernel_wrappers(), 0)
+    want.update({"K10": 1, "K11": 1})
+    print(f"  launches in the kernel check: {check_counts} (expected {want})")
+    if check_counts != want:
+        raise SystemExit("launch counts do not match the kernel check")
+    ref = BA.attention_sublayer_bwd_plain(h, *w, H, torch.ones_like(h))
+    for name, a, b in zip(("dh", "dw_qkv", "db_qkv", "dw_out", "db_out"),
+                          grads, ref):
+        rel = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+        ok = bool(torch.isfinite(a).all()) and rel < K10_CHECK_REL
+        print(f"  kernel check {name}: max |kernel - fp32 plain| / max |fp32 "
+              f"plain| = {rel:.4g} (bound {K10_CHECK_REL:g}) "
+              f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise SystemExit(f"K10/K11 kernel check: {name} off by {rel:.4g}")
+    del grads, ref
+
+    shapes = [("vision check", 768, 50, 768, 12, None),
+              ("vision train", 1536, 50, 768, 12, None),
+              ("text", 128, 24, 512, 8, "causal"),
+              ("temporal", 128, 12, 512, 8, "keypad")]
+    names = ("dw_qkv", "db_qkv", "dw_out", "db_out")
+    k10, k11 = {}, {}
+    for name, N, L, D, H, kind in shapes:
+        (h, _, _, *w), bias = _attn_inputs(g, N, L, D, kind)
+        dy = torch.randn(N, L, D, generator=g, device=dev).bfloat16()
+        tag = f"{name} N={N} L={L} D={D} H={H}"
+        y = BA.attention_sublayer(h, *w, H, bias)
+        torch.cuda.synchronize()
+        err10 = compare(f"K10 {tag}", y,
+                        BA.attention_sublayer_plain(h, *w, H, bias), K1_TOL)
+        got = BA.attention_sublayer_bwd(h, *w, H, dy, bias)
+        torch.cuda.synchronize()
+        plain = BA.attention_sublayer_bwd_plain(h, *w, H, dy, bias)
+        err11 = compare(f"K11 {tag} dh", got[0], plain[0], K1_TOL)
+        for out_name, a, b in zip(names, got[1:], plain[1:]):
+            scale = b.abs().max().item()
+            e = (a - b).abs().max().item()
+            ok = bool(torch.isfinite(a).all()) and e <= K3_SUM_TOL * scale
+            print(f"  K11 {tag} {out_name}: max_abs_err {e:.6g} against max "
+                  f"|plain| {scale:.6g} (tolerance {K3_SUM_TOL:g}·max|plain|)"
+                  f" {'ok' if ok else 'FAILED'}")
+            if not ok:
+                raise SystemExit(f"K11 {out_name} disagrees with its plain "
+                                 "version")
+            err11 = max(err11, e)
+        again = BA.attention_sublayer_bwd(h, *w, H, dy, bias)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise SystemExit("K11: two runs differ in their bits")
+        print(f"  K11 {tag}: two runs bit-equal in all 5 outputs")
+        del plain, again
+
+        # the library's call for the same function, as a yardstick only:
+        # nn.MultiheadAttention with the same bf16 weights, the bias as a
+        # float mask per (sequence, head)
+        lib = nn.MultiheadAttention(D, H, batch_first=True, device=dev,
+                                    dtype=torch.bfloat16)
+        with torch.no_grad():
+            lib.in_proj_weight.copy_(w[0])
+            lib.in_proj_bias.copy_(w[1])
+            lib.out_proj.weight.copy_(w[2])
+            lib.out_proj.bias.copy_(w[3])
+        mask = (None if bias is None else bias.bfloat16().repeat_interleave(
+            H, dim=0))
+        with torch.no_grad():
+            lib_y = lib(h, h, h, need_weights=False, attn_mask=mask)[0]
+        lib_err = (lib_y.float() - y.float()).abs().max().item()
+        hl = h.detach().requires_grad_(True)
+        lib_out = lib(hl, hl, hl, need_weights=False, attn_mask=mask)[0]
+        lib_leaves = [hl] + list(lib.parameters())
+
+        M = N * L
+        ms = time_ms(lambda: BA.attention_sublayer(h, *w, H, bias), 20)
+        plain_ms = time_ms(lambda: BA.attention_sublayer_plain(h, *w, H, bias),
+                           10)
+        with torch.no_grad():
+            lib_ms = time_ms(lambda: lib(h, h, h, need_weights=False,
+                                         attn_mask=mask), 20)
+        b_ms, b_by = bound(8 * M * D * D + 4 * N * L * L * D, PEAK_BF16,
+                           nbytes(h, *w, bias, y))
+        print(f"  K10 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"nn.MultiheadAttention {lib_ms:.4f} ms (max |Δ| to the kernel "
+              f"{lib_err:.3g}), bound {b_ms:.4f} ms ({b_by})")
+        k10[name] = (err10, ms, plain_ms, b_ms, b_by, lib_ms)
+        ms = time_ms(lambda: BA.attention_sublayer_bwd(h, *w, H, dy, bias), 10)
+        plain_ms = time_ms(
+            lambda: BA.attention_sublayer_bwd_plain(h, *w, H, dy, bias), 3)
+        lib_ms = time_ms(lambda: torch.autograd.grad(
+            lib_out, lib_leaves, dy, retain_graph=True), 10)
+        # with the recompute of qkv and the probabilities
+        b_ms, b_by = bound(22 * M * D * D + 12 * N * L * L * D, PEAK_BF16,
+                           nbytes(h, *w, bias, dy, *got))
+        print(f"  K11 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"nn.MultiheadAttention's backward {lib_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})")
+        k11[name] = (err11, ms, plain_ms, b_ms, b_by, lib_ms)
+        del lib, lib_out, lib_leaves, hl, got, y
+    return check_counts, k10, k11
+
+
+# the device augment on the card against the CPU, given the same draws:
+# the same fp32 arithmetic in the same order, but cos/sin (rotations) may
+# differ in their last bit between the two libraries, and a tap position an
+# ulp across a pixel boundary moves the bilinear blend by one level
+AUGMENT_SHARE = 0.005
+
+
+def _structured_video(g, B, F, H, W):
+    """uint8 [B, F, H, W, 3] on g's device: per clip a colour ramp in
+    [lo, hi] at a random angle, a flat patch, a band of stripes (sharp
+    edges), noise in the left quarter, each frame shifted by one column.
+    Random noise would leave AutoContrast and Equalize inert."""
+    dev = g.device
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=g, device=dev)
+
+    yy = torch.arange(H, device=dev).float().view(1, H, 1, 1)
+    xx = torch.arange(W, device=dev).float().view(1, 1, W, 1)
+    ang = rand(B, 1, 1, 1) * 2 * np.pi
+    t = torch.cos(ang) * xx / W + torch.sin(ang) * yy / H
+    t = (t - t.amin((1, 2), keepdim=True)) / (
+        t.amax((1, 2), keepdim=True) - t.amin((1, 2), keepdim=True))
+    lo, hi = 20 + 60 * rand(B, 1, 1, 1), 160 + 75 * rand(B, 1, 1, 1)
+    img = lo + (hi - lo) * torch.cat([t, t.flip(1), 1 - t], dim=-1)
+    img[:, H // 4:H // 2, W // 4:W // 2] = lo + (hi - lo) * rand(B, 1, 1, 3)
+    img[:, :, 2 * W // 3:] = torch.where((yy % 8) < 4, hi, lo)
+    frames = []
+    for f in range(F):
+        fr = torch.roll(img, f, dims=2)
+        fr[:, :, :W // 4] += 12 * torch.randn(B, H, W // 4, 3, generator=g,
+                                               device=dev)
+        frames.append(fr)
+    return torch.stack(frames, 1).round().clamp(0, 255).to(torch.uint8)
+
+
+AUGMENT_ARGV = [
+    "--datatype", "synthetic", "--clip_checkpoint", "random",
+    "--max_words", "24", "--max_frames", "12", "--batch_size", "128",
+    "--mb_batch", "15", "--epochs", "1", "--synthetic_size", "384",
+    "--batch_size_val", "128", "--n_display", "1", "--mid_epoch_eval", "0",
+    "--workers", "8", "--seed", "42", "--augment_backend", "device"]
+
+
+def phase_augment(card: str, block_ms: float):
+    print("== phase 15: device RandAugment (--augment_backend device)")
+    import shutil
+    import tempfile
+
+    from neighborretr_tpu_torch.cli import train as cli
+    from neighborretr_tpu_torch.ops import device_augment as DA
+    from neighborretr_tpu_torch.train import loop as LOOP
+    from neighborretr_tpu_torch.train import step as TS
+
+    # (a) the card against the CPU: 8 clips x 12 frames x 224², each of the
+    # 16 ops fired twice over 4 layers, levels and signs drawn
+    B, F, R, n = 8, 12, 224, 4
+    g = torch.Generator(device="cuda").manual_seed(15)
+    video = _structured_video(g, B, F, R, R)
+    slot = torch.arange(B * n, device="cuda").view(B, n)
+    op = slot % len(DA.OP_NAMES)
+    fire = torch.ones(B, n, dtype=torch.bool, device="cuda")
+    level = torch.rand(B, n, generator=g, device="cuda") * 10
+    neg = (slot // len(DA.OP_NAMES)) % 2 == 1
+    pol = DA.DeviceAugmentPolicy()
+    t0 = time.perf_counter()
+    got = DA.apply_randaugment_draws(video, op, fire, level, neg, pol)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = DA.apply_randaugment_draws(
+        video.cpu(), op.cpu(), fire.cpu(), level.cpu(), neg.cpu(), pol)
+    t_cpu = time.perf_counter() - t0
+    d = (got.cpu().int() - want.int()).abs()
+    share = (d > 0).float().mean().item()
+    moved = (want != video.cpu()).float().mean().item()
+    ok = d.max().item() <= 1 and share <= AUGMENT_SHARE and moved > 0.1
+    print(f"  (a) [{B}, {F}, {R}, {R}, 3], all 16 ops: card vs CPU max |Δ| "
+          f"{d.max().item()}, pixels differing {share:.3g} (bound |Δ| <= 1 "
+          f"on at most {AUGMENT_SHARE:g}); {moved:.3g} of the pixels moved by "
+          f"the policy; card {t_card:.3f} s (first call), CPU {t_cpu:.3f} s "
+          f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise SystemExit("device augment: the card disagrees with the CPU")
+    del video, got, want, d
+
+    # (b) one flagship batch: 128 x 12 x 224² x 3 uint8, the recipe's policy
+    B = 128
+    video = _structured_video(g, B, F, R, R)
+    mask = torch.ones(B, F, device="cuda")
+    policy = "rand-m7-n4-mstd0.5-inc1"
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    aug_ms = time_ms(lambda: DA.augment_batch(video, mask, g, policy), 10)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    print(f"  (b) augment_batch at [{B}, {F}, {R}, {R}, 3] uint8 "
+          f"({nbytes(video) / 1e6:.0f} MB), {policy}: {aug_ms:.3f} ms per "
+          f"batch (median of 10, fresh draws each) on {card}; peak device "
+          f"memory above the batch {peak:.3f} GiB")
+    del video, mask
+
+    # (c) the train CLI under --augment_backend device
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_augment_")
+    argv = AUGMENT_ARGV + ["--output_dir", out_dir]
+    args = cli.parse_args(argv)
+    cfg = cli.build_config(args)
+    m = cfg.model
+    layers = (m.clip.vision_layers + m.clip.transformer_layers
+              + m.temporal_layers)
+    n_steps = args.synthetic_size // args.batch_size
+    print(f"  (c) {' '.join(argv[:-2])}")
+    real_step, real_aug = LOOP.train_step, TS._maybe_device_augment
+    record = {"ms": [], "metrics": [], "changed": []}
+
+    def augment(cfg, batch, generator):
+        out = real_aug(cfg, batch, generator)
+        record["changed"].append(
+            (out["video"] != batch["video"]).float().mean().item())
+        return out
+
+    def step(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = real_step(*a, **kw)
+        torch.cuda.synchronize()
+        record["ms"].append(1e3 * (time.perf_counter() - t0))
+        record["metrics"].append({k: v.item() for k, v in met.items()})
+        return state, met
+
+    def run():
+        LOOP.train_step, TS._maybe_device_augment = step, augment
+        try:
+            return cli.main(argv)
+        finally:
+            LOOP.train_step, TS._maybe_device_augment = real_step, real_aug
+
+    try:
+        (state, tracker), counts = counted(run)
+        log = open(os.path.join(out_dir, "log.txt")).read()
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            ev = [r for r in map(json.loads, f) if r["kind"] == "eval"]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    n_evals, eval_batches = 2, 1      # the epoch's and the final test's
+    want = dict.fromkeys(kernel_wrappers(), 0)
+    want.update({"K1": (2 * n_steps + n_evals * eval_batches) * layers,
+                 "K3": n_steps * layers, "K4": 2 * n_steps,
+                 "K5": 2 * n_steps, "K2": n_evals})
+    print(f"  launches in the run: {counts} (expected {want}: per step K1 = "
+          f"K3 = {layers}, K4 = K5 = 2, as in phase 8; per fill or eval "
+          f"batch K1 = {layers}; per evaluation K2 = 1)")
+    if counts != want:
+        raise SystemExit("launch counts do not match the augment train path")
+    if state.step != n_steps or len(record["metrics"]) != n_steps:
+        raise SystemExit(f"the run took {state.step} steps")
+    for i, met in enumerate(record["metrics"]):
+        print(f"  step {i + 1}: " + " ".join(f"{k} {v:.5f}"
+                                              for k, v in met.items()))
+        if not all(np.isfinite(v) for v in met.values()):
+            raise SystemExit(f"non-finite metric at step {i + 1}")
+    # the fill's batches, then the steps'
+    changed = record["changed"]
+    print(f"  augmented batches: {len(changed)} (fill {n_steps}, steps "
+          f"{n_steps}); share of pixels changed per batch "
+          f"{' / '.join(f'{c:.3g}' for c in changed)}")
+    if len(changed) != 2 * n_steps or min(changed) <= 0:
+        raise SystemExit("a batch went through unaugmented")
+    for word in ("memory bank filled", "Final test on best"):
+        if word not in log:
+            raise SystemExit(f"log.txt lacks '{word}'")
+    if len(ev) != 1 or not 0 <= ev[0]["t2v"]["R1"] <= 100:
+        raise SystemExit("no evaluation row in metrics.jsonl")
+    ms = statistics.median(record["ms"])
+    print(f"  eval: t2v R@1 {ev[0]['t2v']['R1']:.2f} R@5 "
+          f"{ev[0]['t2v']['R5']:.2f} v2t R@1 {ev[0]['v2t']['R1']:.2f} (random "
+          f"weights); steps {' / '.join(f'{t:.1f}' for t in record['ms'])} "
+          f"ms, median {ms:.1f} ms/step with the device augment against "
+          f"{block_ms:.1f} ms/step without it (phase 8) on {card}")
+    return counts, aug_ms, ms
+
+
 TRAINER_ARGV = [
     "--datatype", "synthetic", "--clip_checkpoint", "random",
     "--max_words", "64", "--max_frames", "64", "--batch_size", "128",
@@ -1708,6 +2044,8 @@ def main():
           f"the attention_impl='fused' route (K8/K9), {block_ms:.1f} ms on "
           "the sublayer kernels' route (K1/K3, phase 8)")
     backbone_counts, _ = phase_vit_l(card, profile)
+    check_counts, k10, k11 = phase_k10_k11(g)
+    augment_counts, _, _ = phase_augment(card, block_ms)
 
     def kernel(name, source, replaces, launches, row, timed_at, **extra):
         err, ms, plain_ms, bound_ms, bound_by, *library_ms = row
@@ -1726,7 +2064,9 @@ def main():
                 "trainer": trainer_counts[k],
                 "fused_serving": fused_serving_counts[k],
                 "fused_train": fused_train_counts[k],
-                "larger_backbones": backbone_counts[k]}
+                "larger_backbones": backbone_counts[k],
+                "sublayer_kernel_check": check_counts[k],
+                "augment_trainer": augment_counts[k]}
 
     def by_shape(rows):
         return {str(k): list(r[1:]) for k, r in rows.items()}
@@ -1785,6 +2125,18 @@ def main():
                also_replaces=["pallas_attention.py:459",
                               "pallas_attention.py:525"],
                ms_plain_bound_library_by_shape=by_shape(k9)),
+        kernel("attention_sublayer", "ln_attention_residual.cu",
+               "pallas_block_attention.py:238",
+               paths("K10"), worst(k10, "vision check"),
+               "vision check N=768 L=50 D=768 H=12",
+               also_replaces=["pallas_block_attention.py:300"],
+               ms_plain_bound_library_by_shape=by_shape(k10)),
+        kernel("attention_sublayer_bwd", "ln_attention_residual_bwd.cu",
+               "pallas_block_attention.py:266",
+               paths("K11"), worst(k11, "vision check"),
+               "vision check N=768 L=50 D=768 H=12",
+               also_replaces=["pallas_block_attention.py:327"],
+               ms_plain_bound_library_by_shape=by_shape(k11)),
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

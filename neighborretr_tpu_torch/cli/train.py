@@ -147,8 +147,6 @@ def parse_args(argv=None):
 def check_ported(args) -> None:
     asked = [f"--{k}" for k, default in UNPORTED.items()
              if getattr(args, k) != default]
-    if args.augment_backend == "device":
-        asked.append("--augment_backend device")
     if args.clip_checkpoint not in (None, "random"):
         asked.append("--clip_checkpoint <file>")
     if asked:

@@ -286,15 +286,15 @@ class DataConfig:
     train_augment: bool = True
     # the train-time RandAugment policy string (timm grammar,
     # dataloader_retrieval.py:154-158); "" disables.  Lives in DataConfig so
-    # the DEVICE backend (ops/device_augment.py, applied inside the jitted
-    # train step) can read it from the step's static cfg.
+    # the DEVICE backend (ops/device_augment.py, applied inside the train
+    # step) can read it from the step's cfg.
     augment: str = "rand-m7-n4-mstd0.5-inc1"
     # "auto" | "native" | "pil" | "device" — native = the C++ clip kernels
-    # in data/native (byte-exact vs PIL); device = jitted JAX ops fused into
-    # the train step ahead of normalize_frames (ops/device_augment.py, every
-    # op within max|Δ|≤1 of PIL), freeing the host of the ~14 ms/clip/core
-    # augment cost; recorded here so the run's config dump captures which
-    # backend produced the pixels
+    # in data/native (byte-exact vs PIL); device = torch ops on the batch's
+    # device at the top of the train step, ahead of the frame normalisation
+    # (ops/device_augment.py), freeing the host of the per-clip augment
+    # cost; recorded here so the run's config dump captures which backend
+    # produced the pixels
     augment_backend: str = "auto"
     # packed pre-decoded corpus directory (cli/pack_dataset.py /
     # data/packed.py); "" = decode from video files per epoch
@@ -489,6 +489,6 @@ def validate(cfg: Config, num_devices: int) -> None:
             f"unknown augment_backend '{cfg.data.augment_backend}' "
             "(auto | native | pil | device)")
     if cfg.data.augment_backend == "device" and cfg.data.augment:
-        raise NotImplementedError(
-            "augment_backend='device' is not ported to PyTorch yet "
-            "(auto | native | pil)")
+        # fail at validate time, not at the first step
+        from ..ops.device_augment import DeviceAugmentPolicy
+        DeviceAugmentPolicy.parse(cfg.data.augment)

@@ -1,5 +1,6 @@
 // Helpers shared by the hand-written kernels: bf16 mma.sync fragments,
-// warp reductions, and the ordered reduction of per-block partial sums.
+// warp reductions, a sequence's rows into shared memory (with or without
+// LayerNorm), and the ordered reduction of per-block partial sums.
 
 #pragma once
 
@@ -46,6 +47,47 @@ __device__ __forceinline__ float warp_max(float v) {
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
+}
+
+// One sequence's rows 0..LP into shared memory as bf16 (row stride HS),
+// one warp per row, rows past L zero.  LN: the LayerNorm of x in fp32 (an
+// fp32 island, h rounded to bf16), as the K1/K3 sublayers take it; !LN: x
+// as it is (K10/K11's pre-normalised h).
+template <bool LN>
+__device__ __forceinline__ void load_rows(const bf16* __restrict__ xs,
+                                          bf16* hs, int HS, int L, int LP,
+                                          int D, const float* ln_w,
+                                          const float* ln_b, float eps,
+                                          int warp, int n_warps, int lane) {
+  for (int i = warp; i < LP; i += n_warps) {
+    bf16* row = hs + i * HS;
+    if (i >= L) {
+      for (int d = lane; d < D; d += 32) row[d] = __float2bfloat16(0.f);
+      continue;
+    }
+    const bf16* xr = xs + (size_t)i * D;
+    if constexpr (!LN) {
+      for (int d = lane; d < D; d += 32) row[d] = xr[d];
+    } else {
+      float s = 0.f;
+      for (int d = lane; d < D; d += 32) {
+        bf16 v = xr[d];
+        row[d] = v;
+        s += __bfloat162float(v);
+      }
+      const float mean = warp_sum(s) / D;
+      float ss = 0.f;
+      for (int d = lane; d < D; d += 32) {
+        float c = __bfloat162float(row[d]) - mean;
+        ss += c * c;
+      }
+      const float rstd = rsqrtf(warp_sum(ss) / D + eps);
+      for (int d = lane; d < D; d += 32) {
+        float xh = (__bfloat162float(row[d]) - mean) * rstd;
+        row[d] = __float2bfloat16(xh * ln_w[d] + ln_b[d]);
+      }
+    }
+  }
 }
 
 // out[c] = (sum_b part[b][c]) / div, b in ascending order: the second pass

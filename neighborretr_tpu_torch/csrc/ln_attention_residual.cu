@@ -4,6 +4,10 @@
 // _make_fwd_ln_kernel, launched by _ln_core_call (public
 // fused_ln_attention_residual), both without and with the additive
 // per-sequence bias [N, L, L] (text causal∧padding, temporal key padding).
+// The same kernels without LayerNorm and residual (the template flag LN and
+// RES off, entry attention_sublayer_fwd: K10) replace the same file's
+// _block_attention_core and _block_attention_biased_core (public
+// fused_attention_sublayer): y = W_o · MHA(h) + b_o on a pre-normalised h.
 //
 // Rounding points follow the TPU kernel so that the plain PyTorch version
 // (ops/block_attention.py) can hold this one to it:
@@ -22,15 +26,15 @@
 //
 // Design: two kernels.
 //   A. attn_heads_kernel, one block per (sequence, head), 8 warps.
-//      LayerNorm of the sequence into shared memory (bf16, L padded to a
-//      multiple of 16, padded rows zero); the head's q/k/v columns [Lp, 192]
+//      LayerNorm of the sequence (or, for K10, h as it is) into shared
+//      memory (bf16, L padded to a multiple of 16, padded rows zero); the head's q/k/v columns [Lp, 192]
 //      as bf16 mma.sync m16n8k16 products (warp w owns 3 of the 24 n-tiles,
 //      all m-tiles; W_qkv fragments stream from L2 one k-step ahead); then
 //      q·k^T and probs·V as mma.sync tiles too (v stored transposed, the
 //      "col" operand), the biased softmax in fp32 between them, one warp per
 //      row; writes attn_out bf16.
 //   B. out_proj_kernel, a 64x64-tile mma.sync GEMM over the N·L rows with
-//      the bias and the residual fused into its epilogue.
+//      the bias and (K1 only) the residual fused into its epilogue.
 //
 // What bounds it on an H100: at the vision shape (N·L = 38400 rows at
 // index batch 64, D = 768) the two projections are ~0.2 TFLOP per layer, so
@@ -54,7 +58,7 @@ static_assert(A_WARPS * 8 == HD, "probs·V: one 8-column n-tile per warp");
 // ---------------------------------------------------------------------------
 // kernel A: LN -> head's q/k/v -> softmax(q k^T + bias) v  (per sequence, head)
 // ---------------------------------------------------------------------------
-template <int MT>
+template <int MT, bool LN>
 __global__ void __launch_bounds__(A_WARPS * 32)
 attn_heads_kernel(const bf16* __restrict__ x, const float* __restrict__ bias,
                   const float* __restrict__ ln_w, const float* __restrict__ ln_b,
@@ -79,32 +83,9 @@ attn_heads_kernel(const bf16* __restrict__ x, const float* __restrict__ bias,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, tq = lane % 4;
 
-  // ---- LayerNorm (fp32 island) -> bf16 h in shared memory ----
-  for (int i = warp; i < LP; i += A_WARPS) {
-    bf16* row = hs + i * HS;
-    if (i >= L) {
-      for (int d = lane; d < D; d += 32) row[d] = __float2bfloat16(0.f);
-      continue;
-    }
-    const bf16* xr = x + ((size_t)n * L + i) * D;
-    float s = 0.f;
-    for (int d = lane; d < D; d += 32) {
-      bf16 v = xr[d];
-      row[d] = v;
-      s += __bfloat162float(v);
-    }
-    const float mean = warp_sum(s) / D;
-    float ss = 0.f;
-    for (int d = lane; d < D; d += 32) {
-      float c = __bfloat162float(row[d]) - mean;
-      ss += c * c;
-    }
-    const float rstd = rsqrtf(warp_sum(ss) / D + eps);
-    for (int d = lane; d < D; d += 32) {
-      float xh = (__bfloat162float(row[d]) - mean) * rstd;
-      row[d] = __float2bfloat16(xh * ln_w[d] + ln_b[d]);
-    }
-  }
+  // ---- LayerNorm (fp32 island) or h as it is -> bf16 rows in shared memory
+  load_rows<LN>(x + (size_t)n * L * D, hs, HS, L, LP, D, ln_w, ln_b, eps, warp,
+                A_WARPS, lane);
   __syncthreads();
 
   // ---- q/k/v for head h: [LP, D] x [D, 3*HD] on the tensor cores ----
@@ -272,10 +253,12 @@ attn_heads_kernel(const bf16* __restrict__ x, const float* __restrict__ bias,
 }
 
 // ---------------------------------------------------------------------------
-// kernel B: y = attn_out · W_o^T + b_o + x   (64x64 tiles, 4 warps of 32x32)
+// kernel B: y = attn_out · W_o^T + b_o (+ x where RES)   (64x64 tiles, 4
+// warps of 32x32)
 // ---------------------------------------------------------------------------
 constexpr int BM = 64, BN = 64, BK = 32, SK = BK + 8;
 
+template <bool RES>
 __global__ void __launch_bounds__(128)
 out_proj_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
                 const float* __restrict__ b_out, const bf16* __restrict__ x,
@@ -342,18 +325,21 @@ out_proj_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
       for (int half = 0; half < 2; ++half) {
         const int r = bm + wm * 32 + i * 16 + g + 8 * half;
         if (r >= M) continue;
-        const __nv_bfloat162 xv =
-            *reinterpret_cast<const __nv_bfloat162*>(x + (size_t)r * D + c);
-        const float2 xf = __bfloat1622float2(xv);
-        const float y0 = acc[i][j][2 * half] + bo0 + xf.x;
-        const float y1 = acc[i][j][2 * half + 1] + bo1 + xf.y;
+        float y0 = acc[i][j][2 * half] + bo0;
+        float y1 = acc[i][j][2 * half + 1] + bo1;
+        if constexpr (RES) {
+          const float2 xf = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(x + (size_t)r * D + c));
+          y0 += xf.x;
+          y1 += xf.y;
+        }
         *reinterpret_cast<__nv_bfloat162*>(y + (size_t)r * D + c) =
             __floats2bfloat162_rn(y0, y1);
       }
     }
 }
 
-template <int MT>
+template <int MT, bool LN>
 cudaError_t launch_heads(const bf16* x, const float* bias, const float* ln_w,
                          const float* ln_b, const bf16* w_qkv,
                          const float* b_qkv, bf16* attn, int N, int L, int D,
@@ -364,13 +350,42 @@ cudaError_t launch_heads(const bf16* x, const float* bias, const float* ln_w,
                           sizeof(bf16) +
                       (size_t)LP * (LP + 4) * sizeof(float);
   size_t smem = h_bytes > qkvp_bytes ? h_bytes : qkvp_bytes;
-  auto kern = attn_heads_kernel<MT>;
+  auto kern = attn_heads_kernel<MT, LN>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kern<<<dim3(N, H), A_WARPS * 32, smem, s>>>(x, bias, ln_w, ln_b, w_qkv,
                                               b_qkv, attn, L, D, eps, scale);
   return cudaGetLastError();
+}
+
+// LN: y = x + W_o · MHA(LN(x)) + b_o (K1); !LN: y = W_o · MHA(x) + b_o (K10)
+template <bool LN>
+int sublayer_fwd(const void* x, const float* bias, const float* ln_w,
+                 const float* ln_b, const void* w_qkv, const float* b_qkv,
+                 const void* w_out, const float* b_out, void* attn, void* y,
+                 int N, int L, int D, int H, float eps, float scale,
+                 void* stream) {
+  if (N < 1 || L < 1 || L > 64 || D != HD * H || D % BN != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* wq = static_cast<const bf16*>(w_qkv);
+  bf16* ab = static_cast<bf16*>(attn);
+  cudaError_t err;
+  switch ((L + 15) / 16) {
+    case 1: err = launch_heads<1, LN>(xb, bias, ln_w, ln_b, wq, b_qkv, ab, N, L, D, H, eps, scale, s); break;
+    case 2: err = launch_heads<2, LN>(xb, bias, ln_w, ln_b, wq, b_qkv, ab, N, L, D, H, eps, scale, s); break;
+    case 3: err = launch_heads<3, LN>(xb, bias, ln_w, ln_b, wq, b_qkv, ab, N, L, D, H, eps, scale, s); break;
+    default: err = launch_heads<4, LN>(xb, bias, ln_w, ln_b, wq, b_qkv, ab, N, L, D, H, eps, scale, s); break;
+  }
+  if (err != cudaSuccess) return (int)err;
+  const int M = N * L;
+  dim3 grid((M + BM - 1) / BM, D / BN);
+  out_proj_kernel<LN><<<grid, 128, 0, s>>>(
+      ab, static_cast<const bf16*>(w_out), b_out, xb, static_cast<bf16*>(y), M,
+      D);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -383,23 +398,18 @@ extern "C" int ln_attention_residual_fwd(
     const void* w_qkv, const float* b_qkv, const void* w_out,
     const float* b_out, void* attn, void* y, int N, int L, int D, int H,
     float eps, float scale, void* stream) {
-  if (N < 1 || L < 1 || L > 64 || D != HD * H || D % BN != 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const bf16* xb = static_cast<const bf16*>(x);
-  const bf16* wq = static_cast<const bf16*>(w_qkv);
-  bf16* ab = static_cast<bf16*>(attn);
-  cudaError_t err;
-  switch ((L + 15) / 16) {
-    case 1: err = launch_heads<1>(xb, bias, ln_w, ln_b, wq, b_qkv, ab, N, L, D, H, eps, scale, s); break;
-    case 2: err = launch_heads<2>(xb, bias, ln_w, ln_b, wq, b_qkv, ab, N, L, D, H, eps, scale, s); break;
-    case 3: err = launch_heads<3>(xb, bias, ln_w, ln_b, wq, b_qkv, ab, N, L, D, H, eps, scale, s); break;
-    default: err = launch_heads<4>(xb, bias, ln_w, ln_b, wq, b_qkv, ab, N, L, D, H, eps, scale, s); break;
-  }
-  if (err != cudaSuccess) return (int)err;
-  const int M = N * L;
-  dim3 grid((M + BM - 1) / BM, D / BN);
-  out_proj_kernel<<<grid, 128, 0, s>>>(ab, static_cast<const bf16*>(w_out),
-                                       b_out, xb, static_cast<bf16*>(y), M, D);
-  return (int)cudaGetLastError();
+  return sublayer_fwd<true>(x, bias, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
+                            attn, y, N, L, D, H, eps, scale, stream);
+}
+
+// K10: the same without LayerNorm and residual, on a pre-normalised h
+// [N, L, D] bf16 (neighborretr_tpu/ops/pallas_block_attention.py::
+// _block_attention_core and _block_attention_biased_core); shapes and
+// requirements as above, without the LN parameters.
+extern "C" int attention_sublayer_fwd(
+    const void* h, const float* bias, const void* w_qkv, const float* b_qkv,
+    const void* w_out, const float* b_out, void* attn, void* y, int N, int L,
+    int D, int H, float scale, void* stream) {
+  return sublayer_fwd<false>(h, bias, nullptr, nullptr, w_qkv, b_qkv, w_out,
+                             b_out, attn, y, N, L, D, H, 0.f, scale, stream);
 }

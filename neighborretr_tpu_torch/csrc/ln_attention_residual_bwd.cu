@@ -4,6 +4,11 @@
 // Replaces the TPU kernel neighborretr_tpu/ops/pallas_block_attention.py::
 // _make_bwd_ln_kernel, launched by _ln_bwd_call (the custom VJP of
 // fused_ln_attention_residual), without and with the per-sequence bias.
+// With the template flag LN off (entry attention_sublayer_bwd: K11) the
+// same kernels compute the backward of y = W_o · MHA(h · W_qkv + b_qkv) + b_o
+// on a pre-normalised h, replacing the same file's _bwd_kernel and
+// _bwd_kernel_biased (_block_attention_bwd, _block_attention_biased_bwd):
+// h is loaded as it is, and step 4 writes dh (bf16) with no LN backward.
 // Like the TPU kernel it saves nothing from the forward: LN, qkv and the
 // probabilities are recomputed from x.  Outputs: dx (bf16) and, in fp32,
 // dLN scale/bias, dW_qkv [3D, D], db_qkv, dW_o [D, D], db_o, each summed
@@ -322,7 +327,7 @@ __device__ __forceinline__ void store_dqkv(const float (&c)[MT][4], int col0,
   }
 }
 
-template <int MT>
+template <int MT, bool LN>
 __global__ void __launch_bounds__(B_WARPS * 32)
 attn_bwd_heads_kernel(const bf16* __restrict__ x, const float* __restrict__ bias,
                       const float* __restrict__ ln_w,
@@ -362,32 +367,9 @@ attn_bwd_heads_kernel(const bf16* __restrict__ x, const float* __restrict__ bias
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, tq = lane % 4;
 
-  // ---- LayerNorm (fp32 island) -> bf16 h in shared memory ----
-  for (int i = warp; i < LP; i += B_WARPS) {
-    bf16* row = hs + i * HS;
-    if (i >= L) {
-      for (int d = lane; d < D; d += 32) row[d] = __float2bfloat16(0.f);
-      continue;
-    }
-    const bf16* xr = x + ((size_t)n * L + i) * D;
-    float s = 0.f;
-    for (int d = lane; d < D; d += 32) {
-      bf16 v = xr[d];
-      row[d] = v;
-      s += __bfloat162float(v);
-    }
-    const float mean = warp_sum(s) / D;
-    float ss = 0.f;
-    for (int d = lane; d < D; d += 32) {
-      float c = __bfloat162float(row[d]) - mean;
-      ss += c * c;
-    }
-    const float rstd = rsqrtf(warp_sum(ss) / D + eps);
-    for (int d = lane; d < D; d += 32) {
-      float xh = (__bfloat162float(row[d]) - mean) * rstd;
-      row[d] = __float2bfloat16(xh * ln_w[d] + ln_b[d]);
-    }
-  }
+  // ---- LayerNorm (fp32 island) or h as it is -> bf16 rows in shared memory
+  load_rows<LN>(x + (size_t)n * L * D, hs, HS, L, LP, D, ln_w, ln_b, eps, warp,
+                B_WARPS, lane);
   __syncthreads();
 
   // this head's 64 columns of h, transposed, for dW_qkv
@@ -552,7 +534,7 @@ attn_bwd_heads_kernel(const bf16* __restrict__ x, const float* __restrict__ bias
                  g, tq, lane);
 }
 
-template <int MT>
+template <int MT, bool LN>
 cudaError_t launch_bwd_heads(const bf16* x, const float* bias,
                              const float* ln_w, const float* ln_b,
                              const bf16* w_qkv, const float* b_qkv,
@@ -566,7 +548,7 @@ cudaError_t launch_bwd_heads(const bf16* x, const float* bias,
       ((size_t)4 * LP * QS + (size_t)4 * HD * (LP + 8)) * sizeof(bf16) +
       (size_t)2 * LP * (LP + 4) * sizeof(float);
   const size_t smem = h_bytes > tiles ? h_bytes : tiles;
-  auto kern = attn_bwd_heads_kernel<MT>;
+  auto kern = attn_bwd_heads_kernel<MT, LN>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -577,10 +559,12 @@ cudaError_t launch_bwd_heads(const bf16* x, const float* bias,
 }
 
 // ---------------------------------------------------------------------------
-// LayerNorm backward + residual, a warp per row; ROWS rows per block
+// LayerNorm backward + residual (LN), or dx = dh (!LN: K11), a warp per row;
+// LN_ROWS rows per block
 // ---------------------------------------------------------------------------
 constexpr int LN_ROWS = 64;
 
+template <bool LN>
 __global__ void __launch_bounds__(256)
 ln_bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
                    const float* __restrict__ dh, const float* __restrict__ ln_w,
@@ -601,34 +585,42 @@ ln_bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
     const bf16* xr = x + (size_t)row * D;
     const bf16* gr = g + (size_t)row * D;
     const float* dr = dh + (size_t)row * D;
-    float s = 0.f;
-    for (int d = lane; d < D; d += 32) s += __bfloat162float(xr[d]);
-    const float mean = warp_sum(s) / D;
-    float ss = 0.f;
-    for (int d = lane; d < D; d += 32) {
-      const float c = __bfloat162float(xr[d]) - mean;
-      ss += c * c;
-    }
-    const float rstd = rsqrtf(warp_sum(ss) / D + eps);
-    float sa = 0.f, sb = 0.f;
-    for (int d = lane; d < D; d += 32) {
-      const float xh = (__bfloat162float(xr[d]) - mean) * rstd;
-      const float gd = dr[d] * ln_w[d];
-      sa += gd;
-      sb += gd * xh;
-    }
-    const float m1 = warp_sum(sa) / D, m2 = warp_sum(sb) / D;
-    for (int d = lane; d < D; d += 32) {
-      const float xh = (__bfloat162float(xr[d]) - mean) * rstd;
-      const float dhv = dr[d];
-      const float gv = __bfloat162float(gr[d]);
-      const float gd = dhv * ln_w[d];
-      dx[(size_t)row * D + d] =
-          __float2bfloat16(gv + rstd * (gd - m1 - xh * m2));
-      g_t[(size_t)d * Mp + row] = gr[d];
-      a_gs[d] += dhv * xh;
-      a_gb[d] += dhv;
-      a_bo[d] += gv;
+    if constexpr (!LN) {
+      for (int d = lane; d < D; d += 32) {
+        dx[(size_t)row * D + d] = __float2bfloat16(dr[d]);
+        g_t[(size_t)d * Mp + row] = gr[d];
+        a_bo[d] += __bfloat162float(gr[d]);
+      }
+    } else {
+      float s = 0.f;
+      for (int d = lane; d < D; d += 32) s += __bfloat162float(xr[d]);
+      const float mean = warp_sum(s) / D;
+      float ss = 0.f;
+      for (int d = lane; d < D; d += 32) {
+        const float c = __bfloat162float(xr[d]) - mean;
+        ss += c * c;
+      }
+      const float rstd = rsqrtf(warp_sum(ss) / D + eps);
+      float sa = 0.f, sb = 0.f;
+      for (int d = lane; d < D; d += 32) {
+        const float xh = (__bfloat162float(xr[d]) - mean) * rstd;
+        const float gd = dr[d] * ln_w[d];
+        sa += gd;
+        sb += gd * xh;
+      }
+      const float m1 = warp_sum(sa) / D, m2 = warp_sum(sb) / D;
+      for (int d = lane; d < D; d += 32) {
+        const float xh = (__bfloat162float(xr[d]) - mean) * rstd;
+        const float dhv = dr[d];
+        const float gv = __bfloat162float(gr[d]);
+        const float gd = dhv * ln_w[d];
+        dx[(size_t)row * D + d] =
+            __float2bfloat16(gv + rstd * (gd - m1 - xh * m2));
+        g_t[(size_t)d * Mp + row] = gr[d];
+        a_gs[d] += dhv * xh;
+        a_gb[d] += dhv;
+        a_bo[d] += gv;
+      }
     }
   }
   __syncthreads();
@@ -638,6 +630,70 @@ ln_bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
     for (int w = 0; w < 8; ++w) s += acc[(size_t)w * 3 * D + d];
     part[(size_t)blockIdx.x * 3 * D + d] = s;
   }
+}
+
+// LN: the backward of y = x + W_o · MHA(LN(x)) + b_o (K3); !LN: of
+// y = W_o · MHA(x) + b_o (K11), where dx = dh and dLN stays zero
+template <bool LN>
+int sublayer_bwd(const void* x, const float* bias, const float* ln_w,
+                 const float* ln_b, const void* w_qkv, const float* b_qkv,
+                 const void* w_qkv_t, const void* w_out_t, const void* g,
+                 void* dattn, void* tbuf, void* dqkv, float* dh,
+                 float* part_db, float* part_ln, float* part_w, void* dx,
+                 float* dln, float* dw_qkv, float* db_qkv, float* dw_out,
+                 int N, int L, int D, int H, int Mp, float eps, float scale,
+                 void* stream) {
+  const int M = N * L;
+  if (N < 1 || L < 1 || L > 64 || D != HD * H || Mp % 64 != 0 || Mp < M)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* gb = static_cast<const bf16*>(g);
+  const bf16* wq = static_cast<const bf16*>(w_qkv);
+  bf16* da = static_cast<bf16*>(dattn);
+  bf16* dq = static_cast<bf16*>(dqkv);
+  bf16* dqkv_t = static_cast<bf16*>(tbuf);
+  bf16* h_t = dqkv_t + (size_t)3 * D * Mp;
+  bf16* attn_t = h_t + (size_t)D * Mp;
+  bf16* g_t = attn_t + (size_t)D * Mp;
+  cudaError_t err;
+
+  // 1. dattn = g · W_o
+  err = gemm_nt_rows<bf16>(gb, D, static_cast<const bf16*>(w_out_t), D, da, D,
+                           M, D, D, s);
+  if (err != cudaSuccess) return (int)err;
+  // 2. per (sequence, head): recompute + attention backward
+  switch ((L + 15) / 16) {
+    case 1: err = launch_bwd_heads<1, LN>(xb, bias, ln_w, ln_b, wq, b_qkv, da, h_t, attn_t, dq, dqkv_t, part_db, N, L, D, H, Mp, eps, scale, s); break;
+    case 2: err = launch_bwd_heads<2, LN>(xb, bias, ln_w, ln_b, wq, b_qkv, da, h_t, attn_t, dq, dqkv_t, part_db, N, L, D, H, Mp, eps, scale, s); break;
+    case 3: err = launch_bwd_heads<3, LN>(xb, bias, ln_w, ln_b, wq, b_qkv, da, h_t, attn_t, dq, dqkv_t, part_db, N, L, D, H, Mp, eps, scale, s); break;
+    default: err = launch_bwd_heads<4, LN>(xb, bias, ln_w, ln_b, wq, b_qkv, da, h_t, attn_t, dq, dqkv_t, part_db, N, L, D, H, Mp, eps, scale, s); break;
+  }
+  if (err != cudaSuccess) return (int)err;
+  // 3. dh = dqkv16 · W_qkv
+  err = gemm_nt_rows<float>(dq, 3 * D, static_cast<const bf16*>(w_qkv_t),
+                            3 * D, dh, D, M, D, 3 * D, s);
+  if (err != cudaSuccess) return (int)err;
+  // 4. LN backward + residual (or dx = dh), g^T, partials of dLN and db_o
+  const int nblk = (M + LN_ROWS - 1) / LN_ROWS;
+  const size_t ln_smem = (size_t)8 * 3 * D * sizeof(float);
+  err = cudaFuncSetAttribute(ln_bwd_rows_kernel<LN>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)ln_smem);
+  if (err != cudaSuccess) return (int)err;
+  ln_bwd_rows_kernel<LN><<<nblk, 256, ln_smem, s>>>(
+      xb, gb, dh, ln_w, static_cast<bf16*>(dx), g_t, part_ln, M, D, Mp, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // 5. dW_qkv = dqkv16^T · h16, dW_o = g16^T · attn_out16
+  err = gemm_nt_deep(dqkv_t, Mp, h_t, Mp, dw_qkv, part_w, 3 * D, D, Mp, s);
+  if (err != cudaSuccess) return (int)err;
+  err = gemm_nt_deep(g_t, Mp, attn_t, Mp, dw_out, part_w, D, D, Mp, s);
+  if (err != cudaSuccess) return (int)err;
+  // 6. ordered sums of the partials
+  err = reduce_rows(part_db, db_qkv, N, 3 * D, 1.f, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)reduce_rows(part_ln, dln, nblk, 3 * D, 1.f, s);
 }
 
 }  // namespace
@@ -661,55 +717,25 @@ extern "C" int ln_attention_residual_bwd(
     float* dln,
     float* dw_qkv, float* db_qkv, float* dw_out, int N, int L, int D, int H,
     int Mp, float eps, float scale, void* stream) {
-  const int M = N * L;
-  if (N < 1 || L < 1 || L > 64 || D != HD * H || Mp % 64 != 0 || Mp < M)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const bf16* xb = static_cast<const bf16*>(x);
-  const bf16* gb = static_cast<const bf16*>(g);
-  const bf16* wq = static_cast<const bf16*>(w_qkv);
-  bf16* da = static_cast<bf16*>(dattn);
-  bf16* dq = static_cast<bf16*>(dqkv);
-  bf16* dqkv_t = static_cast<bf16*>(tbuf);
-  bf16* h_t = dqkv_t + (size_t)3 * D * Mp;
-  bf16* attn_t = h_t + (size_t)D * Mp;
-  bf16* g_t = attn_t + (size_t)D * Mp;
-  cudaError_t err;
+  return sublayer_bwd<true>(x, bias, ln_w, ln_b, w_qkv, b_qkv, w_qkv_t,
+                            w_out_t, g, dattn, tbuf, dqkv, dh, part_db,
+                            part_ln, part_w, dx, dln, dw_qkv, db_qkv, dw_out,
+                            N, L, D, H, Mp, eps, scale, stream);
+}
 
-  // 1. dattn = g · W_o
-  err = gemm_nt_rows<bf16>(gb, D, static_cast<const bf16*>(w_out_t), D, da, D,
-                           M, D, D, s);
-  if (err != cudaSuccess) return (int)err;
-  // 2. per (sequence, head): recompute + attention backward
-  switch ((L + 15) / 16) {
-    case 1: err = launch_bwd_heads<1>(xb, bias, ln_w, ln_b, wq, b_qkv, da, h_t, attn_t, dq, dqkv_t, part_db, N, L, D, H, Mp, eps, scale, s); break;
-    case 2: err = launch_bwd_heads<2>(xb, bias, ln_w, ln_b, wq, b_qkv, da, h_t, attn_t, dq, dqkv_t, part_db, N, L, D, H, Mp, eps, scale, s); break;
-    case 3: err = launch_bwd_heads<3>(xb, bias, ln_w, ln_b, wq, b_qkv, da, h_t, attn_t, dq, dqkv_t, part_db, N, L, D, H, Mp, eps, scale, s); break;
-    default: err = launch_bwd_heads<4>(xb, bias, ln_w, ln_b, wq, b_qkv, da, h_t, attn_t, dq, dqkv_t, part_db, N, L, D, H, Mp, eps, scale, s); break;
-  }
-  if (err != cudaSuccess) return (int)err;
-  // 3. dh = dqkv16 · W_qkv
-  err = gemm_nt_rows<float>(dq, 3 * D, static_cast<const bf16*>(w_qkv_t),
-                            3 * D, dh, D, M, D, 3 * D, s);
-  if (err != cudaSuccess) return (int)err;
-  // 4. LN backward + residual, g^T, partials of dLN and db_o
-  const int nblk = (M + LN_ROWS - 1) / LN_ROWS;
-  const size_t ln_smem = (size_t)8 * 3 * D * sizeof(float);
-  err = cudaFuncSetAttribute(ln_bwd_rows_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)ln_smem);
-  if (err != cudaSuccess) return (int)err;
-  ln_bwd_rows_kernel<<<nblk, 256, ln_smem, s>>>(
-      xb, gb, dh, ln_w, static_cast<bf16*>(dx), g_t, part_ln, M, D, Mp, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  // 5. dW_qkv = dqkv16^T · h16, dW_o = g16^T · attn_out16
-  err = gemm_nt_deep(dqkv_t, Mp, h_t, Mp, dw_qkv, part_w, 3 * D, D, Mp, s);
-  if (err != cudaSuccess) return (int)err;
-  err = gemm_nt_deep(g_t, Mp, attn_t, Mp, dw_out, part_w, D, D, Mp, s);
-  if (err != cudaSuccess) return (int)err;
-  // 6. ordered sums of the partials
-  err = reduce_rows(part_db, db_qkv, N, 3 * D, 1.f, s);
-  if (err != cudaSuccess) return (int)err;
-  return (int)reduce_rows(part_ln, dln, nblk, 3 * D, 1.f, s);
+// K11: the backward of attention_sublayer_fwd (neighborretr_tpu/ops/
+// pallas_block_attention.py::_block_attention_bwd and
+// _block_attention_biased_bwd): h in place of x, dh in place of dx, rows 0
+// and 1 of dln zero; shapes and requirements as above.
+extern "C" int attention_sublayer_bwd(
+    const void* h, const float* bias, const void* w_qkv, const float* b_qkv,
+    const void* w_qkv_t, const void* w_out_t, const void* g, void* dattn,
+    void* tbuf, void* dqkv, float* dh32, float* part_db, float* part_ln,
+    float* part_w, void* dh, float* dln, float* dw_qkv, float* db_qkv,
+    float* dw_out, int N, int L, int D, int H, int Mp, float scale,
+    void* stream) {
+  return sublayer_bwd<false>(h, bias, nullptr, nullptr, w_qkv, b_qkv, w_qkv_t,
+                             w_out_t, g, dattn, tbuf, dqkv, dh32, part_db,
+                             part_ln, part_w, dh, dln, dw_qkv, db_qkv, dw_out,
+                             N, L, D, H, Mp, 0.f, scale, stream);
 }

@@ -23,6 +23,15 @@ do); `ln_attention_residual_bwd` runs csrc/ln_attention_residual_bwd.cu on a
 CUDA tensor.  Nothing is saved by the forward but its inputs: the backward
 recomputes LN, qkv and the probabilities.  `ln_attention_sublayer` joins
 forward and backward in one autograd function; it is what the model calls.
+
+The same sublayer without LayerNorm and residual, y = W_o · MHA(h) + b_o on
+a pre-normalised h (↔ the same JAX file's fused_attention_sublayer, whose
+four TPU kernels no model path calls), has the same three forms:
+`attention_sublayer_plain` / `attention_sublayer_bwd_plain`, and the wrappers
+`attention_sublayer` (K10) / `attention_sublayer_bwd` (K11), which run the
+same CUDA sources with LayerNorm and residual compiled out.
+`fused_attention_sublayer` is its public, differentiable form with the JAX
+function's casts.
 """
 
 from __future__ import annotations
@@ -76,6 +85,34 @@ def ln_attention_residual_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
     return y.to(x.dtype)
 
 
+def _mha_bwd(h, w_qkv, b_qkv, w_out, n_head: int, g, bias, dt):
+    """The backward of `mha` from g = dy, recomputing the forward from h:
+    (dh, dw_qkv [3D, D], db_qkv, dw_out [D, D], db_out), all fp32.  h and g
+    hold values of the operand dtype `dt`; operands are rounded to it where
+    the TPU kernels round (qkv, scaled q, probs, attn_out, dattn,
+    dlogits·scale, dqkv) and multiplied in fp32; db_qkv sums the unrounded
+    dqkv."""
+    D = h.shape[-1]
+
+    def rnd(t):
+        return t.to(dt).float()
+
+    h = h.float()
+    wq, wo = rnd(w_qkv), rnd(w_out)
+    qkv = (h @ wq.T + b_qkv.float()).to(dt)
+    g32 = g.float()
+    g16 = rnd(g32)
+    g3 = rnd(g16 @ wo)                                       # dattn
+    attn, dqkv = attention_core(qkv, n_head, bias, g3)
+    dw_out = g16.reshape(-1, D).T @ attn.reshape(-1, D)
+    db_out = g32.reshape(-1, D).sum(dim=0)
+    dqkv16 = rnd(dqkv)
+    dh = dqkv16 @ wq
+    dw_qkv = dqkv16.reshape(-1, 3 * D).T @ h.reshape(-1, D)
+    db_qkv = dqkv.reshape(-1, 3 * D).sum(dim=0)
+    return dh, dw_qkv, db_qkv, dw_out, db_out
+
+
 def ln_attention_residual_bwd_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
                                     n_head: int, g, bias=None):
     """The backward kernel's plain version: from g = dy [N, L, D] in x's
@@ -87,29 +124,15 @@ def ln_attention_residual_bwd_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
     an fp32 x nothing is rounded and this is the exact gradient."""
     dt = x.dtype
     D = x.shape[-1]
-
-    def rnd(t):
-        return t.to(dt).float()
-
     x32 = x.float()
     mean = x32.mean(dim=-1, keepdim=True)
     xc = x32 - mean
     rstd = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + LN_EPS)
     xhat = xc * rstd
-    h = rnd(xhat * ln_w.float() + ln_b.float())
-    wq, wo = rnd(w_qkv), rnd(w_out)
-    qkv = (h @ wq.T + b_qkv.float()).to(dt)
-
+    h = (xhat * ln_w.float() + ln_b.float()).to(dt)
+    dh, dw_qkv, db_qkv, dw_out, db_out = _mha_bwd(h, w_qkv, b_qkv, w_out,
+                                                  n_head, g, bias, dt)
     g32 = g.float()
-    g16 = rnd(g32)
-    g3 = rnd(g16 @ wo)                                       # dattn
-    attn, dqkv = attention_core(qkv, n_head, bias, g3)
-    dw_out = g16.reshape(-1, D).T @ attn.reshape(-1, D)
-    db_out = g32.reshape(-1, D).sum(dim=0)
-    dqkv16 = rnd(dqkv)
-    dh = dqkv16 @ wq
-    dw_qkv = dqkv16.reshape(-1, 3 * D).T @ h.reshape(-1, D)
-    db_qkv = dqkv.reshape(-1, 3 * D).sum(dim=0)
 
     dln_w = (dh * xhat).reshape(-1, D).sum(dim=0)
     dln_b = dh.reshape(-1, D).sum(dim=0)
@@ -119,8 +142,16 @@ def ln_attention_residual_bwd_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
     return dx.to(dt), dln_w, dln_b, dw_qkv, db_qkv, dw_out, db_out
 
 
+# the C entries' argument lists: K1/K3 take the LN parameters and eps,
+# K10/K11 neither
 _ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
              + [ctypes.c_void_p])
+_K10_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float]
+                 + [ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 5
+                 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+_K11_ARGTYPES = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 5 + [ctypes.c_float]
+                 + [ctypes.c_void_p])
 
 
 def _check(name, t, dtype, shape, device):
@@ -135,8 +166,12 @@ def _check(name, t, dtype, shape, device):
 
 
 def _check_cuda_args(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, n_head, bias):
-    """What both kernels take: bf16 activations and weights, fp32 LN params
-    and biases, contiguous, head dim 64, L <= 64.  Anything else raises."""
+    """What the kernels take: bf16 activations and weights, fp32 LN params
+    (None for K10/K11) and biases, contiguous, head dim 64, L <= 64.
+    Anything else raises."""
+    if x.dim() != 3:
+        raise ValueError(f"activations must be [N, L, D], got "
+                         f"{tuple(x.shape)}")
     N, L, D = x.shape
     if x.dtype != torch.bfloat16:
         raise ValueError(
@@ -153,9 +188,29 @@ def _check_cuda_args(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, n_head, bias):
             ("ln_b", ln_b, f32, (D,)), ("w_qkv", w_qkv, b16, (3 * D, D)),
             ("b_qkv", b_qkv, f32, (3 * D,)), ("w_out", w_out, b16, (D, D)),
             ("b_out", b_out, f32, (D,))):
-        _check(name, t, dtype, shape, dev)
+        if t is not None or name not in ("ln_w", "ln_b"):
+            _check(name, t, dtype, shape, dev)
     if bias is not None:
         _check("bias", bias, f32, (N, L, L), dev)
+
+
+def _launch_fwd(entry: str, argtypes, x, ln, w_qkv, b_qkv, w_out, b_out,
+                n_head: int, bias) -> torch.Tensor:
+    """One call of a forward C entry of csrc/ln_attention_residual.cu on
+    checked arguments; ln: (ln_w, ln_b), or None for K10."""
+    N, L, D = x.shape
+    P = _build.ptr
+    attn = torch.empty_like(x)               # scratch between the kernels
+    y = torch.empty_like(x)
+    ln_args = [P(ln[0]), P(ln[1])] if ln is not None else []
+    eps = [LN_EPS] if ln is not None else []
+    fn = _build.function("ln_attention_residual", entry, argtypes)
+    with torch.cuda.device(x.device):
+        err = fn(P(x), None if bias is None else P(bias), *ln_args,
+                 P(w_qkv), P(b_qkv), P(w_out), P(b_out), P(attn), P(y),
+                 N, L, D, n_head, *eps, (D // n_head) ** -0.5, _build.stream())
+    _build.check(err, entry)
+    return y
 
 
 def ln_attention_residual(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
@@ -169,41 +224,20 @@ def ln_attention_residual(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
         return ln_attention_residual_plain(x, ln_w, ln_b, w_qkv, b_qkv,
                                            w_out, b_out, n_head, bias)
     _check_cuda_args(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, n_head, bias)
-    N, L, D = x.shape
-    attn = torch.empty_like(x)
-    y = torch.empty_like(x)
-    fn = _build.function("ln_attention_residual",
-                         "ln_attention_residual_fwd", _ARGTYPES)
-    with torch.cuda.device(x.device):
-        err = fn(_build.ptr(x),
-                 None if bias is None else _build.ptr(bias),
-                 _build.ptr(ln_w), _build.ptr(ln_b), _build.ptr(w_qkv),
-                 _build.ptr(b_qkv), _build.ptr(w_out), _build.ptr(b_out),
-                 _build.ptr(attn), _build.ptr(y), N, L, D, n_head,
-                 LN_EPS, (D // n_head) ** -0.5, _build.stream())
-    _build.check(err, "ln_attention_residual_fwd")
+    y = _launch_fwd("ln_attention_residual_fwd", _ARGTYPES, x, (ln_w, ln_b),
+                    w_qkv, b_qkv, w_out, b_out, n_head, bias)
     ln_attention_residual.launches += 1
     return y
 
 
 ln_attention_residual.launches = 0
 
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 5
-                 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
 
-
-def ln_attention_residual_bwd(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
-                              n_head: int, g, bias=None):
-    """Backward of `ln_attention_residual`: the forward's inputs and g = dy
-    [N, L, D] → (dx, dln_w, dln_b, dw_qkv, db_qkv, dw_out, db_out), dx in
-    x's dtype and the rest fp32.  A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel under the forward's conditions (g bf16
-    and contiguous).  Sums over rows are taken in a fixed order, so two
-    calls give the same bits."""
-    if not x.is_cuda:
-        return ln_attention_residual_bwd_plain(
-            x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, n_head, g, bias)
-    _check_cuda_args(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, n_head, bias)
+def _launch_bwd(entry: str, argtypes, x, ln, w_qkv, b_qkv, w_out, n_head: int,
+                g, bias):
+    """One call of a backward C entry of csrc/ln_attention_residual_bwd.cu
+    on checked arguments → (dx, dln [3, D], dw_qkv, db_qkv, dw_out); ln:
+    (ln_w, ln_b), or None for K11 (dln's rows 0 and 1 then stay zero)."""
     N, L, D = x.shape
     dev = x.device
     _check("g", g, torch.bfloat16, (N, L, D), dev)
@@ -229,16 +263,35 @@ def ln_attention_residual_bwd(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
     dx = torch.empty_like(x)
     dln = empty(3, D)
     dw_qkv, db_qkv, dw_out = empty(3 * D, D), empty(3 * D), empty(D, D)
-    fn = _build.function("ln_attention_residual_bwd",
-                         "ln_attention_residual_bwd", _BWD_ARGTYPES)
     P = _build.ptr
+    ln_args = [P(ln[0]), P(ln[1])] if ln is not None else []
+    eps = [LN_EPS] if ln is not None else []
+    fn = _build.function("ln_attention_residual_bwd", entry, argtypes)
     with torch.cuda.device(dev):
-        err = fn(P(x), None if bias is None else P(bias), P(ln_w), P(ln_b),
+        err = fn(P(x), None if bias is None else P(bias), *ln_args,
                  P(w_qkv), P(b_qkv), P(w_qkv_t), P(w_out_t), P(g), P(dattn),
                  P(tbuf), P(dqkv), P(dh), P(part_db), P(part_ln), P(part_w),
-                 P(dx), P(dln), P(dw_qkv), P(db_qkv), P(dw_out), N, L, D, n_head, Mp,
-                 LN_EPS, (D // n_head) ** -0.5, _build.stream())
-    _build.check(err, "ln_attention_residual_bwd")
+                 P(dx), P(dln), P(dw_qkv), P(db_qkv), P(dw_out), N, L, D,
+                 n_head, Mp, *eps, (D // n_head) ** -0.5, _build.stream())
+    _build.check(err, entry)
+    return dx, dln, dw_qkv, db_qkv, dw_out
+
+
+def ln_attention_residual_bwd(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
+                              n_head: int, g, bias=None):
+    """Backward of `ln_attention_residual`: the forward's inputs and g = dy
+    [N, L, D] → (dx, dln_w, dln_b, dw_qkv, db_qkv, dw_out, db_out), dx in
+    x's dtype and the rest fp32.  A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel under the forward's conditions (g bf16
+    and contiguous).  Sums over rows are taken in a fixed order, so two
+    calls give the same bits."""
+    if not x.is_cuda:
+        return ln_attention_residual_bwd_plain(
+            x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, n_head, g, bias)
+    _check_cuda_args(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, n_head, bias)
+    dx, dln, dw_qkv, db_qkv, dw_out = _launch_bwd(
+        "ln_attention_residual_bwd", _BWD_ARGTYPES, x, (ln_w, ln_b), w_qkv,
+        b_qkv, w_out, n_head, g, bias)
     ln_attention_residual_bwd.launches += 1
     return dx, dln[0], dln[1], dw_qkv, db_qkv, dw_out, dln[2]
 
@@ -246,28 +299,90 @@ def ln_attention_residual_bwd(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
 ln_attention_residual_bwd.launches = 0
 
 
-class _LnAttentionSublayer(torch.autograd.Function):
-    """Forward and backward of the sublayer as one autograd node.  Saves its
-    inputs only.  Gradients come back in each input's dtype (a bf16 weight
-    copy gets a bf16-rounded gradient, as in the JAX package, where the cast
-    sits outside the custom VJP); the bias gets none."""
+# ---------------------------------------------------------------------------
+# K10/K11: the sublayer without LayerNorm and residual
+# ---------------------------------------------------------------------------
+
+def attention_sublayer_plain(h, w_qkv, b_qkv, w_out, b_out, n_head: int,
+                             bias=None) -> torch.Tensor:
+    """K10's plain version: y = W_o · MHA(h · W_qkv + b_qkv) + b_o on a
+    pre-normalised h [N, L, D], in h's dtype.  Rounds to h's dtype at the
+    TPU kernel's rounding points and multiplies in fp32 (`mha`), so with an
+    fp32 h it is the einsum composition."""
+    return mha(h, w_qkv, b_qkv, w_out, b_out, n_head, bias).to(h.dtype)
+
+
+def attention_sublayer_bwd_plain(h, w_qkv, b_qkv, w_out, b_out, n_head: int,
+                                 g, bias=None):
+    """K11's plain version: from g = dy [N, L, D] in h's dtype, (dh in h's
+    dtype; dw_qkv [3D, D], db_qkv, dw_out [D, D], db_out in fp32), written
+    out by hand with the TPU kernel's rounding points (`_mha_bwd`); the
+    exact gradient for an fp32 h."""
+    dh, dw_qkv, db_qkv, dw_out, db_out = _mha_bwd(h, w_qkv, b_qkv, w_out,
+                                                  n_head, g, bias, h.dtype)
+    return dh.to(h.dtype), dw_qkv, db_qkv, dw_out, db_out
+
+
+def attention_sublayer(h, w_qkv, b_qkv, w_out, b_out, n_head: int,
+                       bias=None) -> torch.Tensor:
+    """K10: h [N, L, D]; w_qkv [3D, D], b_qkv [3D]; w_out [D, D], b_out [D];
+    bias [N, L, L] fp32 or None → y [N, L, D] in h's dtype.  A CPU tensor
+    takes the plain version.  On CUDA: h and both weights bf16, biases fp32,
+    all contiguous; head dim 64 and L <= 64.  Anything else raises."""
+    if not h.is_cuda:
+        return attention_sublayer_plain(h, w_qkv, b_qkv, w_out, b_out, n_head,
+                                        bias)
+    _check_cuda_args(h, None, None, w_qkv, b_qkv, w_out, b_out, n_head, bias)
+    y = _launch_fwd("attention_sublayer_fwd", _K10_ARGTYPES, h, None, w_qkv,
+                    b_qkv, w_out, b_out, n_head, bias)
+    attention_sublayer.launches += 1
+    return y
+
+
+attention_sublayer.launches = 0
+
+
+def attention_sublayer_bwd(h, w_qkv, b_qkv, w_out, b_out, n_head: int, g,
+                           bias=None):
+    """K11, the backward of `attention_sublayer`: the forward's inputs and
+    g = dy [N, L, D] → (dh in h's dtype; dw_qkv, db_qkv, dw_out, db_out in
+    fp32).  A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel under the forward's conditions (g bf16 and contiguous).  Sums
+    over rows are taken in a fixed order, so two calls give the same
+    bits."""
+    if not h.is_cuda:
+        return attention_sublayer_bwd_plain(h, w_qkv, b_qkv, w_out, b_out,
+                                            n_head, g, bias)
+    _check_cuda_args(h, None, None, w_qkv, b_qkv, w_out, b_out, n_head, bias)
+    dh, dln, dw_qkv, db_qkv, dw_out = _launch_bwd(
+        "attention_sublayer_bwd", _K11_ARGTYPES, h, None, w_qkv, b_qkv, w_out,
+        n_head, g, bias)
+    attention_sublayer_bwd.launches += 1
+    return dh, dw_qkv, db_qkv, dw_out, dln[2]
+
+
+attention_sublayer_bwd.launches = 0
+
+
+class _Sublayer(torch.autograd.Function):
+    """Forward and backward of a sublayer as one autograd node, through the
+    kernels or their plain versions (`route`: (forward, backward)).  Saves
+    its inputs only.  Gradients come back in each input's dtype (a bf16
+    weight copy gets a bf16-rounded gradient, as in the JAX package, where
+    the cast sits outside the custom VJP); the bias gets none."""
 
     @staticmethod
-    def forward(ctx, x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, bias, n_head,
-                kernels):
-        ctx.save_for_backward(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, bias)
-        ctx.n_head, ctx.kernels = n_head, kernels
-        fwd = ln_attention_residual if kernels else ln_attention_residual_plain
-        return fwd(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, n_head, bias)
+    def forward(ctx, route, n_head, bias, *args):
+        ctx.save_for_backward(bias, *args)
+        ctx.route, ctx.n_head = route, n_head
+        return route[0](*args, n_head, bias)
 
     @staticmethod
     def backward(ctx, g):
-        *args, bias = ctx.saved_tensors
-        bwd = (ln_attention_residual_bwd if ctx.kernels
-               else ln_attention_residual_bwd_plain)
-        grads = bwd(*args, ctx.n_head, g.contiguous(), bias)
-        return (*(gr.to(a.dtype) for gr, a in zip(grads, args)),
-                None, None, None)
+        bias, *args = ctx.saved_tensors
+        grads = ctx.route[1](*args, ctx.n_head, g.contiguous(), bias)
+        return (None, None, None,
+                *(gr.to(a.dtype) for gr, a in zip(grads, args)))
 
 
 def ln_attention_sublayer(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
@@ -276,5 +391,35 @@ def ln_attention_sublayer(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
     """y = x + Attn(LN(x)), differentiable in everything but the bias.
     `kernels=True`: the CUDA kernels on a CUDA tensor, the plain versions
     on a CPU tensor.  `kernels=False`: the plain versions on any device."""
-    return _LnAttentionSublayer.apply(x, ln_w, ln_b, w_qkv, b_qkv, w_out,
-                                      b_out, bias, n_head, kernels)
+    route = ((ln_attention_residual, ln_attention_residual_bwd) if kernels
+             else (ln_attention_residual_plain,
+                   ln_attention_residual_bwd_plain))
+    return _Sublayer.apply(route, n_head, bias, x, ln_w, ln_b, w_qkv, b_qkv,
+                           w_out, b_out)
+
+
+def fused_attention_sublayer(h, w_qkv, b_qkv, w_out, b_out, n_head: int,
+                             bias=None, kernels: bool = True) -> torch.Tensor:
+    """The whole attention sublayer on a pre-normalised h, without residual
+    (↔ neighborretr_tpu/ops/pallas_block_attention.py::
+    fused_attention_sublayer), differentiable in everything but the bias.
+
+    h [N, L, D] of any float dtype is computed in bf16; w_qkv [3D, D]
+    (in_proj_weight) and w_out [D, D] (out_proj.weight) are cast to bf16,
+    b_qkv [3D] and b_out [D] used in fp32; bias broadcastable to [N, L, L]
+    fp32 or None.  y is stored as bf16 and returned in h's dtype; gradients
+    come back in each input's dtype, a weight's rounded to bf16 as the JAX
+    wrapper's casts make it.  `kernels=True`: K10/K11 on a CUDA tensor, the
+    plain versions on a CPU tensor; `kernels=False`: the plain versions."""
+    N, L, D = h.shape
+    if bias is not None:
+        bias = bias.float().expand(N, L, L).contiguous()
+    route = ((attention_sublayer, attention_sublayer_bwd) if kernels
+             else (attention_sublayer_plain, attention_sublayer_bwd_plain))
+    b16 = torch.bfloat16
+    y = _Sublayer.apply(route, n_head, bias, h.to(b16).contiguous(),
+                        w_qkv.to(b16).contiguous(),
+                        b_qkv.float().contiguous(),
+                        w_out.to(b16).contiguous(),
+                        b_out.float().contiguous())
+    return y.to(h.dtype)

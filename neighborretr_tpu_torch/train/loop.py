@@ -10,14 +10,18 @@ run continues exactly: the loader's seeded plan is fast-forwarded, the
 checkpointed bank is kept mid-epoch, the optimizer schedule reads the saved
 step, and each step's DPC-KNN tie-break draws come from a generator seeded
 from (run seed, global step).  SIGTERM saves `state_preempt.npz` at the
-next step boundary.
+next step boundary.  Under `--augment_backend device` the RandAugment draws
+come from generators seeded from (run seed, global step) for a step and
+(run seed, epoch, fill index) for a bank-fill batch, so a resume replays
+them too.
 
 Not ported: meshes and multi-process runs, the device prefetch (batches are
-moved when the step wants them), on-device augmentation.
+moved when the step wants them).
 """
 
 from __future__ import annotations
 
+import hashlib
 import itertools
 import json
 import os
@@ -82,6 +86,18 @@ def step_generator(seed: int, global_step: int, device) -> torch.Generator:
     return gen
 
 
+def augment_generator(device, *position: int) -> torch.Generator:
+    """The generator of one batch's device-augment draws, a function of
+    `position` alone: (run seed, global step) for a train step, (run seed,
+    epoch, fill index) for a bank-fill batch.  Hashed, so its streams are
+    disjoint from `step_generator`'s and from each other."""
+    key = "device-augment " + " ".join(map(str, position))
+    seed = int.from_bytes(hashlib.sha256(key.encode()).digest()[:8], "little")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed >> 1)
+    return gen
+
+
 _BANK_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -93,13 +109,17 @@ def _empty_bank(cfg: Config, device) -> mb.MemoryBank:
 
 
 def fill_memory_bank(model, cfg: Config, bank_loader: BatchLoader,
-                     bank: mb.MemoryBank, device,
-                     kernels: bool = True) -> mb.MemoryBank:
-    """Epoch-start fill: encode min(mb_batch, len(loader)) batches."""
+                     bank: mb.MemoryBank, device, kernels: bool = True,
+                     epoch: int = 0) -> mb.MemoryBank:
+    """Epoch-start fill: encode min(mb_batch, len(loader)) batches, each
+    augmented on the device under --augment_backend device."""
     n_fill = min(cfg.train.mb_batch, len(bank_loader))
+    on_device = cfg.data.augment_backend == "device"
     for i, batch in enumerate(itertools.islice(iter(bank_loader), n_fill)):
+        gen = (augment_generator(device, cfg.train.seed, epoch, i)
+               if on_device else None)
         bank = fill_bank_step(model, bank, to_device(batch, device), cfg,
-                              i * cfg.train.batch_size, kernels)
+                              i * cfg.train.batch_size, kernels, gen)
     return bank
 
 
@@ -299,7 +319,7 @@ def _train_epochs(cfg, state: TrainState, tracker, guard, train_loader,
             # clear), and a fill shorter than the capacity would leave them
             state.bank = fill_memory_bank(model, cfg, bank_loader,
                                           _empty_bank(cfg, device), device,
-                                          kernels)
+                                          kernels, epoch)
             if cuda:
                 torch.cuda.synchronize(device)
             logger.info("Epoch %d: memory bank filled in %.1fs", epoch,
@@ -336,8 +356,10 @@ def _train_epochs(cfg, state: TrainState, tracker, guard, train_loader,
                 profiler.start()
             gen = (step_generator(cfg.train.seed, global_step, device)
                    if cfg.model.cluster_noise else None)
+            aug = (augment_generator(device, cfg.train.seed, global_step)
+                   if cfg.data.augment_backend == "device" else None)
             state, metrics = train_step(state, to_device(batch, device), cfg,
-                                        t_total, gen, kernels)
+                                        t_total, gen, kernels, aug)
             global_step += 1
             if guard.requested:
                 return preempt_exit()

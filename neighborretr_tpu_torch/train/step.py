@@ -16,8 +16,10 @@ the two bank matrices run the blocked similarity (ops/similarity_blocked.py).
 micro-batches with exact gradients (see `_microbatched_backward`);
 `model.remat*` and `model.video_chunk_frames` rematerialise the towers
 (models/layers.py, models/neighborretr.py); `model.attention_impl` picks the
-attention route.  On-device augmentation, the explicit-SPMD and pipeline
-forms and the host-resident bank are not ported: asking for one raises.
+attention route.  `data.augment_backend="device"` runs the RandAugment
+policy on the batch's device at the top of the step (ops/device_augment.py),
+its draws from an explicit generator.  The explicit-SPMD and pipeline forms
+and the host-resident bank are not ported: asking for one raises.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 from ..core.config import Config
 from ..losses import hubness
 from ..models import neighborretr as M
+from ..ops.device_augment import augment_batch
 from . import bertadam
 from .memory_bank import MemoryBank, fifo_update, write_slice
 
@@ -70,12 +73,35 @@ def _check_supported(cfg: Config, model: Optional[M.NeighborRetr] = None
         "train.bank_placement='host'": t.bank_placement != "device",
         "optim.moments_placement='host'":
             cfg.optim.moments_placement != "device",
-        "data.augment_backend='device'": cfg.data.augment_backend == "device",
     }
     asked = [k for k, v in unported.items() if v]
     if asked:
         raise NotImplementedError(
             "not ported to PyTorch yet: " + ", ".join(asked))
+
+
+def _maybe_device_augment(cfg: Config, batch: Dict[str, torch.Tensor],
+                          generator: Optional[torch.Generator]
+                          ) -> Dict[str, torch.Tensor]:
+    """RandAugment on the batch's device, ahead of the model's frame
+    normalisation, under data.augment_backend="device" (↔ the JAX step's
+    _maybe_device_augment): the whole batch at once, before any
+    micro-batching, the draws from `generator`; padding frames stay zero.
+    Any other backend: the batch as it is (the loader augmented it)."""
+    d = cfg.data
+    if d.augment_backend != "device" or not d.train_augment or not d.augment:
+        return batch
+    if generator is None:
+        raise ValueError("data.augment_backend='device' needs a "
+                         "torch.Generator for the augment draws")
+    if batch["video"].dtype != torch.uint8:
+        raise TypeError(
+            "--augment_backend device needs uint8 frames from the loader "
+            f"(got {batch['video'].dtype}); the host pipeline must not "
+            "normalize or augment first")
+    video = augment_batch(batch["video"], batch["video_mask"], generator,
+                          d.augment)
+    return dict(batch, video=video)
 
 
 def to_device(batch: Dict[str, object], device) -> Dict[str, torch.Tensor]:
@@ -214,15 +240,19 @@ def _microbatched_backward(model, cfg: Config, batch, bank: MemoryBank, noise,
 
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor], cfg: Config,
                t_total: int, generator: Optional[torch.Generator] = None,
-               kernels: bool = True
+               kernels: bool = True,
+               augment_generator: Optional[torch.Generator] = None
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One optimizer step on `batch` (tensors on the model's device, see
     `to_device`).  `generator` draws the DPC-KNN tie-break noise when
-    cfg.model.cluster_noise is set.  Updates the model in place and returns
-    the state with the new optimizer state, bank and step count, and the
-    metrics (every loss term, grad_norm, logit_scale)."""
+    cfg.model.cluster_noise is set; `augment_generator` the RandAugment
+    draws under data.augment_backend="device" (required there).  Updates
+    the model in place and returns the state with the new optimizer state,
+    bank and step count, and the metrics (every loss term, grad_norm,
+    logit_scale)."""
     model = state.model
     _check_supported(cfg, model)
+    batch = _maybe_device_augment(cfg, batch, augment_generator)
     noise = None
     if cfg.model.cluster_noise:
         if generator is None:
@@ -263,9 +293,15 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], cfg: Config,
 @torch.no_grad()
 def fill_bank_step(model: M.NeighborRetr, bank: MemoryBank,
                    batch: Dict[str, torch.Tensor], cfg: Config, offset: int,
-                   kernels: bool = True) -> MemoryBank:
-    """Epoch-start bank fill: encode one batch and write it at `offset`."""
+                   kernels: bool = True,
+                   augment_generator: Optional[torch.Generator] = None
+                   ) -> MemoryBank:
+    """Epoch-start bank fill: encode one batch and write it at `offset`.
+    With `augment_generator` the batch is augmented first under
+    data.augment_backend="device" (the bank loader is a train loader)."""
     _check_supported(cfg, model)
+    if augment_generator is not None:
+        batch = _maybe_device_augment(cfg, batch, augment_generator)
     text_feat, video_feat = model.get_text_video_feat(
         batch["text_ids"], batch["text_mask"], batch["video"],
         batch["video_mask"], kernels)

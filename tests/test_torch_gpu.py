@@ -319,6 +319,77 @@ def test_attention_kernel_refuses_what_it_does_not_take(cuda):
         BA.ln_attention_residual_bwd(*args, 2, g.float())
 
 
+SUBLAYER_SHAPES = [
+    (6, 50, 768, 12, None),          # vision
+    (64, 24, 512, 8, "causal"),      # text
+    (64, 12, 512, 8, "keypad"),      # temporal
+    (3, 5, 64, 1, None),             # N·L not a multiple of 64, one m-tile
+    (2, 64, 128, 2, "causal")]       # longest sequence the kernels take
+
+
+@pytest.mark.parametrize("N,L,D,H,bias_kind", SUBLAYER_SHAPES)
+def test_sublayer_kernels_without_ln_match_plain(cuda, N, L, D, H, bias_kind):
+    """K10 and K11 (no LayerNorm, no residual) against their plain
+    versions; K11 twice, bit-equal."""
+    (h, _, _, *w), bias = attn_inputs(N * L + 1, N, L, D, bias_kind, cuda)
+    f, b = BA.attention_sublayer.launches, BA.attention_sublayer_bwd.launches
+    got = BA.attention_sublayer(h, *w, H, bias)
+    torch.cuda.synchronize()
+    assert BA.attention_sublayer.launches == f + 1
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(
+        got.float(), BA.attention_sublayer_plain(h, *w, H, bias).float(),
+        **K1_TOL)
+    rng = np.random.default_rng(N + L + 1)
+    g = torch.as_tensor(rng.standard_normal((N, L, D)).astype(np.float32),
+                        device=cuda).bfloat16()
+    got = BA.attention_sublayer_bwd(h, *w, H, g, bias)
+    torch.cuda.synchronize()
+    assert BA.attention_sublayer_bwd.launches == b + 1
+    want = BA.attention_sublayer_bwd_plain(h, *w, H, g, bias)
+    assert got[0].dtype == torch.bfloat16
+    torch.testing.assert_close(got[0].float(), want[0].float(), **K1_TOL)
+    for name, a, p in zip(("dw_qkv", "db_qkv", "dw_out", "db_out"), got[1:],
+                          want[1:]):
+        assert a.dtype == torch.float32 and a.shape == p.shape, name
+        err = (a - p).abs().max().item()
+        assert err <= K3_SUM_TOL * p.abs().max().item(), (name, err)
+    again = BA.attention_sublayer_bwd(h, *w, H, g, bias)
+    assert all(torch.equal(a, p) for a, p in zip(got, again))
+
+
+def test_fused_attention_sublayer_runs_both_kernels(cuda):
+    """The public function on an fp32 h (cast to bf16 inside): one launch
+    of K10 and one of K11, gradients in each input's dtype, held to the
+    same through the plain versions."""
+    (h, _, _, *w), bias = attn_inputs(2, 4, 12, 128, "keypad", cuda)
+    args = [h.float()] + [t.float() for t in w]
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    f, b = BA.attention_sublayer.launches, BA.attention_sublayer_bwd.launches
+    y = BA.fused_attention_sublayer(*leaves, 2, bias)
+    assert y.dtype == torch.float32
+    y.square().sum().backward()
+    assert BA.attention_sublayer.launches == f + 1
+    assert BA.attention_sublayer_bwd.launches == b + 1
+    plain = [a.clone().requires_grad_(True) for a in args]
+    BA.fused_attention_sublayer(*plain, 2, bias, kernels=False
+                                ).square().sum().backward()
+    for got, want in zip(leaves, plain):
+        assert got.grad.dtype == torch.float32
+        err = (got.grad - want.grad).abs().max().item()
+        assert err <= 2 ** -5 * want.grad.abs().max().item()
+
+
+def test_sublayer_kernels_refuse_what_they_do_not_take(cuda):
+    (h, _, _, *w), _ = attn_inputs(0, 2, 65, 128, None, cuda)
+    with pytest.raises(ValueError, match="L <= 64"):
+        BA.attention_sublayer(h, *w, 2)
+    with pytest.raises(ValueError, match="L <= 64"):
+        BA.attention_sublayer_bwd(h, *w, 2, torch.zeros_like(h))
+    with pytest.raises(ValueError, match="head dim 64"):
+        BA.attention_sublayer(h[:, :12].contiguous(), *w, 4)
+
+
 def test_serving_path_runs_through_both_kernels(cuda):
     """Tiny towers in bf16 on the card: index + search through the kernels,
     held to the same path through the plain versions."""
@@ -578,3 +649,32 @@ def test_attention_impl_and_remat_change_what_launches(cuda, impl, policy,
         same, same_grad = losses(True)
         assert abs(same - got) <= 2e-2 * abs(got)
         assert ((same_grad - grad).norm() <= 0.1 * grad.norm()).item()
+
+
+def test_device_augment_on_the_card_matches_the_cpu(cuda):
+    """The same draws, every op fired over 2 layers, 16 clips of 4 x 40 x 56
+    structured frames: the same fp32 arithmetic on both devices, but cos/sin
+    (rotations) may differ in their last bit, which moves a warped pixel by
+    at most one level."""
+    from neighborretr_tpu_torch.ops import device_augment as DA
+    rng = np.random.default_rng(0)
+    B, F, H, W = 16, 4, 40, 56
+    yy, xx = np.mgrid[0:H, 0:W]
+    ramp = np.stack([xx * 200 / W, yy * 200 / H, (xx + yy) * 100 / (H + W)],
+                    axis=-1)[None, None] + 30
+    ramp[:, :, 10:20, 12:30] = 90                      # a flat patch
+    ramp[:, :, :, 40:] = np.where(yy[..., 40:, None] % 6 < 3, 220, 35)
+    video = np.clip(ramp + rng.normal(0, 8, (B, F, H, W, 3)), 0, 255)
+    video = torch.as_tensor(video.astype(np.uint8))
+    op = torch.arange(2 * B).view(B, 2) % len(DA.OP_NAMES)
+    fire = torch.ones(B, 2, dtype=torch.bool)
+    level = torch.as_tensor(rng.uniform(0, 10, (B, 2)).astype(np.float32))
+    neg = torch.as_tensor(rng.uniform(size=(B, 2)) < 0.5)
+    pol = DA.DeviceAugmentPolicy()
+    want = DA.apply_randaugment_draws(video, op, fire, level, neg, pol)
+    got = DA.apply_randaugment_draws(
+        video.to(cuda), *(t.to(cuda) for t in (op, fire, level, neg)), pol)
+    assert got.is_cuda and got.dtype == torch.uint8
+    d = (got.cpu().int() - want.int()).abs()
+    assert d.max().item() <= 1 and (d > 0).float().mean().item() <= 0.005
+    assert (want != video).any()

@@ -273,7 +273,7 @@ def test_train_cli_refuses_unported_options_and_missing_gpu(tmp_path):
     out = str(tmp_path / "refused")
     for flags, word in ((["--fsdp"], "--fsdp"),
                         (["--tensor_parallel", "2"], "--tensor_parallel"),
-                        (["--augment_backend", "device"], "augment_backend"),
+                        (["--bank_placement", "host"], "bank_placement"),
                         (["--clip_checkpoint", "ViT-B-32.pt"], "clip_checkpoint")):
         done = run_cli("--output_dir", out, *flags)
         assert done.returncode != 0

@@ -212,10 +212,12 @@ def test_unported_options_raise():
         cfg.train, micro_batches=2)))           # ported: GradCache, two passes
     tstep._check_supported(dc.replace(cfg, model=dc.replace(
         cfg.model, remat=True, video_chunk_frames=8)))   # ported: checkpoints
+    tstep._check_supported(dc.replace(cfg, data=dc.replace(
+        cfg.data, augment_backend="device")))    # ported: device RandAugment
     for section, change in (("train", dict(explicit_spmd=True)),
                             ("train", dict(pipeline_parallel=2)),
                             ("train", dict(bank_placement="host")),
-                            ("data", dict(augment_backend="device")),
+                            ("optim", dict(moments_placement="host")),
                             ("train", dict(fsdp=True))):
         bad = dc.replace(cfg, **{section: dc.replace(getattr(cfg, section),
                                                      **change)})

@@ -25,7 +25,7 @@ from .common import add_attention_impl_arg, resolve_device
 # flags the JAX CLI has and the port does not honour yet: asking for one
 # (a value other than the default shown) exits
 UNPORTED = {
-    "num_devices": None, "use_pallas": "auto", "explicit_spmd": False,
+    "num_devices": None, "explicit_spmd": False,
     "bank_placement": "device",
     "opt_moments_placement": "device", "tensor_parallel": 1,
     "pipeline_parallel": 1, "pipeline_microbatches": 0, "fsdp": False,
@@ -122,12 +122,14 @@ def parse_args(argv=None):
                    help="run the vision tower on N frames at a time, each "
                         "chunk rematerialised as a whole; 0 = off")
     add_attention_impl_arg(p)
+    p.add_argument("--use_pallas", default="auto", choices=["auto", "on", "off"],
+                   help="off: the similarity kernels' plain forms on any "
+                        "device; auto/on: the kernels on a CUDA device")
     p.add_argument("--unroll_layers", action="store_true",
                    help="accepted for the JAX CLI's sake: the port's loop "
                         "over layers is always unrolled")
     # the JAX CLI's flags for options that are not ported
     p.add_argument("--num_devices", type=int, default=None)
-    p.add_argument("--use_pallas", default="auto", choices=["auto", "on", "off"])
     p.add_argument("--explicit_spmd", action="store_true")
     p.add_argument("--bank_placement", default="device",
                    choices=["device", "host"])
@@ -177,6 +179,7 @@ def build_config(args) -> Config:
                        remat=args.remat, remat_policy=args.remat_policy,
                        remat_skip_last=args.remat_skip_last,
                        video_chunk_frames=args.video_chunk_frames,
+                       use_pallas=args.use_pallas,
                        unroll_layers=args.unroll_layers)
     return Config(
         model=model,

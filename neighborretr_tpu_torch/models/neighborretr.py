@@ -174,6 +174,17 @@ def token_weights(mlp: nn.Sequential, feat: torch.Tensor,
     return torch.softmax(w, dim=-1)
 
 
+def similarity_kernels(cfg: ModelConfig, kernels: bool = True) -> bool:
+    """Whether the similarity family (K2, K4–K7) may run its kernels:
+    `use_pallas="off"` sends it to the plain forms on any device, as the
+    JAX package's "off" sends it to XLA; "auto" and "on" leave the choice
+    to the tensor's device.  The towers' attention kernels do not read it."""
+    if cfg.use_pallas not in ("auto", "on", "off"):
+        raise ValueError(f"use_pallas must be one of auto, on, off; got "
+                         f"{cfg.use_pallas!r}")
+    return kernels and cfg.use_pallas != "off"
+
+
 def local_similarity(model: NeighborRetr, t_feat, v_feat, t_mask, v_mask,
                      kernels: bool = True) -> torch.Tensor:
     """The reference's local_level: S [A, B] with v2t = S.T.  Long-token

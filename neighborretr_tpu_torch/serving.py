@@ -28,7 +28,7 @@ from .data.text import encode_caption
 
 from .eval import (encode_text_batch, encode_video_batch,
                    similarity_matrix_device)
-from .models.neighborretr import NeighborRetr
+from .models.neighborretr import NeighborRetr, similarity_kernels
 
 # the same three leaves, under the JAX package's path names and in its
 # byte layout (fp32, [width, embed] projections), as serving.params_fingerprint
@@ -228,9 +228,9 @@ class Searcher:
         padded = list(queries) + [""] * ((-len(queries)) % self.query_batch)
         t_feat, t_mask = encode_queries(self.model, self.cfg, self.tokenizer,
                                         padded, self.kernels)
-        return similarity_matrix_device(self.model, t_feat, t_mask,
-                                        self._v_feat, self._v_mask,
-                                        kernels=self.kernels)
+        return similarity_matrix_device(
+            self.model, t_feat, t_mask, self._v_feat, self._v_mask,
+            kernels=similarity_kernels(self.cfg.model, self.kernels))
 
     def similarities(self, queries: Sequence[str]) -> np.ndarray:
         """[Q, N] similarity rows for free-text queries."""

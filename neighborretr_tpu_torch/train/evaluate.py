@@ -25,7 +25,8 @@ import numpy as np
 import torch
 
 from ..core.config import Config
-from ..models.neighborretr import NeighborRetr, local_similarity
+from ..models.neighborretr import (NeighborRetr, local_similarity,
+                                   similarity_kernels)
 from . import metrics as M
 
 
@@ -195,8 +196,9 @@ def evaluate(model: NeighborRetr, cfg: Config, loader, dataset=None,
     feat_time = time.time() - tic
 
     tic = time.time()
-    sim = similarity_matrix_device(model, t_feat, t_mask, v_feat, v_mask,
-                                   kernels=kernels)
+    sim = similarity_matrix_device(
+        model, t_feat, t_mask, v_feat, v_mask,
+        kernels=similarity_kernels(cfg.model, kernels))
     if multi:
         sim_3d = reshape_multi_sentence_device(sim, dataset.cut_off_points)
         ranks, valid = M.device_multi_sentence_ranks(sim_3d)

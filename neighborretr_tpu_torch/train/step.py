@@ -65,6 +65,12 @@ def _check_supported(cfg: Config, model: Optional[M.NeighborRetr] = None
         raise ValueError(
             "the model was built from another ModelConfig than cfg.model; "
             "build it from cfg.model, or set model.cfg")
+    if cfg.model.sim_dtype != "float32":
+        raise NotImplementedError(
+            f"model.sim_dtype={cfg.model.sim_dtype!r} is not ported: the "
+            "similarity kernels and their plain versions multiply in "
+            "float32 (the JAX package's two settings gave the same bits on "
+            "its TPU); use sim_dtype='float32'")
     t = cfg.train
     unported = {
         "train.explicit_spmd": t.explicit_spmd,
@@ -147,9 +153,11 @@ def compute_losses(model: M.NeighborRetr, cfg: Config,
 
     # in-batch local similarity: the plain form at the short shapes; the
     # long-token shapes (T·V >= 2048) run the blocked kernel
+    # use_pallas="off": the plain forms of the similarity family throughout
+    sim_kernels = M.similarity_kernels(mcfg, kernels)
     long_tokens = text_feat.shape[1] * video_feat.shape[1] >= 2048
     s_local = M.local_similarity(model, text_feat, video_feat, t_mask, v_mask,
-                                 kernels=kernels and long_tokens)
+                                 kernels=sim_kernels and long_tokens)
 
     g_t, g_v = M.merge_global_features(model, text_feat, video_feat, t_mask,
                                        v_mask, noise)
@@ -176,10 +184,12 @@ def compute_losses(model: M.NeighborRetr, cfg: Config,
     if M.bank_fusion_supported(mcfg):
         cent_t = M.bank_centrality(model, text_feat, bank.feat_v, t_mask,
                                    bank.mask_v, axis=1,
-                                   sim_dtype=mcfg.sim_dtype, kernels=kernels)
+                                   sim_dtype=mcfg.sim_dtype,
+                                   kernels=sim_kernels)
         cent_v = M.bank_centrality(model, bank.feat_t, video_feat, bank.mask_t,
                                    v_mask, axis=0,
-                                   sim_dtype=mcfg.sim_dtype, kernels=kernels)
+                                   sim_dtype=mcfg.sim_dtype,
+                                   kernels=sim_kernels)
         neighbor_loss = 0.5 * (
             hubness.neighbor_adjusting_loss_from_centrality(
                 s_local, cent_v, lcfg.num_neighbors, lcfg.temperature)
@@ -187,9 +197,9 @@ def compute_losses(model: M.NeighborRetr, cfg: Config,
                 s_local.T, cent_t, lcfg.num_neighbors, lcfg.temperature))
     else:
         bank_t2v = M.local_similarity(model, text_feat, bank.feat_v, t_mask,
-                                      bank.mask_v, kernels)
+                                      bank.mask_v, sim_kernels)
         bank_v2t = M.local_similarity(model, bank.feat_t, video_feat,
-                                      bank.mask_t, v_mask, kernels).T
+                                      bank.mask_t, v_mask, sim_kernels).T
         neighbor_loss = 0.5 * (
             hubness.neighbor_adjusting_loss(
                 s_local, bank_v2t, lcfg.num_neighbors, lcfg.temperature)

@@ -146,9 +146,10 @@ def test_attention_plain_fp32_is_the_exact_function_and_gradient(bias_kind):
 @pytest.mark.parametrize("bias_kind", [None, "causal"])
 @pytest.mark.parametrize("kernels", [True, False])
 def test_autograd_function_gradient_is_the_plain_backward(bias_kind, kernels):
-    """One node that saves qkv and the bias only; its gradient is
-    attention_bwd_plain's, the bias gets none; on the CPU the wrappers take
-    the plain versions and count no launch."""
+    """One node that saves qkv, the bias, the output and lse; its gradient is
+    attention_bwd_plain's fed that output and lse (and within one bf16
+    rounding of it without them), the bias gets none; on the CPU the
+    wrappers take the plain versions and count no launch."""
     qkv, g, bias = case(4, 3, 10, bias_kind)
     tb = None if bias is None else torch.as_tensor(bias).requires_grad_(True)
     x = bf16(qkv).requires_grad_(True)
@@ -156,12 +157,18 @@ def test_autograd_function_gradient_is_the_plain_backward(bias_kind, kernels):
     out = A.fused_frame_attention(x, H, tb, kernels)
     assert out.grad_fn.name().startswith("_FrameAttention")
     saved = out.grad_fn.saved_tensors
-    assert len(saved) == 2 and torch.equal(saved[0], x)       # qkv, bias
+    assert len(saved) == 4 and torch.equal(saved[0], x)  # qkv, bias, out, lse
     assert (saved[1] is None) == (bias is None)
-    assert torch.equal(out, A.attention_plain(x.detach(), H, tb))
+    want_out, want_lse = A.attention_plain(x.detach(), H, tb, return_lse=True)
+    assert torch.equal(out, want_out) and torch.equal(saved[2], want_out)
+    assert saved[3].dtype == torch.float32 and torch.equal(saved[3], want_lse)
     out.backward(bf16(g))
-    want = A.attention_bwd_plain(x.detach(), H, bf16(g), tb)
+    want = A.attention_bwd_plain(x.detach(), H, bf16(g), tb, out=want_out,
+                                 lse=want_lse)
     assert x.grad.dtype == torch.bfloat16 and torch.equal(x.grad, want)
+    assert_bf16_close(x.grad, A.attention_bwd_plain(
+        x.detach(), H, bf16(g), tb).detach().float().numpy(),
+        "without out/lse")
     assert tb is None or tb.grad is None
     assert (A.frame_attention.launches,
             A.frame_attention_bwd.launches) == before
@@ -213,6 +220,186 @@ def test_cuda_argument_checks_raise(what, make, word):
     with pytest.raises(ValueError, match=word):
         A._check_cuda_args(q, n_head, b)
     A._check_cuda_args(bf16(qkv), 2, torch.as_tensor(bias))     # and passes
+
+
+@pytest.mark.parametrize("what,make,word", [
+    ("out dtype", lambda o, s: (o.float(), s), "bfloat16"),
+    ("out shape", lambda o, s: (o[:, :-1], s), "shape"),
+    ("out not contiguous",
+     lambda o, s: (o.transpose(1, 2).contiguous().transpose(1, 2), s),
+     "contiguous"),
+    ("lse dtype", lambda o, s: (o, s.bfloat16()), "float32"),
+    ("lse shape", lambda o, s: (o, s[:, :1]), "shape"),
+    ("lse not contiguous",
+     lambda o, s: (o, s.transpose(1, 2).contiguous().transpose(1, 2)),
+     "contiguous")])
+def test_cuda_argument_checks_raise_on_saved_statistics(what, make, word):
+    """The backward's out [N, L, D] bf16 and lse [N, H, L] fp32 are checked
+    like qkv and g."""
+    qkv, g, bias = case(7, 4, 6, "causal")
+    x, tb = bf16(qkv), torch.as_tensor(bias)
+    out, lse = A.attention_plain(x, 2, tb, return_lse=True)
+    o, s = make(out, lse)
+    with pytest.raises(ValueError, match=word):
+        A._check_cuda_args(x, 2, tb, bf16(g), o, s)
+    A._check_cuda_args(x, 2, tb, bf16(g), out, lse)             # and passes
+
+
+# ---------------------------------------------------------------------------
+# the forward's log-sum-exp and the backward from the saved statistics
+# ---------------------------------------------------------------------------
+
+def plain_logits64(qkv, bias):
+    """The plain versions' logits (q rounded after its scaling, fp32 bias)
+    in float64 → [N, H, L, L]."""
+    t = torch.as_tensor(qkv)
+    N, L, _ = t.shape
+    q, k, _ = (a.reshape(N, L, H, HD) for a in t.float().split(D, dim=-1))
+    q = (q * HD ** -0.5).to(t.dtype).double()
+    logits = torch.einsum("nqhd,nkhd->nhqk", q, k.double())
+    if bias is not None:
+        logits = logits + torch.as_tensor(bias).double()[:, None]
+    return logits
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bias_kind", [None, "causal", "keypad"])
+def test_plain_lse_is_the_logsumexp_of_the_logits(bias_kind, dtype):
+    """lse [N, H, L] fp32 against a float64 log-sum-exp of the same logits
+    (fp32 logits and sums: 1e-5 relative); out unchanged by asking for it."""
+    qkv, _, bias = case(11, 3, 13, bias_kind)
+    x = torch.as_tensor(qkv).to(dtype)
+    tb = None if bias is None else torch.as_tensor(bias)
+    out, lse = A.attention_plain(x, H, tb, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (3, H, 13)
+    want = torch.logsumexp(plain_logits64(x, bias), dim=-1)
+    torch.testing.assert_close(lse.double(), want, atol=1e-5, rtol=1e-5)
+    assert torch.equal(out, A.attention_plain(x, H, tb))
+    assert torch.equal(A.frame_attention(x, H, tb, return_lse=True)[1], lse)
+
+
+@pytest.mark.parametrize("name,N,L,bias_kind,row_chunk", PALLAS_CASES)
+def test_attention_bwd_plain_from_saved_statistics_matches_pallas_vjp(
+        monkeypatch, name, N, L, bias_kind, row_chunk):
+    """The plain backward fed the plain forward's out and lse against the
+    plain backward without them and against the Pallas kernels' VJP in
+    interpret mode, at the tolerance of the tests above."""
+    if row_chunk:
+        monkeypatch.setenv("NRTPU_ATTN_ROW_CHUNK", row_chunk)
+    qkv, g, bias = case(12, N, L, bias_kind)
+    tb = None if bias is None else torch.as_tensor(bias)
+    out, lse = A.attention_plain(bf16(qkv), H, tb, return_lse=True)
+    got = A.attention_bwd_plain(bf16(qkv), H, bf16(g), tb, out=out, lse=lse)
+    assert got.dtype == torch.bfloat16 and got.shape == (N, L, 3 * D)
+    assert_bf16_close(got, A.attention_bwd_plain(bf16(qkv), H, bf16(g),
+                                                 tb).float().numpy(), name)
+    jb = None if bias is None else jnp.asarray(bias)
+    _, vjp = jax.vjp(lambda x: jax_fused_frame_attention(
+        x, H, bias=jb, interpret=True), jbf16(qkv))
+    (want,) = vjp(jbf16(g))
+    assert_bf16_close(got, want.astype(jnp.float32), name)
+
+
+@pytest.mark.parametrize("bias_kind", [None, "causal", "keypad"])
+def test_attention_bwd_plain_from_saved_statistics_fp32_is_exact(bias_kind):
+    """fp32 inputs: nothing is rounded, and the backward fed out and lse is
+    the exact gradient (float64 autograd of the formula) to 1e-5."""
+    N, L = 3, 11
+    qkv, g, bias = case(13, N, L, bias_kind)
+    tb = None if bias is None else torch.as_tensor(bias)
+    out, lse = A.attention_plain(torch.as_tensor(qkv), H, tb, return_lse=True)
+    got = A.attention_bwd_plain(torch.as_tensor(qkv), H, torch.as_tensor(g),
+                                tb, out=out, lse=lse)
+    x = torch.as_tensor(qkv).double().requires_grad_(True)
+    q, k, v = (t.reshape(N, L, H, HD).transpose(1, 2)
+               for t in x.split(D, dim=-1))
+    logits = q @ k.transpose(-1, -2) * HD ** -0.5
+    if tb is not None:
+        logits = logits + tb.double()[:, None]
+    (torch.softmax(logits, -1) @ v).transpose(1, 2).reshape(N, L, D) \
+        .backward(torch.as_tensor(g).double())
+    torch.testing.assert_close(got.double(), x.grad, atol=1e-5, rtol=1e-5)
+
+
+def kernel_rounding(qkv, g, n_head, bias=None, tile=64):
+    """The CUDA kernels' arithmetic in fp32 on the CPU, rounding points
+    included.  A row that fits one key tile (L <= tile) keeps the TPU's: its
+    probabilities normalised, then rounded; delta = sum_k dprobs·probs.
+    Past one tile the forward walks the keys tile by tile with a running row
+    max, rounds the unnormalised probabilities to bf16 for probs·V and
+    divides by the row sum once at the end; the backward takes the
+    probabilities from lse and delta from the bf16 out.  → (out bf16, lse,
+    dqkv bf16)."""
+    N, L, D3 = qkv.shape
+    Dm = D3 // 3
+    hd = Dm // n_head
+    q, k, v = (t.reshape(N, L, n_head, hd).transpose(1, 2)
+               for t in qkv.float().split(Dm, dim=-1))
+    s = q @ k.transpose(-1, -2) * hd ** -0.5              # exact in bf16
+    if bias is not None:
+        s = s + bias.float()[:, None]
+    m = torch.full((N, n_head, L), -torch.inf)
+    lsum = torch.zeros(N, n_head, L)
+    o = torch.zeros(N, n_head, L, hd)
+    one_tile = L <= tile
+    for k0 in range(0, L, tile):
+        st = s[..., k0:k0 + tile]
+        m_new = torch.maximum(m, st.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(st - m_new[..., None])
+        lsum = lsum * alpha + p.sum(-1)
+        if one_tile:
+            p = p / lsum[..., None]
+        o = o * alpha[..., None] + p.bfloat16().float() @ v[:, :, k0:k0 + tile]
+        m = m_new
+    if not one_tile:
+        o = o / lsum[..., None]
+    out = o.transpose(1, 2).reshape(N, L, Dm).bfloat16()
+    lse = m + torch.log(lsum)
+    p = torch.exp(s - lse[..., None])
+    g3 = g.float().reshape(N, L, n_head, hd).transpose(1, 2)
+    dprobs = g3 @ v.transpose(-1, -2)
+    if one_tile:
+        delta = (dprobs * p).sum(-1)
+    else:
+        delta = (g3 * out.float().reshape(N, L, n_head, hd).transpose(1, 2)
+                 ).sum(-1)
+    dv = p.bfloat16().float().transpose(-1, -2) @ g3
+    ds = (p * (dprobs - delta[..., None]) * hd ** -0.5).bfloat16().float()
+    dq, dk = ds @ k, ds.transpose(-1, -2) @ q
+    dqkv = torch.cat([t.transpose(1, 2).reshape(N, L, Dm)
+                      for t in (dq, dk, dv)], dim=-1)
+    return out, lse, dqkv.bfloat16()
+
+
+@pytest.mark.parametrize("bias_kind", [None, "causal", "keypad"])
+@pytest.mark.parametrize("L,tile", [(50, 64), (50, 16), (197, 64)])
+def test_kernel_rounding_points_stay_inside_the_card_tolerances(L, tile,
+                                                                bias_kind):
+    """Evidence on the CPU for the card: the kernels' rounding points,
+    emulated (one tile at L = 50; the moved points at L = 197 and, with
+    16-key tiles, at L = 50), against attention_plain / attention_bwd_plain
+    (the TPU's rounding) at the tolerances chip_smoke.py and
+    test_torch_gpu.py hold the kernels to: out within K1_TOL (2^-6 + 2^-6
+    relative), each part of dqkv within 2^-6 relative + 2^-7 of its largest
+    entry, lse to 1e-4."""
+    qkv, g, bias = case(14 + L, 2, L, bias_kind)
+    x, gg = bf16(qkv), bf16(g)
+    tb = None if bias is None else torch.as_tensor(bias)
+    out, lse, dqkv = kernel_rounding(x, gg, H, tb, tile)
+    want_out, want_lse = A.attention_plain(x, H, tb, return_lse=True)
+    err = (out.float() - want_out.float()).abs()
+    assert (err <= 2 ** -6 + 2 ** -6 * want_out.float().abs()).all(), \
+        err.max().item()
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    want = A.attention_bwd_plain(x, H, gg, tb)
+    for part, a, b in zip(("dq", "dk", "dv"), dqkv.float().split(D, -1),
+                          want.float().split(D, -1)):
+        err = (a - b).abs()
+        assert (err <= 2 ** -6 * b.abs() + 2 ** -7 * b.abs().max()).all(), \
+            (part, err.max().item())
+    if L <= tile:    # one tile: the TPU's rounding points, to fp32's order
+        assert (out.float() - want_out.float()).abs().max() <= 2 ** -8
 
 
 # ---------------------------------------------------------------------------

@@ -490,6 +490,43 @@ def test_train_step_runs_through_the_training_kernels(cuda):
     np.testing.assert_allclose(got, want, rtol=2e-2)
 
 
+def test_use_pallas_off_launches_no_similarity_kernel(cuda):
+    """One bank fill and one train step on tiny bf16 towers under
+    use_pallas="off", at the flagship shape and at a long-token one: the
+    towers' kernels run, K2 and K4-K7 never launch."""
+    from neighborretr_tpu_torch.core import config as C
+    from neighborretr_tpu_torch.data.datasets.synthetic import \
+        make_synthetic_batch
+    from neighborretr_tpu_torch.models.weights_io import init_model
+    from neighborretr_tpu_torch.train import memory_bank as MB
+    from neighborretr_tpu_torch.train import step as TS
+
+    sims = (S.fused_interaction_similarity, S.fused_interaction_mean,
+            S.fused_similarity_bwd, SB.fused_interaction_similarity_blocked,
+            SB.fused_blocked_similarity_bwd)
+    for words, frames in ((8, 4), (64, 32)):
+        m = dc.replace(C.ModelConfig.tiny(max_words=words, max_frames=frames),
+                       compute_dtype="bfloat16", use_pallas="off")
+        cfg = C.Config(model=m, loss=C.LossConfig(num_neighbors=3),
+                       data=C.DataConfig(max_words=words, max_frames=frames),
+                       train=C.TrainConfig(batch_size=8, mb_batch=2))
+        model = init_model(m, seed=0, device=cuda)
+        batches = [TS.to_device(make_synthetic_batch(m, 8, seed=s), cuda)
+                   for s in range(3)]
+        before = [f.launches for f in sims]
+        k1 = BA.ln_attention_residual.launches
+        bank = MB.create(16, words, frames, m.width, device=cuda)
+        for i in range(2):
+            bank = TS.fill_bank_step(model, bank, batches[i], cfg, i * 8)
+        state = TS.create_train_state(model, bank)
+        _, met = TS.train_step(state, batches[2], cfg, 10,
+                               torch.Generator(device=cuda).manual_seed(0))
+        torch.cuda.synchronize()
+        assert np.isfinite(met["loss"].item())
+        assert [f.launches for f in sims] == before, (words, frames)
+        assert BA.ln_attention_residual.launches > k1
+
+
 # ---------------------------------------------------------------------------
 # the packed-qkv attention kernels (ops/attention.py)
 # ---------------------------------------------------------------------------
@@ -520,11 +557,24 @@ def qkv_inputs(seed, N, L, H, bias_kind, device):
 
 
 # every tower's sequence length (temporal 12, text 24, ViT-B/32 50, the long
-# recipes' 64, ViT-B/16 197, ViT-L/14@336px 577) and head count, off and on
-# the kernels' 64-row tiles, with and without a bias
-QKV_SHAPES = [(L, H, kind) for L in (12, 24, 50, 64, 197, 577)
+# recipes' 64, ViT-B/16 197, ViT-L/14@336px 577), one row, and one past a
+# 64-row tile, with each head count and bias kind
+QKV_SHAPES = [(L, H, kind) for L in (1, 12, 24, 50, 64, 65, 197, 577)
               for H, kind in ((8, None), (12, "keypad"), (16, "causal"))]
 QKV_SHAPES += [(1, 1, None), (65, 2, "causal"), (128, 1, None)]
+# lse: fp32 sums in another order and the hardware's ex2/log
+LSE_TOL = dict(atol=1e-4, rtol=1e-5)
+
+
+def assert_dqkv_close(got, want, D):
+    """K1's two bf16 roundings, against the largest entry for the entries
+    near zero (dK and dV sum L terms of either sign)."""
+    for name, a, b in zip(("dq", "dk", "dv"), got.float().split(D, -1),
+                          want.float().split(D, -1)):
+        assert torch.isfinite(a).all(), name
+        err = (a - b).abs()
+        bound = 2 ** -6 * b.abs() + 2 ** -7 * b.abs().max()
+        assert (err <= bound).all(), (name, err.max().item())
 
 
 @pytest.mark.parametrize("L,H,bias_kind", QKV_SHAPES)
@@ -541,26 +591,73 @@ def test_frame_attention_kernel_matches_plain(cuda, L, H, bias_kind):
 
 
 @pytest.mark.parametrize("L,H,bias_kind", QKV_SHAPES)
+def test_frame_attention_lse_matches_plain(cuda, L, H, bias_kind):
+    qkv, _, bias = qkv_inputs(L * H + 1, 5, L, H, bias_kind, cuda)
+    out, lse = A.frame_attention(qkv, H, bias, return_lse=True)
+    torch.cuda.synchronize()
+    want_out, want_lse = A.attention_plain(qkv, H, bias, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (5, H, L)
+    torch.testing.assert_close(lse, want_lse, **LSE_TOL)
+    assert torch.equal(out, A.frame_attention(qkv, H, bias))
+    assert torch.equal(lse, A.frame_attention(qkv, H, bias,
+                                              return_lse=True)[1])
+
+
+@pytest.mark.parametrize("L,H,bias_kind", QKV_SHAPES)
 def test_frame_attention_backward_kernel_matches_plain(cuda, L, H, bias_kind):
     """All of dqkv; sums over query tiles are taken in one block in a fixed
-    order (no float atomics), so a second call gives the same bits.
-    Tolerance: K1's two bf16 roundings, against the largest entry for the
-    entries near zero (dK and dV sum L terms of either sign)."""
+    order (no float atomics), so a second call gives the same bits.  Called
+    directly, the wrapper runs the forward kernel for out and lse first."""
     qkv, g, bias = qkv_inputs(L + H, 5, L, H, bias_kind, cuda)
-    before = A.frame_attention_bwd.launches
+    before = (A.frame_attention.launches, A.frame_attention_bwd.launches)
     got = A.frame_attention_bwd(qkv, H, g, bias)
     torch.cuda.synchronize()
-    assert A.frame_attention_bwd.launches == before + 1
+    assert (A.frame_attention.launches, A.frame_attention_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
     want = A.attention_bwd_plain(qkv, H, g, bias)
     assert got.dtype == torch.bfloat16 and got.shape == qkv.shape
-    D = 64 * H
-    for name, a, b in zip(("dq", "dk", "dv"), got.float().split(D, -1),
-                          want.float().split(D, -1)):
-        assert torch.isfinite(a).all(), name
-        err = (a - b).abs()
-        bound = 2 ** -6 * b.abs() + 2 ** -7 * b.abs().max()
-        assert (err <= bound).all(), (name, err.max().item())
+    assert_dqkv_close(got, want, 64 * H)
     assert torch.equal(got, A.frame_attention_bwd(qkv, H, g, bias))
+
+
+@pytest.mark.parametrize("L,H,bias_kind", QKV_SHAPES)
+def test_frame_attention_backward_from_saved_statistics(cuda, L, H,
+                                                        bias_kind):
+    """As the autograd node calls it: out and lse from the forward kernel,
+    one backward launch and no forward; against the plain backward fed the
+    plain forward's out and lse; bit-equal twice."""
+    qkv, g, bias = qkv_inputs(L + 2 * H, 5, L, H, bias_kind, cuda)
+    out, lse = A.frame_attention(qkv, H, bias, return_lse=True)
+    before = (A.frame_attention.launches, A.frame_attention_bwd.launches)
+    got = A.frame_attention_bwd(qkv, H, g, bias, out=out, lse=lse)
+    torch.cuda.synchronize()
+    assert (A.frame_attention.launches, A.frame_attention_bwd.launches) == \
+        (before[0], before[1] + 1)
+    p_out, p_lse = A.attention_plain(qkv, H, bias, return_lse=True)
+    want = A.attention_bwd_plain(qkv, H, g, bias, out=p_out, lse=p_lse)
+    assert_dqkv_close(got, want, 64 * H)
+    assert torch.equal(got, A.frame_attention_bwd(qkv, H, g, bias, out=out,
+                                                  lse=lse))
+
+
+@pytest.mark.parametrize("bias_kind", [None, "keypad", "causal"])
+def test_frame_attention_reads_no_row_of_the_next_sequence(cuda, bias_kind):
+    """N=3, L=65: the second 64-row tile of sequence 0 holds one row; the
+    rows after it in memory are sequence 1's, set to huge values.  A tile
+    read past L that took them would move sequence 0's output, lse and
+    gradient far outside the tolerance."""
+    qkv, g, bias = qkv_inputs(11, 3, 65, 2, bias_kind, cuda)
+    qkv[1:] = 200.0
+    g[1:] = 200.0
+    out, lse = A.frame_attention(qkv, 2, bias, return_lse=True)
+    dqkv = A.frame_attention_bwd(qkv, 2, g, bias, out=out, lse=lse)
+    torch.cuda.synchronize()
+    b0 = None if bias is None else bias[:1].contiguous()
+    want_out, want_lse = A.attention_plain(qkv[:1], 2, b0, return_lse=True)
+    torch.testing.assert_close(out[:1].float(), want_out.float(), **K1_TOL)
+    torch.testing.assert_close(lse[:1], want_lse, **LSE_TOL)
+    assert_dqkv_close(dqkv[:1], A.attention_bwd_plain(qkv[:1], 2, g[:1], b0),
+                      128)
 
 
 def test_fused_frame_attention_autograd_runs_both_kernels(cuda):
@@ -594,6 +691,13 @@ def test_frame_attention_kernel_refuses_what_it_does_not_take(cuda):
         A.frame_attention_bwd(qkv, 2, g.float())
     with pytest.raises(ValueError, match="cpu"):
         A.frame_attention(qkv, 2, bias.cpu())
+    out, lse = A.frame_attention(qkv, 2, bias, return_lse=True)
+    with pytest.raises(ValueError, match="out must be"):
+        A.frame_attention_bwd(qkv, 2, g, bias, out=out.float(), lse=lse)
+    with pytest.raises(ValueError, match="lse has shape"):
+        A.frame_attention_bwd(qkv, 2, g, bias, out=out, lse=lse[:, :1])
+    with pytest.raises(ValueError, match="lse must be"):
+        A.frame_attention_bwd(qkv, 2, g, bias, out=out, lse=lse.double())
 
 
 @pytest.mark.parametrize("impl,policy,want", [

@@ -230,3 +230,134 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="Generator"):
         tstep.train_step(state, tstep.to_device(batches(noisy, [1])[0], "cpu"),
                          noisy, T_TOTAL)
+
+
+def test_similarity_kernels_follows_use_pallas():
+    m = make_config(tc).model
+    for use_pallas, kernels, want in (("auto", True, True), ("on", True, True),
+                                      ("off", True, False),
+                                      ("auto", False, False),
+                                      ("on", False, False)):
+        got = tm.similarity_kernels(dc.replace(m, use_pallas=use_pallas),
+                                    kernels)
+        assert got is want, (use_pallas, kernels)
+    with pytest.raises(ValueError, match="use_pallas"):
+        tm.similarity_kernels(dc.replace(m, use_pallas="yes"))
+
+
+@pytest.mark.parametrize("words,frames", [(8, 4), (64, 32)])
+@pytest.mark.parametrize("use_pallas", ["off", "auto"])
+def test_use_pallas_off_hands_the_plain_forms_to_every_similarity_call(
+        monkeypatch, words, frames, use_pallas):
+    """A spy on the model's similarity entry points through one train_step
+    on the flagship shape (bank centralities) and on a long-token shape
+    (T·V >= 2048: the blocked similarity and the bank matrices).  On the CPU
+    every call runs its plain version either way; what is checked is the
+    `kernels` each call is handed."""
+    import inspect
+    calls = []
+    for name in ("local_similarity", "bank_centrality"):
+        real = getattr(tm, name)
+        sig = inspect.signature(real)
+
+        def spy(*a, _real=real, _sig=sig, _name=name, **kw):
+            bound = _sig.bind(*a, **kw)
+            bound.apply_defaults()
+            calls.append((_name, bound.arguments["kernels"]))
+            return _real(*a, **kw)
+        monkeypatch.setattr(tm, name, spy)
+
+    cfg = make_config(tc)
+    m = dc.replace(tc.ModelConfig.tiny(max_words=words, max_frames=frames),
+                   cluster_noise=False, use_pallas=use_pallas)
+    cfg = dc.replace(cfg, model=m, data=dc.replace(
+        cfg.data, max_words=words, max_frames=frames))
+    model = W.init_model(m, 0)
+    cap = cfg.train.memory_bank_capacity
+    rng = np.random.default_rng(3)
+    bank = tmb.MemoryBank(
+        torch.arange(cap, dtype=torch.int32),
+        torch.as_tensor(rng.normal(size=(cap, words, m.width)),
+                        dtype=torch.float32),
+        torch.as_tensor(rng.normal(size=(cap, frames, m.width)),
+                        dtype=torch.float32),
+        torch.ones(cap, words), torch.ones(cap, frames))
+    state = tstep.create_train_state(model, bank)
+    batch = tstep.to_device(make_synthetic_batch(m, B, seed=4), "cpu")
+    _, met = tstep.train_step(state, batch, cfg, T_TOTAL)
+    assert np.isfinite(met["loss"].item())
+    long_tokens = words * frames >= 2048
+    bank_calls = ([("local_similarity", True)] * 2 if long_tokens
+                  else [("bank_centrality", True)] * 2)
+    want = [("local_similarity", long_tokens)] + bank_calls
+    if use_pallas == "off":
+        want = [(name, False) for name, _ in want]
+    assert calls == want
+
+
+def test_train_step_under_use_pallas_off_matches_jax():
+    """Two train steps from the same weights, random bank and batches with
+    use_pallas="off" in both packages (the JAX package's XLA forms, the
+    port's plain forms): loss terms to 1e-4 relative at each step, every
+    parameter tensor to 1e-4 absolute after the second (the schedule's
+    first update is zero)."""
+    jcfg, tcfg = make_config(jc), make_config(tc)
+    jcfg = dc.replace(jcfg, model=dc.replace(jcfg.model, use_pallas="off"))
+    tcfg = dc.replace(tcfg, model=dc.replace(tcfg.model, use_pallas="off"))
+    params = jm.init_params(jax.random.PRNGKey(2), jcfg.model)
+    model = W.from_jax_params(jax.device_get(params), tcfg.model)
+    m = jcfg.model
+    rng = np.random.default_rng(7)
+    cap = jcfg.train.memory_bank_capacity
+    rows = (np.arange(cap, dtype=np.int32),
+            rng.normal(size=(cap, m.max_words, m.width)).astype(np.float32),
+            rng.normal(size=(cap, m.max_frames, m.width)).astype(np.float32),
+            np.ones((cap, m.max_words), np.float32),
+            np.ones((cap, m.max_frames), np.float32))
+    steps = batches(jcfg, [40, 41])
+    jstate = jstep.create_train_state(
+        params, jmb.MemoryBank(*map(jnp.asarray, rows)))
+    tstate = tstep.create_train_state(
+        model, tmb.MemoryBank(*(torch.as_tensor(r.copy()) for r in rows)))
+    for i, b in enumerate(steps):
+        jstate, jmet = jstep.train_step(jstate, jax.tree.map(jnp.asarray, b),
+                                        jax.random.PRNGKey(i), jcfg, T_TOTAL)
+        tstate, tmet = tstep.train_step(tstate, tstep.to_device(b, "cpu"),
+                                        tcfg, T_TOTAL)
+        for k in LOSS_KEYS:
+            assert np.isfinite(tmet[k].item()), k
+            np.testing.assert_allclose(tmet[k].item(), float(jmet[k]),
+                                       rtol=1e-4, err_msg=k)
+    got = W.to_jax_params(tstate.model.state_dict(), tcfg.model)
+    flat_got = jax.tree_util.tree_flatten_with_path(got)[0]
+    flat_want = jax.tree_util.tree_flatten_with_path(
+        jax.device_get(jstate.params))[0]
+    assert len(flat_got) == len(flat_want)
+    for (pa, a), (pb, b) in zip(flat_got, flat_want):
+        assert pa == pb
+        assert np.isfinite(a).all(), pa
+        err = np.abs(a - np.asarray(b)).max()
+        assert err <= 1e-4, (jax.tree_util.keystr(pa), err)
+
+
+@pytest.mark.parametrize("words,frames", [(8, 4), (64, 32)])
+def test_sim_dtype_bfloat16_is_refused_on_every_train_path(words, frames):
+    """The port refuses sim_dtype="bfloat16" on the flagship and on the
+    long-token configuration, in the bank fill and in the step, before any
+    work: its similarity kernels and their plain versions multiply in
+    float32."""
+    cfg = make_config(tc)
+    m = dc.replace(tc.ModelConfig.tiny(max_words=words, max_frames=frames),
+                   cluster_noise=False, sim_dtype="bfloat16")
+    cfg = dc.replace(cfg, model=m, data=dc.replace(
+        cfg.data, max_words=words, max_frames=frames))
+    model = W.init_model(m, 0)
+    bank = tmb.create(cfg.train.memory_bank_capacity, words, frames, m.width)
+    batch = tstep.to_device(make_synthetic_batch(m, B, seed=1), "cpu")
+    with pytest.raises(NotImplementedError, match="sim_dtype"):
+        tstep.fill_bank_step(model, bank, batch, cfg, 0)
+    with pytest.raises(NotImplementedError, match="sim_dtype"):
+        tstep.train_step(tstep.create_train_state(model, bank), batch, cfg,
+                         T_TOTAL)
+    with pytest.raises(NotImplementedError, match="sim_dtype"):
+        tstep._check_supported(cfg)

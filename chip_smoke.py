@@ -16,7 +16,8 @@ Phases (each prints its own lines; any failure exits non-zero):
                process per source, all started together;
   3. K1      — the fused LN-attention sublayer against its plain version on
                the card at the serving path's, the train step's and the
-               long-token trainer's shapes (vision, text, temporal);
+               long-token trainer's shapes (vision, text, temporal), with
+               each shape's share of the bound;
   4. K2      — the similarity kernel against its plain version at
                Q=64, T=24, N=10,000, V=12, D=512;
   5. serving — indexes a 64-video synthetic corpus (one index batch) with
@@ -27,7 +28,8 @@ Phases (each prints its own lines; any failure exits non-zero):
                plain versions on the card;
   6. K3      — the sublayer's backward kernel against its plain backward at
                the train step's and the long-token trainer's shapes, every
-               output, run twice to show bit-equal results;
+               output, run twice to show bit-equal results, with each
+               shape's share of the bound;
   7. K4, K5  — the bank-centrality mean and the similarity backward against
                their plain versions at the train step's two shapes,
                (128, 24, 1920, 12, 512) over axis 1 and (1920, 24, 128, 12,
@@ -94,7 +96,8 @@ Phases (each prints its own lines; any failure exits non-zero):
                at that shape, the train step's vision shape (N=1536) and the
                text and temporal shapes with their biases, K11 twice;
                `nn.MultiheadAttention` timed beside them as the library's
-               yardstick (the port never calls it);
+               yardstick (the port never calls it), each shape's share of
+               the bound and kernel / library;
  15. augment — the device RandAugment: (a) on the card against the CPU on
                one structured batch of 8 x 12 x 224² with draws fixed so
                that each of the 16 ops fires; (b) its time and peak memory
@@ -373,7 +376,8 @@ def phase_k1(g):
         b_ms, b_by = bound(8 * M * D * D + 4 * N * L * L * D, PEAK_BF16,
                            nbytes(*args, bias, got))
         print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by})")
+              f"bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of the "
+              "bound")
         rows[name] = (err, ms, plain_ms, b_ms, b_by)
     return rows
 
@@ -566,7 +570,8 @@ def phase_k3(g):
         b_ms, b_by = bound(22 * M * D * D + 12 * N * L * L * D, PEAK_BF16,
                            nbytes(*args, bias, dy, *got))
         print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by})")
+              f"bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of the "
+              "bound")
         rows[name] = (err, ms, plain_ms, b_ms, b_by)
     return rows
 
@@ -1542,7 +1547,9 @@ def phase_k10_k11(g):
                            nbytes(h, *w, bias, y))
         print(f"  K10 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"nn.MultiheadAttention {lib_ms:.4f} ms (max |Δ| to the kernel "
-              f"{lib_err:.3g}), bound {b_ms:.4f} ms ({b_by})")
+              f"{lib_err:.3g}), bound {b_ms:.4f} ms ({b_by}), "
+              f"{100 * b_ms / ms:.1f}% of the bound, kernel / library "
+              f"{ms / lib_ms:.3f}")
         k10[name] = (err10, ms, plain_ms, b_ms, b_by, lib_ms)
         ms = time_ms(lambda: BA.attention_sublayer_bwd(h, *w, H, dy, bias), 10)
         plain_ms = time_ms(
@@ -1554,7 +1561,8 @@ def phase_k10_k11(g):
                            nbytes(h, *w, bias, dy, *got))
         print(f"  K11 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"nn.MultiheadAttention's backward {lib_ms:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by})")
+              f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of the bound, "
+              f"kernel / library {ms / lib_ms:.3f}")
         k11[name] = (err11, ms, plain_ms, b_ms, b_by, lib_ms)
         del lib, lib_out, lib_leaves, hl, got, y
     return check_counts, k10, k11

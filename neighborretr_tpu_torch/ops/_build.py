@@ -95,15 +95,17 @@ def load(*names: str) -> Sequence[ctypes.CDLL]:
         return [_libs[n] for n in names]
 
 
-def function(lib: str, name: str, argtypes) -> ctypes._CFuncPtr:
-    """C entry `name` of library `lib`, typed once: int return, `argtypes`
-    (ctypes.c_void_p for pointers and the stream, c_int/c_float for
-    scalars — untyped, ctypes would pass a pointer as a 32-bit int)."""
+def function(lib: str, name: str, argtypes,
+             restype=ctypes.c_int) -> ctypes._CFuncPtr:
+    """C entry `name` of library `lib`, typed once: `restype` (an int error
+    code unless said otherwise), `argtypes` (ctypes.c_void_p for pointers
+    and the stream, c_int/c_float for scalars — untyped, ctypes would pass
+    a pointer as a 32-bit int)."""
     key = (lib, name)
     if key not in _funcs:
         (cdll,) = load(lib)
         fn = getattr(cdll, name)
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         fn.argtypes = list(argtypes)
         _funcs[key] = fn
     return _funcs[key]

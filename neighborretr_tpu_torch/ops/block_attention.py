@@ -32,11 +32,21 @@ four TPU kernels no model path calls), has the same three forms:
 same CUDA sources with LayerNorm and residual compiled out.
 `fused_attention_sublayer` is its public, differentiable form with the JAX
 function's casts.
+
+The CUDA kernels run as stages over all N·L rows (csrc/sublayer.cuh): the
+LayerNorm rows, a GEMM with one of five epilogues, K8/K9's attention core
+(its backward also summing each sequence's dqkv columns in fp32 for
+db_qkv), the LayerNorm-backward rows.  Each stage has a plain version here
+(`sublayer_gemm_plain`, `attention_core_bwd_plain`, `ln_bwd_rows_plain`),
+the first two a wrapper that runs the stage alone for its tests
+(`sublayer_gemm`, `attention_core_bwd`); `sublayer_fwd_stages_plain` and
+`sublayer_bwd_stages_plain` compose them as the kernels do.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -144,14 +154,28 @@ def ln_attention_residual_bwd_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
 
 # the C entries' argument lists: K1/K3 take the LN parameters and eps,
 # K10/K11 neither
-_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
+_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float]
              + [ctypes.c_void_p])
-_K10_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float]
+_K10_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
                  + [ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 5
-                 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
-_K11_ARGTYPES = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 5 + [ctypes.c_float]
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 4
+                 + [ctypes.c_float] + [ctypes.c_void_p])
+_K11_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
                  + [ctypes.c_void_p])
+_GEMM_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_CORE_BWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+    ctypes.c_void_p]
+# the most rows the kernels' grids take (65535 tiles of 128 rows)
+MAX_ROWS = 65535 * 128
+
+
+@functools.lru_cache(maxsize=256)
+def _workspace(lib: str, N: int, L: int, D: int, H: int, ln: bool) -> int:
+    """Bytes of scratch one call of library `lib` (the forward's or the
+    backward's source) takes at this shape, as its C side carves it."""
+    fn = _build.function(lib, f"{lib}_workspace", [ctypes.c_int] * 5,
+                         restype=ctypes.c_size_t)
+    return fn(N, L, D, H, int(ln))
 
 
 def _check(name, t, dtype, shape, device):
@@ -181,6 +205,9 @@ def _check_cuda_args(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, n_head, bias):
     if D != 64 * n_head or L > 64:
         raise ValueError(f"attention-sublayer kernel takes head dim 64 and "
                          f"L <= 64; got D={D}, heads={n_head}, L={L}")
+    if N * L > MAX_ROWS:
+        raise ValueError(f"attention-sublayer kernel takes at most "
+                         f"{MAX_ROWS} rows; got N·L = {N * L}")
     dev = x.device
     f32, b16 = torch.float32, torch.bfloat16
     for name, t, dtype, shape in (
@@ -200,15 +227,17 @@ def _launch_fwd(entry: str, argtypes, x, ln, w_qkv, b_qkv, w_out, b_out,
     checked arguments; ln: (ln_w, ln_b), or None for K10."""
     N, L, D = x.shape
     P = _build.ptr
-    attn = torch.empty_like(x)               # scratch between the kernels
+    lib = "ln_attention_residual"
+    work = torch.empty(_workspace(lib, N, L, D, n_head, ln is not None),
+                       dtype=torch.uint8, device=x.device)
     y = torch.empty_like(x)
     ln_args = [P(ln[0]), P(ln[1])] if ln is not None else []
     eps = [LN_EPS] if ln is not None else []
-    fn = _build.function("ln_attention_residual", entry, argtypes)
+    fn = _build.function(lib, entry, argtypes)
     with torch.cuda.device(x.device):
         err = fn(P(x), None if bias is None else P(bias), *ln_args,
-                 P(w_qkv), P(b_qkv), P(w_out), P(b_out), P(attn), P(y),
-                 N, L, D, n_head, *eps, (D // n_head) ** -0.5, _build.stream())
+                 P(w_qkv), P(b_qkv), P(w_out), P(b_out), P(work), P(y),
+                 N, L, D, n_head, *eps, _build.stream())
     _build.check(err, entry)
     return y
 
@@ -241,38 +270,24 @@ def _launch_bwd(entry: str, argtypes, x, ln, w_qkv, b_qkv, w_out, n_head: int,
     N, L, D = x.shape
     dev = x.device
     _check("g", g, torch.bfloat16, (N, L, D), dev)
-    M = N * L
-    Mp = -(-M // 64) * 64
-    f32, b16 = torch.float32, torch.bfloat16
-
-    def empty(*shape, dtype=f32):
-        return torch.empty(shape, dtype=dtype, device=dev)
-
-    # plain copies: the "col" operands of dattn = g·W_o and dh = dqkv·W_qkv
-    w_qkv_t = w_qkv.t().contiguous()
-    w_out_t = w_out.t().contiguous()
-    dattn = empty(M, D, dtype=b16)
-    tbuf = empty(6 * D, Mp, dtype=b16)     # dqkv^T | h^T | attn_out^T | g^T
-    if Mp > M:
-        tbuf[:, M:].zero_()
-    dqkv = empty(M, 3 * D, dtype=b16)
-    dh = empty(M, D)
-    part_db = empty(N, 3 * D)
-    part_ln = empty(-(-M // 64), 3 * D)
-    part_w = empty(8, 3 * D, D)            # k-range copies of dW_qkv / dW_o
+    lib = "ln_attention_residual_bwd"
+    f32 = torch.float32
+    work = torch.empty(_workspace(lib, N, L, D, n_head, ln is not None),
+                       dtype=torch.uint8, device=dev)
     dx = torch.empty_like(x)
-    dln = empty(3, D)
-    dw_qkv, db_qkv, dw_out = empty(3 * D, D), empty(3 * D), empty(D, D)
+    dln = torch.empty((3, D), dtype=f32, device=dev)
+    dw_qkv = torch.empty((3 * D, D), dtype=f32, device=dev)
+    db_qkv = torch.empty(3 * D, dtype=f32, device=dev)
+    dw_out = torch.empty((D, D), dtype=f32, device=dev)
     P = _build.ptr
     ln_args = [P(ln[0]), P(ln[1])] if ln is not None else []
     eps = [LN_EPS] if ln is not None else []
-    fn = _build.function("ln_attention_residual_bwd", entry, argtypes)
+    fn = _build.function(lib, entry, argtypes)
     with torch.cuda.device(dev):
         err = fn(P(x), None if bias is None else P(bias), *ln_args,
-                 P(w_qkv), P(b_qkv), P(w_qkv_t), P(w_out_t), P(g), P(dattn),
-                 P(tbuf), P(dqkv), P(dh), P(part_db), P(part_ln), P(part_w),
-                 P(dx), P(dln), P(dw_qkv), P(db_qkv), P(dw_out), N, L, D,
-                 n_head, Mp, *eps, (D // n_head) ** -0.5, _build.stream())
+                 P(w_qkv), P(b_qkv), P(w_out), P(g), P(work), P(dx), P(dln),
+                 P(dw_qkv), P(db_qkv), P(dw_out), N, L, D, n_head, *eps,
+                 _build.stream())
     _build.check(err, entry)
     return dx, dln, dw_qkv, db_qkv, dw_out
 
@@ -362,6 +377,184 @@ def attention_sublayer_bwd(h, w_qkv, b_qkv, w_out, b_out, n_head: int, g,
 
 
 attention_sublayer_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The kernels' stages one by one (csrc/sublayer.cuh), each with its plain
+# version: what the tests hold the CUDA stages to, and, composed, what they
+# hold to the whole-function plain versions above and to the TPU kernels
+# ---------------------------------------------------------------------------
+
+# the sublayer's products by epilogue and operand orientation (C entry
+# sublayer_gemm's `kind`): a [R, K] or, MN-major, [K, R]; b [C, K] (torch's
+# weight layout) or [K, C]
+GEMM_KINDS = {
+    "bias": 0,             # a [R, K] · b [C, K]ᵀ + bias → bf16 (qkv; K10's y)
+    "bias_residual": 1,    # the same + res [R, C] in fp32 → bf16 (K1's y)
+    "bf16": 2,             # a [R, K] · b [K, C] → bf16 (dattn; K11's dh)
+    "fp32": 3,             # the same → fp32 (K3's dh)
+    "weight_grad": 4,      # a [K, R]ᵀ · b [K, C] → fp32, K split into ranges
+}
+
+
+def sublayer_gemm_plain(a, b, kind: str, bias=None, res=None,
+                        splits: int = 1) -> torch.Tensor:
+    """The GEMM stage's plain version: fp32 products of the operands'
+    values, the bias and residual added in fp32 in that order, rounded
+    once to bf16 (kinds "bias", "bias_residual", "bf16") or kept fp32.
+    "weight_grad" takes the K rows in `splits` ranges of a multiple of 64
+    rows each and adds the ranges' products in order, as the kernel adds its
+    fp32 copies."""
+    a32, b32 = a.float(), b.float()
+    if kind in ("bias", "bias_residual"):
+        y = a32 @ b32.T + bias.float()
+        if kind == "bias_residual":
+            y = y + res.float()
+        return y.to(torch.bfloat16)
+    if kind in ("bf16", "fp32"):
+        y = a32 @ b32
+        return y.to(torch.bfloat16) if kind == "bf16" else y
+    if kind != "weight_grad":
+        raise ValueError(f"unknown GEMM kind {kind!r}")
+    K = a.shape[0]
+    step = -(-K // (64 * splits)) * 64
+    y = None
+    for k0 in range(0, K, step):
+        part = a32[k0:k0 + step].T @ b32[k0:k0 + step]
+        y = part if y is None else y + part
+    return y
+
+
+def sublayer_gemm(a, b, kind: str, bias=None, res=None) -> torch.Tensor:
+    """The GEMM stage alone (csrc/ln_attention_residual.cu's sublayer_gemm):
+    a CPU tensor takes the plain version; on CUDA bf16 contiguous operands
+    with their widths multiples of 64, bias fp32 [C], res bf16 [R, C]."""
+    if not a.is_cuda:
+        return sublayer_gemm_plain(a, b, kind, bias, res)
+    code = GEMM_KINDS[kind]
+    R = a.shape[1] if kind == "weight_grad" else a.shape[0]
+    K = a.shape[0] if kind == "weight_grad" else a.shape[1]
+    C = b.shape[0] if kind in ("bias", "bias_residual") else b.shape[1]
+    for name, t in (("a", a), ("b", b), ("res", res)):
+        if t is not None:
+            _check(name, t, torch.bfloat16, t.shape, a.device)
+    if bias is not None:
+        _check("bias", bias, torch.float32, (C,), a.device)
+    out_dtype = torch.float32 if code >= 3 else torch.bfloat16
+    out = torch.empty((R, C), dtype=out_dtype, device=a.device)
+    # room for the kernel's at most 8 (MAX_SPLITS) range copies of C
+    part = (torch.empty((8, R, C), dtype=torch.float32, device=a.device)
+            if kind == "weight_grad" else None)
+    P = _build.ptr
+    fn = _build.function("ln_attention_residual", "sublayer_gemm",
+                         _GEMM_ARGTYPES)
+    with torch.cuda.device(a.device):
+        err = fn(P(a), P(b), P(out), None if bias is None else P(bias),
+                 None if res is None else P(res),
+                 None if part is None else P(part), R, C, K, code,
+                 _build.stream())
+    _build.check(err, "sublayer_gemm")
+    return out
+
+
+def attention_core_bwd_plain(qkv, n_head: int, g, bias=None):
+    """The attention-backward stage's plain version: qkv [N, L, 3D] and
+    g = dattn [N, L, D] in the operand dtype → (dqkv in that dtype, each
+    sequence's column sums of the unrounded dqkv [N, 3D] fp32: the summands
+    of db_qkv, which the TPU kernel sums before rounding)."""
+    dqkv = attention_core(qkv, n_head, bias, g)[1]
+    return dqkv.to(qkv.dtype), dqkv.sum(dim=1)
+
+
+def attention_core_bwd(qkv, n_head: int, g, bias=None):
+    """The attention-backward stage alone (K9's kernels with their column
+    sums, csrc/ln_attention_residual_bwd.cu's sublayer_core_bwd) on L <=
+    64; a CPU tensor takes the plain version.  The forward's out and lse it
+    takes come from K8 (one frame_attention launch)."""
+    if not qkv.is_cuda:
+        return attention_core_bwd_plain(qkv, n_head, g, bias)
+    from .attention import frame_attention
+    N, L, D3 = qkv.shape
+    D = D3 // 3
+    if L > 64:
+        raise ValueError(f"the sublayer's attention stage takes L <= 64; "
+                         f"got {L}")
+    out, lse = frame_attention(qkv, n_head, bias, return_lse=True)
+    f32 = torch.float32
+    stats = torch.empty((N, n_head, 3, L), dtype=f32, device=qkv.device)
+    dqkv = torch.empty_like(qkv)
+    part = torch.empty((N, 3 * D), dtype=f32, device=qkv.device)
+    P = _build.ptr
+    fn = _build.function("ln_attention_residual_bwd", "sublayer_core_bwd",
+                         _CORE_BWD_ARGTYPES)
+    with torch.cuda.device(qkv.device):
+        err = fn(P(qkv), None if bias is None else P(bias), P(g), P(out),
+                 P(lse), P(stats), P(dqkv), P(part), N, L, D, n_head,
+                 _build.stream())
+    _build.check(err, "sublayer_core_bwd")
+    return dqkv, part
+
+
+def ln_bwd_rows_plain(x, ln_w, dh, g):
+    """The LayerNorm-backward rows stage's plain version: x and g in the
+    operand dtype, dh fp32 → (dx in x's dtype; dln_w, dln_b, db_o fp32),
+    dx = g + the LayerNorm's backward of dh."""
+    D = x.shape[-1]
+    x32 = x.float()
+    xc = x32 - x32.mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + LN_EPS)
+    xhat = xc * rstd
+    gdh = dh * ln_w.float()
+    dx = g.float() + rstd * (gdh - gdh.mean(dim=-1, keepdim=True)
+                             - xhat * (gdh * xhat).mean(dim=-1, keepdim=True))
+    return (dx.to(x.dtype), (dh * xhat).reshape(-1, D).sum(dim=0),
+            dh.reshape(-1, D).sum(dim=0), g.float().reshape(-1, D).sum(dim=0))
+
+
+def sublayer_fwd_stages_plain(x, ln, w_qkv, b_qkv, w_out, b_out, n_head: int,
+                              bias=None) -> torch.Tensor:
+    """The forward kernels' stages composed, each through its plain
+    version: h16 = LN(x) (ln: (ln_w, ln_b), K1; None: K10, h = x), qkv,
+    the attention core, y (+ x) → y bf16."""
+    N, L, D = x.shape
+    h = x if ln is None else layer_norm(x.float(), *ln).to(x.dtype)
+    qkv = sublayer_gemm_plain(h.reshape(-1, D), w_qkv, "bias", b_qkv)
+    attn = attention_core(qkv.reshape(N, L, 3 * D), n_head, bias)[0]
+    y = sublayer_gemm_plain(attn.reshape(-1, D), w_out,
+                            "bias" if ln is None else "bias_residual", b_out,
+                            x.reshape(-1, D))
+    return y.reshape(N, L, D)
+
+
+def sublayer_bwd_stages_plain(x, ln, w_qkv, b_qkv, w_out, n_head: int, g,
+                              bias=None, splits: int = 1):
+    """The backward kernel's stages composed, each through its plain
+    version (ln as in `sublayer_fwd_stages_plain`) → (dx; dln_w, dln_b
+    (None for K11), dw_qkv, db_qkv, dw_out, db_out), the weight gradients
+    over `splits` ranges of rows, db_qkv the ordered sum of the per-sequence
+    column sums."""
+    N, L, D = x.shape
+    M = N * L
+    h = x if ln is None else layer_norm(x.float(), *ln).to(x.dtype)
+    h2, g2 = h.reshape(M, D), g.reshape(M, D)
+    qkv = sublayer_gemm_plain(h2, w_qkv, "bias", b_qkv).reshape(N, L, 3 * D)
+    attn = attention_core(qkv, n_head, bias)[0].to(x.dtype)
+    dattn = sublayer_gemm_plain(g2, w_out, "bf16")
+    dqkv, part_db = attention_core_bwd_plain(qkv, n_head,
+                                             dattn.reshape(N, L, D), bias)
+    dqkv = dqkv.reshape(M, 3 * D)
+    dh = sublayer_gemm_plain(dqkv, w_qkv, "fp32")
+    if ln is None:
+        dx, dln_w, dln_b = dh.to(x.dtype), None, None
+        db_out = g2.float().sum(dim=0)
+    else:
+        dx, dln_w, dln_b, db_out = ln_bwd_rows_plain(
+            x, ln[0], dh.reshape(N, L, D), g)
+    dw_qkv = sublayer_gemm_plain(dqkv, h2, "weight_grad", splits=splits)
+    dw_out = sublayer_gemm_plain(g2, attn.reshape(M, D), "weight_grad",
+                                 splits=splits)
+    return (dx.reshape(N, L, D), dln_w, dln_b, dw_qkv, part_db.sum(dim=0),
+            dw_out, db_out)
 
 
 class _Sublayer(torch.autograd.Function):

@@ -390,6 +390,123 @@ def test_sublayer_kernels_refuse_what_they_do_not_take(cuda):
         BA.attention_sublayer(h[:, :12].contiguous(), *w, 4)
 
 
+# ---------------------------------------------------------------------------
+# the sublayer kernels' stages (csrc/sublayer.cuh) and every L they take
+# ---------------------------------------------------------------------------
+
+# the GEMM stage's fp32 outputs: bf16 x bf16 products are exact in fp32, so
+# the kernel differs from the float64 product by its fp32 additions only.
+# A block adds its 16-row k-steps one after another into one accumulator
+# (up to ~1,200 of them for the weight gradients' 38,407 rows), whose
+# error grows like sqrt(K) fp32 ulps of the running sum: held to 8·sqrt(K)
+# ulps (2^-24) of the largest entry.  (cuBLAS sums in a tree and lands
+# closer: observed 4.2e-6 against the kernel's 1.2e-4 at K = 38,407, max
+# entry 5.08, on an H100.)
+GEMM32_ULPS = 8.0
+@pytest.mark.parametrize("M", [1, 50, 38400 + 7])
+@pytest.mark.parametrize("kind", list(BA.GEMM_KINDS))
+def test_sublayer_gemm_matches_plain(cuda, kind, M):
+    """Each epilogue and operand orientation at the vision width (D = 768):
+    one row, one sequence, and the train step's 38,400 rows plus a ragged
+    tile (M rows, or for the weight gradients M rows contracted)."""
+    rng = np.random.default_rng(M)
+    D = 768
+    K, C = {"bias": (D, 3 * D), "bias_residual": (D, D), "bf16": (D, D),
+            "fp32": (3 * D, D), "weight_grad": (3 * D, D)}[kind]
+
+    def t(shape, std=1.0, dtype=torch.bfloat16):
+        return torch.as_tensor((std * rng.standard_normal(shape)).astype(
+            np.float32), device=cuda).to(dtype)
+
+    if kind == "weight_grad":
+        a, b = t((M, K)), t((M, C), M ** -0.5)
+    else:
+        a = t((M, K))
+        b = t((C, K) if kind.startswith("bias") else (K, C), K ** -0.5)
+    bias = t(C, 0.1, torch.float32)
+    res = t((M, C))
+    got = BA.sublayer_gemm(a, b, kind, bias, res)
+    torch.cuda.synchronize()
+    want = BA.sublayer_gemm_plain(a, b, kind, bias, res)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if want.dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), **K1_TOL)
+    else:
+        a64, b64 = a.double(), b.double()
+        exact = a64.T @ b64 if kind == "weight_grad" else a64 @ b64
+        depth = a.shape[0] if kind == "weight_grad" else a.shape[1]
+        err = (got - exact).abs().max().item()
+        bound = GEMM32_ULPS * depth ** 0.5 * 2 ** -24 * exact.abs().max()
+        assert err <= bound.item(), (err, bound.item())
+    assert torch.equal(got, BA.sublayer_gemm(a, b, kind, bias, res))
+
+
+@pytest.mark.parametrize("L,bias_kind", [(1, None), (12, "keypad"),
+                                         (24, "causal"), (50, None),
+                                         (64, "causal")])
+def test_sublayer_core_bwd_matches_plain(cuda, L, bias_kind):
+    """The attention-backward stage: dqkv, and each sequence's fp32 column
+    sums of the unrounded dqkv (held like K3's sums: a one-ulp flip of a
+    bf16 dlogits moves single terms)."""
+    qkv, g, bias = qkv_inputs(L, 5, L, 2, bias_kind, cuda)
+    dqkv, part = BA.attention_core_bwd(qkv, 2, g, bias)
+    torch.cuda.synchronize()
+    want, want_part = BA.attention_core_bwd_plain(qkv, 2, g, bias)
+    assert_dqkv_close(dqkv, want, 128)
+    assert part.shape == want_part.shape == (5, 3 * 128)
+    err = (part - want_part).abs().max().item()
+    assert err <= K3_SUM_TOL * want_part.abs().max().item(), err
+    again = BA.attention_core_bwd(qkv, 2, g, bias)
+    assert torch.equal(dqkv, again[0]) and torch.equal(part, again[1])
+
+
+EVERY_L = [(5, L, kind) for L in (1, 12, 24, 50, 64)
+           for kind in (None, "causal")]
+
+
+@pytest.mark.parametrize("ln", [True, False])
+@pytest.mark.parametrize("N,L,bias_kind", EVERY_L)
+def test_sublayer_kernels_at_every_length(cuda, N, L, bias_kind, ln):
+    """K1/K3 (ln) and K10/K11 at every L they take, N·L ragged where L
+    allows, with and without a bias: forward and all outputs of the
+    backward against the plain versions, the backward twice bit-equal, and
+    one launch of the sublayer's wrapper each, none of K8's or K9's (the
+    core runs inside the sublayer's library)."""
+    D, H = 128, 2
+    args, bias = attn_inputs(7 * L + N, N, L, D, bias_kind, cuda)
+    rng = np.random.default_rng(L)
+    g = torch.as_tensor(rng.standard_normal((N, L, D)).astype(np.float32),
+                        device=cuda).bfloat16()
+    if ln:
+        fwd, bwd = BA.ln_attention_residual, BA.ln_attention_residual_bwd
+        fwd_p, bwd_p = (BA.ln_attention_residual_plain,
+                        BA.ln_attention_residual_bwd_plain)
+        names = ("dln_w", "dln_b", "dw_qkv", "db_qkv", "dw_out", "db_out")
+    else:
+        args = (args[0],) + args[3:]
+        fwd, bwd = BA.attention_sublayer, BA.attention_sublayer_bwd
+        fwd_p, bwd_p = BA.attention_sublayer_plain, \
+            BA.attention_sublayer_bwd_plain
+        names = ("dw_qkv", "db_qkv", "dw_out", "db_out")
+    counters = (fwd, bwd, A.frame_attention, A.frame_attention_bwd)
+    before = [c.launches for c in counters]
+    y = fwd(*args, H, bias)
+    got = bwd(*args, H, g, bias)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 0, 0]
+    torch.testing.assert_close(y.float(), fwd_p(*args, H, bias).float(),
+                               **K1_TOL)
+    want = bwd_p(*args, H, g, bias)
+    assert got[0].dtype == torch.bfloat16
+    torch.testing.assert_close(got[0].float(), want[0].float(), **K1_TOL)
+    for name, a, b in zip(names, got[1:], want[1:]):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        err = (a - b).abs().max().item()
+        assert err <= K3_SUM_TOL * b.abs().max().item(), (name, err)
+    again = bwd(*args, H, g, bias)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 def test_serving_path_runs_through_both_kernels(cuda):
     """Tiny towers in bf16 on the card: index + search through the kernels,
     held to the same path through the plain versions."""

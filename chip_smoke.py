@@ -33,7 +33,12 @@ Phases (each prints its own lines; any failure exits non-zero):
   7. K4, K5  — the bank-centrality mean and the similarity backward against
                their plain versions at the train step's two shapes,
                (128, 24, 1920, 12, 512) over axis 1 and (1920, 24, 128, 12,
-               512) over axis 0, with ragged masks; K5 run twice;
+               512) over axis 0, with ragged masks: K4 with and without
+               its residual stores (bit-equal), K5 from those residuals
+               against the plain routed backward, each side alone against
+               both (bit-equal), run twice; on exact logits the saved
+               routing against the plain first argmax; timed in the train
+               step's form (one side) and with both;
   8. train   — full-width model, batch 128, memory bank 15 x 128 = 1920:
                bank fill, then 3 optimizer steps on distinct batches through
                the kernels; checks launch counts, finite losses, that
@@ -48,10 +53,15 @@ Phases (each prints its own lines; any failure exits non-zero):
   9. K6, K7  — the blocked long-token similarity and its backward against
                their plain versions at (128, 64, 1920, 64, 512) and (1920,
                64, 128, 64, 512): real-valued features with ragged masks
-               and duplicated tokens through the wrapper, and inputs whose
-               logits are exact in fp32 for the elementwise check of all
-               four gradients; K7 run twice; the forward also timed at an
-               eval shape;
+               and duplicated tokens through the wrapper (both feature
+               sides, then the train step's one), K7 from K6's residuals
+               against the plain routed backward, each side alone against
+               both (bit-equal), run twice; inputs whose logits are exact
+               in fp32 for the saved routing against the plain first
+               argmax and the elementwise check of all four gradients; K6
+               timed with and without its residual stores, K7 in the train
+               step's form and with both sides; the forward also timed at
+               an eval shape;
  10. trainer — `neighborretr_tpu_torch.cli.train` at the reference's
                ActivityNet/DiDeMo recipe widths (64 words, 64 frames, batch
                128, bank 1920, 8 micro-batches, bf16, depth not cut) on
@@ -207,6 +217,9 @@ LONG_PLAIN_TOL = ((1e-2, 1e-2, 4e-2), (8e-2, 8e-2, 8e-2), 0.15)
 # moves the distance by ~4e-4 (observed on an H100: none, 4e-7..7e-7).  On
 # inputs with exact logits all four gradients are held elementwise.
 K7_REAL_REL_L2 = 1e-3
+# K5/K7 with one feature side asked for launch one of the two gathers: at
+# the train step's shapes a side takes 0.5-0.65 of the both-side time
+ONE_SIDE_SHARE = 0.85
 
 # NVIDIA's data sheet for the H100 SXM: dense bf16 tensor-core rate, fp32
 # rate outside the tensor cores, device memory rate
@@ -408,6 +421,18 @@ def phase_k2(g):
     b_ms, b_by = bound(2 * Q * T * N * V * D, PEAK_FP32, nbytes(*args, got))
     print(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"bound {b_ms:.4f} ms ({b_by})")
+    # under autograd the kernel also stores the backward's routing: the
+    # same S to the bit, timed on the prepared inputs both ways
+    from neighborretr_tpu_torch.ops import similarity as S
+    prep = S._prepare(*args, True)
+    if not torch.equal(S._similarity_fwd(*prep, save=True)[0],
+                       S._similarity_fwd(*prep)[0]):
+        raise SystemExit("K2: the forward with its residual stores differs "
+                         "from the one without")
+    bare_ms = time_ms(lambda: S._similarity_fwd(*prep), 10)
+    save_ms = time_ms(lambda: S._similarity_fwd(*prep, save=True), 10)
+    print(f"  on prepared inputs: {bare_ms:.4f} ms, with the residual stores "
+          f"(under autograd) {save_ms:.4f} ms, bit-equal")
     return err, ms, plain_ms, b_ms, b_by
 
 
@@ -576,14 +601,67 @@ def phase_k3(g):
     return rows
 
 
+def routed_bound(tw, vw, D, sides, *tensors):
+    """(ms, which, live share) of a backward from the routing, from the
+    tokens these inputs weight: a token of weight 0 (masked) adds exact
+    zeros and needs no work, so per feature side asked for 2·D FLOP for
+    each live token of each pair, 2·D·(B·ΣT_live + A·ΣV_live) (each routed
+    row multiplied by its coefficient and added; the weights' gradients,
+    D times fewer, left out); the bytes of its inputs and outputs.  The
+    live share is that count over the dense 2·A·B·(T+V)·D."""
+    (A, T), (B, V) = tw.shape, vw.shape
+    live = B * int((tw != 0).sum()) + A * int((vw != 0).sum())
+    return (*bound(2 * live * D * sides, PEAK_FP32, nbytes(*tensors)),
+            live / (A * B * (T + V)))
+
+
+def check_routed_bwd(tag, bwd, plain_bwd, prep, cot, res, need):
+    """One backward kernel from the forward's residuals against the plain
+    routed backward on the same residuals (elementwise), each side alone
+    against the both-side call's bits, two runs bit-equal → (worst error,
+    the outputs of the call in the train step's form)."""
+    names = ("dtn", "dvn", "dtw", "dvw")
+    both = bwd(*prep, cot, *res)
+    torch.cuda.synchronize()
+    want = plain_bwd(*prep, cot, *res)
+    err = max(compare(f"{tag} {n}", a, b, K2_TOL)
+              for n, a, b in zip(names, both, want))
+    text = bwd(*prep, cot, *res, need_v=False)
+    video = bwd(*prep, cot, *res, need_t=False)
+    if text[1] is not None or video[0] is not None:
+        raise SystemExit(f"{tag}: a side not asked for was computed")
+    if not (torch.equal(text[0], both[0]) and torch.equal(video[1], both[1])
+            and all(torch.equal(o[k], both[k]) for o in (text, video)
+                    for k in (2, 3))):
+        raise SystemExit(f"{tag}: a one-side call differs from the "
+                         "both-side call's bits")
+    again = bwd(*prep, cot, *res)
+    if not all(torch.equal(a, b) for a, b in zip(both, again)):
+        raise SystemExit(f"{tag}: two runs differ in their bits")
+    # a side not asked for is not computed: each one-side call takes well
+    # under the both-side call's time (one gather of two; device time)
+    ms = [time_ms(lambda: bwd(*prep, cot, *res, **side), 5)
+          for side in (dict(need_v=False), dict(need_t=False), {})]
+    if max(ms[:2]) > ONE_SIDE_SHARE * ms[2]:
+        raise SystemExit(f"{tag}: a one-side call takes {max(ms[:2]):.4f} "
+                         f"ms against both sides' {ms[2]:.4f}")
+    print(f"  {tag}: each side alone bit-equal to the both-side call; two "
+          f"runs bit-equal; text / video / both sides {ms[0]:.4f} / "
+          f"{ms[1]:.4f} / {ms[2]:.4f} ms")
+    return err, (text if need == "text" else video)
+
+
 def phase_k4_k5(g):
     print("== phase 7: K4 interaction_mean, K5 interaction_similarity_bwd vs "
           "their plain versions")
     from neighborretr_tpu_torch.ops import similarity as S
     dev = "cuda"
     k4, k5 = {}, {}
+    # the train step's two bank centralities: cent_t differentiates the
+    # captions (the bank's videos are detached), cent_v the videos
     for A, T, B, V, D, axis in ((128, 24, 1920, 12, 512, 1),
                                 (1920, 24, 128, 12, 512, 0)):
+        need = "text" if axis == 1 else "video"
         tf = torch.randn(A, T, D, generator=g, device=dev)
         vf = torch.randn(B, V, D, generator=g, device=dev)
         tlen = torch.randint(4, T + 1, (A,), generator=g, device=dev)
@@ -602,12 +680,27 @@ def phase_k4_k5(g):
         torch.cuda.synchronize()
         err = compare(f"K4 {tag}", got, S.interaction_mean(*args, axis=axis),
                       K2_TOL)
+        prep = S._prepare(*args, True)
+        saved, res = S._mean_fwd(*prep, axis, save=True)
+        torch.cuda.synchronize()
+        if not torch.equal(saved, got):
+            raise SystemExit("K4: the forward with its residual stores "
+                             "differs from the one without")
+        print(f"  K4 {tag}: with the residual stores (under autograd) "
+              "bit-equal to without")
         ms = time_ms(lambda: S.fused_interaction_mean(*args, axis=axis), 10)
+        bare_ms = time_ms(lambda: S._mean_fwd(*prep, axis), 10)
+        save_ms = time_ms(lambda: S._mean_fwd(*prep, axis, save=True), 10)
         plain_ms = time_ms(lambda: S.interaction_mean(*args, axis=axis), 5)
         b_ms, b_by = bound(flops, PEAK_FP32, nbytes(*args, got))
-        print(f"  K4 axis={axis}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
-              f" bound {b_ms:.4f} ms ({b_by})")
+        print(f"  K4 axis={axis}: kernel {ms:.4f} ms (wrapper), plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); on prepared "
+              f"inputs {bare_ms:.4f} ms, with the residual stores (under "
+              f"autograd) {save_ms:.4f} ms")
         k4[axis] = (err, ms, plain_ms, b_ms, b_by)
+        k4[f"{axis} saving"] = (err, save_ms, plain_ms,
+                                *bound(flops, PEAK_FP32,
+                                       nbytes(*args, got, *res)))
 
         # the cotangent the train step hands down: a mean's, spread over
         # the reduced axis
@@ -615,24 +708,46 @@ def phase_k4_k5(g):
         cot = torch.randn(A if axis == 1 else B, generator=g, device=dev)
         gmat = ((cot / n_red)[:, None] if axis == 1
                 else (cot / n_red)[None, :]).expand(A, B).contiguous()
-        prep = S._prepare(*args, True)
-        out = S.fused_similarity_bwd(*prep, gmat)
-        torch.cuda.synchronize()
-        want = S.similarity_bwd_plain(*prep, gmat)
-        err = max(compare(f"K5 {tag} {n}", a, b, K2_TOL)
-                  for n, a, b in zip(("dtn", "dvn", "dtw", "dvw"), out, want))
-        again = S.fused_similarity_bwd(*prep, gmat)
-        if not all(torch.equal(a, b) for a, b in zip(out, again)):
-            raise SystemExit("K5: two runs differ in their bits")
-        print(f"  K5 {tag}: two runs bit-equal in all 4 outputs")
-        ms = time_ms(lambda: S.fused_similarity_bwd(*prep, gmat), 10)
-        plain_ms = time_ms(lambda: S.similarity_bwd_plain(*prep, gmat), 3)
-        # logits once, then (T + V) routed rows per pair on each side
-        b_ms, b_by = bound(flops + 4 * A * B * (T + V) * D, PEAK_FP32,
-                           nbytes(*prep, gmat, *out))
-        print(f"  K5 axis={axis}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
-              f" bound {b_ms:.4f} ms ({b_by})")
+        err, out = check_routed_bwd(f"K5 {tag}", S.fused_similarity_bwd,
+                                    S.similarity_bwd_routed_plain, prep,
+                                    gmat, res, need)
+        # exact logits: the saved routing is the plain first argmax, ties
+        # included, and the backward the plain one with its own routing
+        ex = _blocked_inputs(g, A, T, B, V, D, exact=True)
+        _, ex_res = S._similarity_fwd(*ex, save=True)
+        _, want_res = S.similarity_routing_plain(*ex)
+        if not all(torch.equal(a[..., :n], b) for a, b, n in
+                   zip(ex_res, want_res, (T, T, V, V))):
+            raise SystemExit("K2/K4's saved routing differs from the plain "
+                             "first argmax")
+        print(f"  K5 {tag}: saved routing equal to the plain first argmax "
+              "(exact logits)")
+        err = max(err, *(compare(f"K5 {tag} {n} (exact logits)", a, b,
+                                 K2_TOL)
+                         for n, a, b in zip(
+                             ("dtn", "dvn", "dtw", "dvw"),
+                             S.fused_similarity_bwd(*ex, gmat, *ex_res),
+                             S.similarity_bwd_plain(*ex, gmat))))
+        del ex, ex_res, want_res
+        side = dict(need_t=need == "text", need_v=need == "video")
+        ms = time_ms(lambda: S.fused_similarity_bwd(*prep, gmat, *res,
+                                                    **side), 10)
+        both_ms = time_ms(lambda: S.fused_similarity_bwd(*prep, gmat, *res),
+                          10)
+        plain_ms = time_ms(lambda: S.similarity_bwd_routed_plain(
+            *prep, gmat, *res, **side), 3)
+        outs = [o for o in out if o is not None]
+        b_ms, b_by, live = routed_bound(prep[2], prep[3], D, 1, *prep, gmat,
+                                        *res, *outs)
+        both_b = routed_bound(prep[2], prep[3], D, 2, *prep, gmat, *res,
+                              *prep)[:2]
+        print(f"  K5 axis={axis} ({need} side, the train step's form): "
+              f"kernel {ms:.4f} ms, both sides {both_ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; live tokens "
+              f"{100 * live:.1f}% of the slots), {100 * b_ms / ms:.1f}% of "
+              f"the bound; both sides' bound {both_b[0]:.4f} ms")
         k5[axis] = (err, ms, plain_ms, b_ms, b_by)
+        k5[f"{axis} both sides"] = (err, both_ms, plain_ms, *both_b)
     return k4, k5
 
 
@@ -972,81 +1087,120 @@ def phase_k6_k7(g):
     from neighborretr_tpu_torch.ops import similarity_blocked as SB
     names = ("dtn", "dvn", "dtw", "dvw")
     k6, k7 = {}, {}
+    # the long step's two bank calls: text x bank videos differentiates the
+    # captions, bank texts x videos the videos
     for A, T, B, V, D in ((128, 64, 1920, 64, 512), (1920, 64, 128, 64, 512)):
+        need = "text" if A < B else "video"
         tag = f"A={A} T={T} B={B} V={V} D={D}"
         flops = 2 * A * T * B * V * D
 
         # through the wrapper, real-valued: forward, and the gradients of a
-        # cotangent of the neighbour loss's scale
+        # cotangent of the neighbour loss's scale, both feature sides and
+        # the train step's one
         args = _blocked_inputs(g, A, T, B, V, D, exact=False)
         cot = torch.randn(A, B, generator=g, device="cuda")
 
-        def grads(kernels):
-            leaves = [a.clone().requires_grad_(i in (0, 1, 4, 5))
+        def grads(kernels, sides):
+            leaves = [a.clone().requires_grad_(i in sides)
                       for i, a in enumerate(args)]
             out = SB.fused_interaction_similarity_blocked(*leaves,
                                                           kernels=kernels)
             out.backward(cot)
             return out.detach(), [leaves[i].grad for i in (0, 1, 4, 5)]
 
-        got, gk = grads(True)
-        torch.cuda.synchronize()
-        want, gp = grads(False)
-        err6 = compare(f"K6 {tag}", got, want, K2_TOL)
-        # the weights' gradients depend on the maxima only
-        err7 = max(compare(f"K7 {tag} {n} (real-valued)", a, b, K2_TOL)
-                   for n, a, b in zip(names[2:], gk[2:], gp[2:]))
-        # the features' gradients also on WHICH token attains each max: a
-        # runner-up within the two versions' rounding difference (~1e-8)
-        # routes otherwise and moves one row by 0.5·g·tw·|Δv|; held as a
-        # whole
-        for n, a, b in zip(names[:2], gk[:2], gp[:2]):
-            rel = ((a - b).norm() / b.norm()).item()
-            ok = bool(torch.isfinite(a).all()) and rel <= K7_REAL_REL_L2
-            print(f"  K7 {tag} d{n[1:]} of the features (real-valued): rel "
-                  f"L2 {rel:.3g} (tolerance {K7_REAL_REL_L2:g}) "
-                  f"{'ok' if ok else 'FAILED'}")
-            if not ok:
-                raise SystemExit(f"K7 {n} disagrees with its plain version")
-
-        # exact logits: all four gradients elementwise, twice for the bits
-        tn, vn, tw, vw = _blocked_inputs(g, A, T, B, V, D, exact=True)
-        out, m1, i1 = SB._blocked_fwd(tn, vn, tw, vw, save=True)
-        torch.cuda.synchronize()
-        err6 = max(err6, compare(
-            f"K6 {tag} (exact logits)", out,
-            SB.similarity_blocked_plain(tn, vn, tw, vw), K2_TOL))
-        res = SB.fused_blocked_similarity_bwd(tn, vn, tw, vw, cot, m1, i1)
-        torch.cuda.synchronize()
-        plain = SB.similarity_blocked_bwd_plain(tn, vn, tw, vw, cot)
-        err7 = max(err7, max(compare(f"K7 {tag} {n} (exact logits)", a, b,
-                                     K2_TOL)
-                             for n, a, b in zip(names, res, plain)))
-        again = SB.fused_blocked_similarity_bwd(tn, vn, tw, vw, cot, m1, i1)
-        if not all(torch.equal(a, b) for a, b in zip(res, again)):
-            raise SystemExit("K7: two runs differ in their bits")
-        print(f"  K7 {tag}: two runs bit-equal in all 4 outputs")
-        del plain, again
-
+        err6 = err7 = 0.0
+        for sides in ((0, 1, 4, 5), (0 if need == "text" else 1, 4, 5)):
+            got, gk = grads(True, sides)
+            torch.cuda.synchronize()
+            want, gp = grads(False, sides)
+            form = "both sides" if len(sides) == 4 else f"{need} side"
+            err6 = max(err6, compare(f"K6 {tag}", got, want, K2_TOL))
+            # the weights' gradients depend on the maxima only
+            err7 = max(err7, *(compare(
+                f"K7 {tag} {n} (real-valued, {form})", a, b, K2_TOL)
+                for n, a, b in zip(names[2:], gk[2:], gp[2:])))
+            # the features' gradients also on WHICH token attains each max:
+            # a runner-up within the two versions' rounding difference
+            # (~1e-8) routes otherwise and moves one row by 0.5·g·tw·|Δv|;
+            # held as a whole
+            for n, a, b in zip(names[:2], gk[:2], gp[:2]):
+                if b is None:
+                    if a is not None:
+                        raise SystemExit(f"K7 {n}: a gradient nobody asked "
+                                         "for")
+                    continue
+                rel = ((a - b).norm() / b.norm()).item()
+                ok = bool(torch.isfinite(a).all()) and rel <= K7_REAL_REL_L2
+                print(f"  K7 {tag} d{n[1:]} of the features (real-valued, "
+                      f"{form}): rel L2 {rel:.3g} (tolerance "
+                      f"{K7_REAL_REL_L2:g}) {'ok' if ok else 'FAILED'}")
+                if not ok:
+                    raise SystemExit(f"K7 {n} disagrees with its plain "
+                                     "version")
+        # the backward on the kernel forward's own residuals against the
+        # plain routed backward on the same ones
         prep = S._prepare(*args, False)
+        out, res = SB._blocked_fwd(*prep, save=True)
+        e, one = check_routed_bwd(f"K7 {tag}", SB.fused_blocked_similarity_bwd,
+                                  SB.similarity_blocked_bwd_routed_plain,
+                                  prep, cot, res, need)
+        err7 = max(err7, e)
+
+        # exact logits: the saved routing is the plain first argmax, ties
+        # included, and all four gradients the plain ones elementwise
+        ex = _blocked_inputs(g, A, T, B, V, D, exact=True)
+        ex_out, ex_res = SB._blocked_fwd(*ex, save=True)
+        torch.cuda.synchronize()
+        want_out, want_res = SB.similarity_blocked_routing_plain(*ex)
+        err6 = max(err6, compare(f"K6 {tag} (exact logits)", ex_out,
+                                 want_out, K2_TOL))
+        if not all(torch.equal(a[..., :n], b) for a, b, n in
+                   zip(ex_res, want_res, (T, T, V, V))):
+            raise SystemExit("K6's saved routing differs from the plain "
+                             "first argmax")
+        print(f"  K6 {tag}: saved routing equal to the plain first argmax "
+              "(exact logits)")
+        err7 = max(err7, *(compare(f"K7 {tag} {n} (exact logits)", a, b,
+                                   K2_TOL)
+                           for n, a, b in zip(
+                               names,
+                               SB.fused_blocked_similarity_bwd(*ex, cot,
+                                                               *ex_res),
+                               SB.similarity_blocked_bwd_routed_plain(
+                                   *ex, cot, *want_res))))
+        del ex, ex_res, want_res
+
+        nograd_ms = time_ms(lambda: SB._blocked_fwd(*prep, save=False), 10)
         ms = time_ms(lambda: SB._blocked_fwd(*prep, save=True), 10)
-        plain_ms = time_ms(lambda: SB.similarity_blocked_plain(*prep), 3)
-        b_ms, b_by = bound(flops, PEAK_FP32, nbytes(*prep, out, m1, i1))
-        print(f"  K6 {tag}: kernel {ms:.4f} ms (residuals saved), plain "
+        plain_ms = time_ms(lambda: SB.similarity_blocked_routing_plain(*prep),
+                           3)
+        b_ms, b_by = bound(flops, PEAK_FP32, nbytes(*prep, out, *res))
+        print(f"  K6 {tag}: kernel {ms:.4f} ms with the residual stores "
+              f"(under autograd), {nograd_ms:.4f} ms without, plain "
               f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
         k6[(A, B)] = (err6, ms, plain_ms, b_ms, b_by)
-        _, m1, i1 = SB._blocked_fwd(*prep, save=True)
-        ms = time_ms(lambda: SB.fused_blocked_similarity_bwd(*prep, cot, m1,
-                                                             i1), 10)
-        plain_ms = time_ms(lambda: SB.similarity_blocked_bwd_plain(*prep, cot),
-                           2)
-        # logits once, then (T + V) routed rows per pair on each side
-        b_ms, b_by = bound(flops + 4 * A * B * (T + V) * D, PEAK_FP32,
-                           nbytes(*prep, cot, m1, i1, *res))
-        print(f"  K7 {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by})")
+        k6[(A, B, "no grad")] = (err6, nograd_ms, plain_ms,
+                                 *bound(flops, PEAK_FP32, nbytes(*prep, out)))
+        side = dict(need_t=need == "text", need_v=need == "video")
+        ms = time_ms(lambda: SB.fused_blocked_similarity_bwd(
+            *prep, cot, *res, **side), 10)
+        both_ms = time_ms(lambda: SB.fused_blocked_similarity_bwd(
+            *prep, cot, *res), 10)
+        plain_ms = time_ms(lambda: SB.similarity_blocked_bwd_routed_plain(
+            *prep, cot, *res, **side), 2)
+        outs = [o for o in one if o is not None]
+        b_ms, b_by, live = routed_bound(prep[2], prep[3], D, 1, *prep, cot,
+                                        *res, *outs)
+        both_b = routed_bound(prep[2], prep[3], D, 2, *prep, cot, *res,
+                              *prep)[:2]
+        print(f"  K7 {tag} ({need} side, the train step's form): kernel "
+              f"{ms:.4f} ms, both sides {both_ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; live tokens "
+              f"{100 * live:.1f}% of the slots), {100 * b_ms / ms:.1f}% of "
+              f"the bound; both sides' bound {both_b[0]:.4f} ms")
         k7[(A, B)] = (err7, ms, plain_ms, b_ms, b_by)
-        del res, m1, i1, out
+        k7[(A, B, "both sides")] = (err7, both_ms, plain_ms, *both_b)
+        del res, out, one
 
     # the forward at an eval shape: 1,024 captions against 1,024 videos
     n = 1024
@@ -2138,24 +2292,26 @@ def main():
         kernel("interaction_mean", "interaction_similarity.cu",
                "pallas_similarity.py:455",
                paths("K4"), worst(k4, 1),
-               "A=128 T=24 B=1920 V=12 D=512 axis=1",
+               "A=128 T=24 B=1920 V=12 D=512 axis=1 (no grad)",
                ms_plain_bound_by_shape=by_shape(k4)),
         kernel("interaction_similarity_bwd", "interaction_similarity.cu",
                "pallas_similarity.py:336",
                paths("K5"), worst(k5, 1),
-               "A=128 T=24 B=1920 V=12 D=512 (the axis=1 centrality)",
+               "A=128 T=24 B=1920 V=12 D=512 (the axis=1 centrality's text "
+               "side from K4's residuals, the train step's form)",
                ms_plain_bound_by_shape=by_shape(k5)),
         kernel("interaction_similarity_blocked",
                "interaction_similarity_blocked.cu",
                "pallas_similarity_blocked.py:172",
                paths("K6"), worst(k6, (128, 1920)),
-               "A=128 T=64 B=1920 V=64 D=512, residuals saved",
+               "A=128 T=64 B=1920 V=64 D=512, with the residual stores",
                ms_plain_bound_by_shape=by_shape(k6)),
         kernel("interaction_similarity_blocked_bwd",
                "interaction_similarity_blocked.cu",
                "pallas_similarity_blocked.py:342",
                paths("K7"), worst(k7, (128, 1920)),
-               "A=128 T=64 B=1920 V=64 D=512",
+               "A=128 T=64 B=1920 V=64 D=512 (text side from K6's "
+               "residuals, the train step's form)",
                ms_plain_bound_by_shape=by_shape(k7)),
         kernel("frame_attention", "frame_attention.cu",
                "pallas_attention.py:290",

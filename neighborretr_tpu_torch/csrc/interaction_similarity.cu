@@ -44,22 +44,26 @@
 // written as one row of partials per block and summed in block order by
 // reduce_rows: no float atomics, so two runs give the same bits.
 //
+// Under autograd (template SAVE) the epilogue also writes the backward's
+// residuals beside S or the mean partials: per (query, video) the max over
+// v of each query token's logits and its FIRST index (m1, i1) and the max
+// over t of each video token's and its first index (m2, i2), in the
+// layouts of similarity_gather.cuh.  The maxima are the ones S is built
+// from (the same fmaxf chains; an index moves only where fmaxf changes the
+// running max), so S keeps its bits, and the routing is the forward's own.
+// Ties are the normal case: masked tokens are zero rows and their logits
+// are exactly 0.  Without grad the kernels are the ones without SAVE.
+//
 // interaction_similarity_bwd replaces _bwd_text_kernel and
-// _bwd_video_kernel (_similarity_bwd): from g [A, B] the gradients dtn, dtw,
-// dvn, dvw.  Each max sends its gradient to the FIRST index that attains
-// it; ties are the normal case, since masked tokens are zero rows and their
-// logits are exactly 0.  The TPU kernel recomputes the logits in both of
-// its grids and multiplies dense 0/1 indicator matrices on the MXU.  Here
-// the logits are recomputed once, in the forward's arithmetic order, and
-// the tile's epilogue writes only the reduced maxima and their first-index
-// arguments (m1, i1 over v: [A, T, B]; m2, i2 over t: [A, B, V]; 1/V and
-// 1/T of the logits).  Two gather kernels then own their outputs: a block
-// of bwd_text_kernel owns one caption's dtn slab and walks the videos, a
-// block of bwd_video_kernel owns one video's dvn slab and walks the
-// captions, each adding the (T + V) routed rows per pair in a fixed order
-// (similarity_gather.cuh, shared with the blocked long-token kernels).
-// What bounds it: the recompute, as the forward; the gathers by their
-// chains of index, row and shared-memory instructions.
+// _bwd_video_kernel (_similarity_bwd): from g [A, B] and those residuals
+// the gradients dtn, dtw, dvn, dvw, each only if asked for.  The TPU kernel
+// recomputes the logits in both of its grids and multiplies dense 0/1
+// indicator matrices on the MXU; here nothing is recomputed and each side
+// is one gather over partner tiles staged in shared memory
+// (similarity_gather.cuh, shared with the blocked long-token kernels),
+// plus the weight gradients' ordered sums over the maxima.  What bounds
+// it: the gathers' instructions per routed row, 2·D fp32 FLOP per live
+// (nonzero-weight) token of each pair, at most 2·A·B·(T+V)·D per side.
 
 #include "similarity_gather.cuh"
 
@@ -81,16 +85,21 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
 constexpr int STORE = 0;      // out [A, B] = S
 constexpr int MEAN_ROWS = 1;  // out [gridDim.y, A]: sums over the tile's videos
 constexpr int MEAN_COLS = 2;  // out [gridDim.x, B]: sums over the tile's queries
-constexpr int ARGMAX = 3;     // out = m1 [A, T, B], out2 = m2 [A, B, V] and
-                              // their first-index arguments i1, i2
 
-template <int VP, int MODE>
+// the backward's residuals, written under SAVE (similarity_gather.cuh)
+struct Routing {
+  float* m1;           // [A, B, T]
+  unsigned char* i1;   // [A, B, pad16(T)]
+  float* m2;           // [A, B, V]
+  unsigned char* i2;   // [A, B, pad16(V)]
+};
+
+template <int VP, int MODE, bool SAVE>
 __global__ void __launch_bounds__(384)
 similarity_kernel(const float* __restrict__ tn, const float* __restrict__ vn,
                   const float* __restrict__ tw, const float* __restrict__ vw,
-                  float* __restrict__ out, float* __restrict__ out2,
-                  unsigned char* __restrict__ i1, unsigned char* __restrict__ i2,
-                  int A, int B, int T, int V, int D, int RG, int QB) {
+                  float* __restrict__ out, Routing res, int A, int B, int T,
+                  int V, int D, int RG, int QB) {
   extern __shared__ __align__(16) float smem[];
   const int TP = RG * TPT;            // padded token rows per query
   const int VS = VP * DK + 4;         // per-video stride, 4 mod 32
@@ -164,118 +173,105 @@ similarity_kernel(const float* __restrict__ tn, const float* __restrict__ vn,
     __syncthreads();   // the next iteration's copies overwrite this stage
   }
 
-  // t2v over this row group's tokens; v2t partial maxima over them
+  // t2v over this row group's tokens; v2t partial maxima over them.  Under
+  // SAVE the first index of each running max: it moves only where fmaxf
+  // changes the max, so the maxima are the ones S is built from
   float s_t = 0.f, m2[VP];
-  int t2[VP];   // ARGMAX: first token of this row group that attains m2
+  unsigned t2[(VP + 3) / 4];   // SAVE: m2's first token, one byte each
 #pragma unroll
-  for (int j = 0; j < VP; ++j) {
-    m2[j] = -INFINITY;
-    t2[j] = 0;
-  }
+  for (int j = 0; j < VP; ++j) m2[j] = -INFINITY;
+#pragma unroll
+  for (int w = 0; w < (VP + 3) / 4; ++w) t2[w] = 0;
 #pragma unroll
   for (int i = 0; i < TPT; ++i) {
     const int t = rg * TPT + i;
     if (t >= T) continue;
-    if constexpr (MODE == ARGMAX) {
-      float m1 = acc[i][0];
-      int v1 = 0;
-#pragma unroll
-      for (int j = 1; j < VP; ++j)
-        if (j < V && acc[i][j] > m1) {   // strict: the first index wins
-          m1 = acc[i][j];
-          v1 = j;
-        }
-#pragma unroll
-      for (int j = 0; j < VP; ++j)
-        if (acc[i][j] > m2[j]) {
-          m2[j] = acc[i][j];
-          t2[j] = t;
-        }
-      if (a < A && b < B) {
-        const size_t o = ((size_t)a * T + t) * B + b;
-        out[o] = m1;
-        i1[o] = (unsigned char)v1;
-      }
-    } else {
-      float m1 = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < VP; ++j) {
-        if (j < V) m1 = fmaxf(m1, acc[i][j]);
-        m2[j] = fmaxf(m2[j], acc[i][j]);
-      }
-      if (a < A) s_t += tw[(size_t)a * T + t] * m1;
-    }
-  }
-  // per (query, row group, video): [s_t | m2...], and for ARGMAX [m2 | t2]
-  constexpr int SLOT = MODE == ARGMAX ? 2 * VP : VP + 1;
-  float* red = smem;  // [QB][RG][VIDS][SLOT], reusing the tiles
-  float* mine = red + ((qi * RG + rg) * VIDS + lane) * SLOT;
-  if constexpr (MODE == ARGMAX) {
+    float m1 = -INFINITY;
+    int v1 = 0;
 #pragma unroll
     for (int j = 0; j < VP; ++j) {
-      mine[j] = m2[j];
-      mine[VP + j] = __int_as_float(t2[j]);
+      if (j < V) {
+        const float nm = fmaxf(m1, acc[i][j]);
+        if (SAVE && nm != m1) v1 = j;
+        m1 = nm;
+      }
+      const float nm = fmaxf(m2[j], acc[i][j]);
+      if (SAVE && nm != m2[j])
+        t2[j / 4] = (t2[j / 4] & ~(0xffu << (8 * (j % 4)))) |
+                    ((unsigned)t << (8 * (j % 4)));
+      m2[j] = nm;
     }
-  } else {
-    mine[0] = s_t;
-#pragma unroll
-    for (int j = 0; j < VP; ++j) mine[1 + j] = m2[j];
+    if (a < A) s_t += tw[(size_t)a * T + t] * m1;
+    if (SAVE && a < A && b < B) {
+      const size_t pair = (size_t)a * B + b;
+      res.m1[pair * T + t] = m1;
+      res.i1[pair * pad16(T) + t] = (unsigned char)v1;
+    }
   }
+  // per (query, row group, video): [s_t | m2... | SAVE: t2 words]
+  constexpr int NW = SAVE ? (VP + 3) / 4 : 0;
+  constexpr int SLOT = VP + 1 + NW;
+  float* red = smem;  // [QB][RG][VIDS][SLOT], reusing the tiles
+  float* mine = red + ((qi * RG + rg) * VIDS + lane) * SLOT;
+  mine[0] = s_t;
+#pragma unroll
+  for (int j = 0; j < VP; ++j) mine[1 + j] = m2[j];
+#pragma unroll
+  for (int w = 0; w < NW; ++w) mine[1 + VP + w] = __uint_as_float(t2[w]);
   __syncthreads();
 
-  if constexpr (MODE == ARGMAX) {
-    if (rg == 0 && a < A && b < B) {
-      // row groups hold ascending token ranges: strict > keeps the first
+  float val = 0.f;   // S[a, b], or 0 outside the matrix
+  if (rg == 0 && a < A && b < B) {
+    float s = 0.f, mv[VP];
+    int tv[VP];
+#pragma unroll
+    for (int j = 0; j < VP; ++j) {
+      mv[j] = -INFINITY;
+      tv[j] = 0;
+    }
+    // row groups hold ascending token ranges: the first that raises the
+    // max holds its first index
+    for (int g = 0; g < RG; ++g) {
+      const float* r = red + ((qi * RG + g) * VIDS + lane) * SLOT;
+      s += r[0];
+#pragma unroll
       for (int j = 0; j < VP; ++j) {
-        if (j >= V) break;
-        float mv = -INFINITY;
-        int tv = 0;
-        for (int g = 0; g < RG; ++g) {
-          const float* r = red + ((qi * RG + g) * VIDS + lane) * SLOT;
-          if (r[j] > mv) {
-            mv = r[j];
-            tv = __float_as_int(r[VP + j]);
-          }
-        }
-        const size_t o = ((size_t)a * B + b) * V + j;
-        out2[o] = mv;
-        i2[o] = (unsigned char)tv;
+        const float nm = fmaxf(mv[j], r[1 + j]);
+        if (SAVE && nm != mv[j])
+          tv[j] = (__float_as_uint(r[1 + VP + j / 4]) >> (8 * (j % 4))) & 0xff;
+        mv[j] = nm;
       }
     }
-  } else {
-    float val = 0.f;   // S[a, b], or 0 outside the matrix
-    if (rg == 0 && a < A && b < B) {
-      float s = 0.f, mv[VP];
+    float s_v = 0.f;
 #pragma unroll
-      for (int j = 0; j < VP; ++j) mv[j] = -INFINITY;
-      for (int g = 0; g < RG; ++g) {
-        const float* r = red + ((qi * RG + g) * VIDS + lane) * SLOT;
-        s += r[0];
-#pragma unroll
-        for (int j = 0; j < VP; ++j) mv[j] = fmaxf(mv[j], r[1 + j]);
-      }
-      float s_v = 0.f;
+    for (int j = 0; j < VP; ++j)
+      if (j < V) s_v += vw[(size_t)b * V + j] * mv[j];
+    val = 0.5f * (s + s_v);
+    if constexpr (MODE == STORE) out[(size_t)a * B + b] = val;
+    if (SAVE) {
+      const size_t pair = (size_t)a * B + b;
 #pragma unroll
       for (int j = 0; j < VP; ++j)
-        if (j < V) s_v += vw[(size_t)b * V + j] * mv[j];
-      val = 0.5f * (s + s_v);
-      if constexpr (MODE == STORE) out[(size_t)a * B + b] = val;
+        if (j < V) {
+          res.m2[pair * V + j] = mv[j];
+          res.i2[pair * pad16(V) + j] = (unsigned char)tv[j];
+        }
     }
-    if constexpr (MODE == MEAN_ROWS) {
-      if (rg == 0) {                       // warp-uniform: one warp per query
-        const float r = warp_sum(val);
-        if (lane == 0 && a < A) out[(size_t)blockIdx.y * A + a] = r;
-      }
+  }
+  if constexpr (MODE == MEAN_ROWS) {
+    if (rg == 0) {                       // warp-uniform: one warp per query
+      const float r = warp_sum(val);
+      if (lane == 0 && a < A) out[(size_t)blockIdx.y * A + a] = r;
     }
-    if constexpr (MODE == MEAN_COLS) {
-      __syncthreads();                     // every read of red is done
-      if (rg == 0) smem[qi * VIDS + lane] = val;
-      __syncthreads();
-      if (warp == 0 && b < B) {
-        float r = 0.f;
-        for (int q = 0; q < QB; ++q) r += smem[q * VIDS + lane];
-        out[(size_t)blockIdx.x * B + b] = r;
-      }
+  }
+  if constexpr (MODE == MEAN_COLS) {
+    __syncthreads();                     // every read of red is done
+    if (rg == 0) smem[qi * VIDS + lane] = val;
+    __syncthreads();
+    if (warp == 0 && b < B) {
+      float r = 0.f;
+      for (int q = 0; q < QB; ++q) r += smem[q * VIDS + lane];
+      out[(size_t)blockIdx.x * B + b] = r;
     }
   }
 }
@@ -287,57 +283,76 @@ __host__ __device__ inline int tile_queries(int T) {
   return RG < 8 ? 8 / RG : 1;
 }
 
-template <int VP, int MODE>
+template <int VP, int MODE, bool SAVE>
 cudaError_t launch(const float* tn, const float* vn, const float* tw,
-                   const float* vw, float* out, float* out2, unsigned char* i1,
-                   unsigned char* i2, int A, int B, int T, int V, int D,
-                   cudaStream_t stream) {
+                   const float* vw, float* out, const Routing& res, int A,
+                   int B, int T, int V, int D, cudaStream_t stream) {
   const int RG = row_groups(T);
   const int QB = tile_queries(T);
-  constexpr int SLOT = MODE == ARGMAX ? 2 * VP : VP + 1;
+  constexpr int SLOT = VP + 1 + (SAVE ? (VP + 3) / 4 : 0);
   const size_t stage =
       (size_t)QB * RG * TPT * DK + (size_t)VIDS * (VP * DK + 4);
   const size_t red = (size_t)QB * RG * VIDS * SLOT;
   const size_t smem = sizeof(float) * (2 * stage > red ? 2 * stage : red);
-  auto kern = similarity_kernel<VP, MODE>;
+  auto kern = similarity_kernel<VP, MODE, SAVE>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((A + QB - 1) / QB, (B + VIDS - 1) / VIDS);
-  kern<<<grid, QB * RG * 32, smem, stream>>>(tn, vn, tw, vw, out, out2, i1, i2,
-                                             A, B, T, V, D, RG, QB);
+  kern<<<grid, QB * RG * 32, smem, stream>>>(tn, vn, tw, vw, out, res, A, B,
+                                             T, V, D, RG, QB);
   return cudaGetLastError();
 }
 
+template <int MODE, bool SAVE>
+cudaError_t launch_vp(const float* tn, const float* vn, const float* tw,
+                      const float* vw, float* out, const Routing& r, int A,
+                      int B, int T, int V, int D, cudaStream_t s) {
+  switch ((V + 3) / 4) {
+    case 1: return launch<4, MODE, SAVE>(tn, vn, tw, vw, out, r, A, B, T, V, D, s);
+    case 2: return launch<8, MODE, SAVE>(tn, vn, tw, vw, out, r, A, B, T, V, D, s);
+    case 3: return launch<12, MODE, SAVE>(tn, vn, tw, vw, out, r, A, B, T, V, D, s);
+    default: return launch<16, MODE, SAVE>(tn, vn, tw, vw, out, r, A, B, T, V, D, s);
+  }
+}
+
+// the kernel with the residual stores when res.m1 is set, without otherwise
 template <int MODE>
 cudaError_t launch_v(const float* tn, const float* vn, const float* tw,
-                     const float* vw, float* out, float* out2,
-                     unsigned char* i1, unsigned char* i2, int A, int B, int T,
-                     int V, int D, cudaStream_t s) {
-  switch ((V + 3) / 4) {
-    case 1: return launch<4, MODE>(tn, vn, tw, vw, out, out2, i1, i2, A, B, T, V, D, s);
-    case 2: return launch<8, MODE>(tn, vn, tw, vw, out, out2, i1, i2, A, B, T, V, D, s);
-    case 3: return launch<12, MODE>(tn, vn, tw, vw, out, out2, i1, i2, A, B, T, V, D, s);
-    default: return launch<16, MODE>(tn, vn, tw, vw, out, out2, i1, i2, A, B, T, V, D, s);
-  }
+                     const float* vw, float* out, const Routing& r, int A,
+                     int B, int T, int V, int D, cudaStream_t s) {
+  return r.m1 != nullptr
+             ? launch_vp<MODE, true>(tn, vn, tw, vw, out, r, A, B, T, V, D, s)
+             : launch_vp<MODE, false>(tn, vn, tw, vw, out, r, A, B, T, V, D, s);
 }
 
 inline bool bad_shape(int A, int B, int T, int V, int D) {
   return T < 1 || T > 64 || V < 1 || V > 16 || D % DK != 0 || A < 1 || B < 1;
 }
 
+inline bool bad_routing(const Routing& r) {
+  const bool none = !r.m1 && !r.i1 && !r.m2 && !r.i2;
+  return !none && !(r.m1 && r.i1 && r.m2 && r.i2);
+}
+
 }  // namespace
 
 // tn [A, T, D], vn [B, V, D], tw [A, T], vw [B, V], out [A, B]; all fp32,
-// contiguous, 16-byte aligned.  Requires T <= 64, V <= 16, D % 32 == 0
-// (the wrapper checks).
+// contiguous, 16-byte aligned.  m1 [A, B, T] and m2 [A, B, V] (fp32),
+// i1 [A, B, pad16(T)] and i2 [A, B, pad16(V)] (bytes) are the backward's
+// residuals: pass all four, or null for all when no gradient will be asked
+// for.  Requires T <= 64, V <= 16, D % 32 == 0 (the wrapper checks).
 extern "C" int interaction_similarity_fwd(const float* tn, const float* vn,
                                           const float* tw, const float* vw,
-                                          float* out, int A, int B, int T,
-                                          int V, int D, void* stream) {
-  if (bad_shape(A, B, T, V, D)) return (int)cudaErrorInvalidValue;
-  return (int)launch_v<STORE>(tn, vn, tw, vw, out, nullptr, nullptr, nullptr,
-                              A, B, T, V, D, (cudaStream_t)stream);
+                                          float* out, float* m1,
+                                          unsigned char* i1, float* m2,
+                                          unsigned char* i2, int A, int B,
+                                          int T, int V, int D, void* stream) {
+  const Routing r{m1, i1, m2, i2};
+  if (bad_shape(A, B, T, V, D) || bad_routing(r))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_v<STORE>(tn, vn, tw, vw, out, r, A, B, T, V, D,
+                              (cudaStream_t)stream);
 }
 
 // The number of per-block partial rows interaction_mean_fwd writes for
@@ -348,49 +363,48 @@ extern "C" int interaction_mean_partial_rows(int A, int B, int T, int axis) {
   return axis == 1 ? (B + VIDS - 1) / VIDS : (A + QB - 1) / QB;
 }
 
-// Inputs as above; out [A] = mean of S over axis 1, or out [B] = mean over
-// axis 0; part is scratch (see interaction_mean_partial_rows).
+// Inputs and residuals as above; out [A] = mean of S over axis 1, or
+// out [B] = mean over axis 0; part is scratch (see
+// interaction_mean_partial_rows).
 extern "C" int interaction_mean_fwd(const float* tn, const float* vn,
                                     const float* tw, const float* vw,
-                                    float* part, float* out, int A, int B,
-                                    int T, int V, int D, int axis,
-                                    void* stream) {
-  if (bad_shape(A, B, T, V, D) || (axis != 0 && axis != 1))
+                                    float* part, float* out, float* m1,
+                                    unsigned char* i1, float* m2,
+                                    unsigned char* i2, int A, int B, int T,
+                                    int V, int D, int axis, void* stream) {
+  const Routing r{m1, i1, m2, i2};
+  if (bad_shape(A, B, T, V, D) || bad_routing(r) || (axis != 0 && axis != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int rows = interaction_mean_partial_rows(A, B, T, axis);
   cudaError_t err =
-      axis == 1 ? launch_v<MEAN_ROWS>(tn, vn, tw, vw, part, nullptr, nullptr,
-                                      nullptr, A, B, T, V, D, s)
-                : launch_v<MEAN_COLS>(tn, vn, tw, vw, part, nullptr, nullptr,
-                                      nullptr, A, B, T, V, D, s);
+      axis == 1
+          ? launch_v<MEAN_ROWS>(tn, vn, tw, vw, part, r, A, B, T, V, D, s)
+          : launch_v<MEAN_COLS>(tn, vn, tw, vw, part, r, A, B, T, V, D, s);
   if (err != cudaSuccess) return (int)err;
   return (int)(axis == 1 ? reduce_rows(part, out, rows, A, (float)B, s)
                          : reduce_rows(part, out, rows, B, (float)A, s));
 }
 
 // Floats of scratch interaction_similarity_bwd needs for the partial sums
-// of its gather kernels at these sizes (0 when neither walk is split).
-extern "C" int interaction_similarity_bwd_scratch(int A, int B, int T, int V,
-                                                  int D) {
-  return gather_scratch(A, B, T, V, D);
+// of split walks, for the outputs in `need` (1 dtn, 2 dvn, 4 dtw, 8 dvw).
+extern "C" long long interaction_similarity_bwd_scratch(int A, int B, int T,
+                                                        int V, int D,
+                                                        int need) {
+  return (long long)routed_scratch(A, B, T, V, D, need);
 }
 
-// Inputs as above plus g [A, B].  Scratch: m1 [A, T, B], m2 [A, B, V] fp32,
-// i1 [A, T, B], i2 [A, B, V] bytes, part (interaction_similarity_bwd_scratch
-// floats, unused when that is 0).  Out: dtn [A, T, D], dtw [A, T],
-// dvn [B, V, D], dvw [B, V] fp32.
+// Inputs as above plus g [A, B] and the forward's residuals.  Out: dtn
+// [A, T, D], dtw [A, T], dvn [B, V, D], dvw [B, V] fp32, each written when
+// its pointer is not null; part holds interaction_similarity_bwd_scratch
+// floats for the same outputs.
 extern "C" int interaction_similarity_bwd(
     const float* tn, const float* vn, const float* tw, const float* vw,
-    const float* g, float* m1, float* m2, unsigned char* i1, unsigned char* i2,
-    float* part, float* dtn, float* dtw, float* dvn, float* dvw, int A, int B,
-    int T, int V, int D, void* stream) {
+    const float* g, const float* m1, const unsigned char* i1, const float* m2,
+    const unsigned char* i2, float* part, float* dtn, float* dtw, float* dvn,
+    float* dvw, int A, int B, int T, int V, int D, void* stream) {
   if (bad_shape(A, B, T, V, D)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err =
-      launch_v<ARGMAX>(tn, vn, tw, vw, m1, m2, i1, i2, A, B, T, V, D, s);
-  if (err != cudaSuccess) return (int)err;
-  // m1/i1 are [A, T, B] here: token stride B, video stride 1
-  return (int)gather_backward(tn, vn, tw, vw, g, m1, m2, i1, i2, part, dtn,
-                              dtw, dvn, dvw, A, B, T, V, D, B, 1, s);
+  return (int)routed_backward(tn, vn, tw, vw, g, m1, i1, m2, i2, part, dtn,
+                              dtw, dvn, dvw, A, B, T, V, D,
+                              (cudaStream_t)stream);
 }

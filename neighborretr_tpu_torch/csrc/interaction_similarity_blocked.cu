@@ -35,22 +35,25 @@
 // tile then goes to shared memory once and three short passes reduce it:
 // per (row, video) the max over v with its first index (m1, i1), per
 // (caption, column) the max over t with its first index (m2, i2), per pair
-// the two weighted sums.  The forward writes S, and under autograd m1/i1
-// ([A, B, T]: what the backward's text side routes by, fp32 + one byte);
-// the backward's call writes m2/i2 ([A, B, V]) only.  The [A, T, B, V]
-// logits never reach device memory.
+// the two weighted sums.  The forward writes S, and under autograd the
+// backward's residuals: m1/i1 (the max over v per text token and its first
+// index) and m2/i2 (the max over t per video token and its first index),
+// fp32 + one byte, in the layouts of similarity_gather.cuh.  The
+// [A, T, B, V] logits never reach device memory.
 //
-// interaction_similarity_blocked_bwd: the recompute above, then the two
-// gather kernels of similarity_gather.cuh, which own a caption's / a
-// video's gradient slab and add the (T + V) routed rows per pair in a fixed
-// order: no float atomics, two runs give the same bits.  That is 1/32 of
-// the TPU kernel's dense indicator products at T = V = 64.
+// interaction_similarity_blocked_bwd: no recompute; from those residuals
+// the gathers of similarity_gather.cuh, one per side autograd asks for,
+// over partner tiles staged in shared memory, each adding the (T + V)
+// routed rows per pair in a fixed order: no float atomics, two runs give
+// the same bits.  That is 1/32 of the TPU kernel's dense indicator
+// products at T = V = 64.
 //
-// What bounds it on an H100: fp32 FMAs outside the tensor cores,
-// 2·A·T·B·V·D = 1.03 TFLOP at (128, 64, 1920, 64, 512), 15.4 ms at 67
-// TFLOP/s; the gathers by their index -> row -> shared-memory chains.  Left
-// for later PRs: TF32x3 or bf16 tensor-core products (wgmma), TMA loads,
-// cp.async in place of the register staging.
+// What bounds it on an H100: the forward by fp32 FMAs outside the tensor
+// cores, 2·A·T·B·V·D = 1.03 TFLOP at (128, 64, 1920, 64, 512), 15.4 ms at
+// 67 TFLOP/s; the backward by the gathers' instructions per routed row,
+// 2·D FLOP per live (nonzero-weight) token of each pair, at most
+// 2·A·B·(T+V)·D per side.  Left for later PRs: TF32x3 or bf16
+// tensor-core products (wgmma) and TMA loads in the forward.
 
 #include "similarity_gather.cuh"
 
@@ -74,7 +77,7 @@ inline int pad_pow2(int n) {
 constexpr size_t TILE_SMEM =
     sizeof(float) * (BM * LDC + BM * MAXC + MAXC * BN);
 
-// out [A, B] or null; m1/i1 [A, B, T] or null; m2/i2 [A, B, V] or null.
+// out [A, B]; the residuals m1/i1 and m2/i2 or null (similarity_gather.cuh).
 __global__ void __launch_bounds__(NT, 2)
 blocked_tile_kernel(const float* __restrict__ tn, const float* __restrict__ vn,
                     const float* __restrict__ tw, const float* __restrict__ vw,
@@ -204,9 +207,9 @@ blocked_tile_kernel(const float* __restrict__ tn, const float* __restrict__ vn,
         }
         p = tw[(size_t)a * T + t] * m;
         if (m1 != nullptr) {
-          const size_t o = ((size_t)a * B + b) * T + t;
-          m1[o] = m;
-          i1[o] = (unsigned char)iv;
+          const size_t pair = (size_t)a * B + b;
+          m1[pair * T + t] = m;
+          i1[pair * pad16(T) + t] = (unsigned char)iv;
         }
       }
       P1[r * CB + j] = p;
@@ -230,9 +233,9 @@ blocked_tile_kernel(const float* __restrict__ tn, const float* __restrict__ vn,
       }
       p = vw[(size_t)b * V + v] * m;
       if (m2 != nullptr) {
-        const size_t o = ((size_t)a * B + b) * V + v;
-        m2[o] = m;
-        i2[o] = (unsigned char)it;
+        const size_t pair = (size_t)a * B + b;
+        m2[pair * V + v] = m;
+        i2[pair * pad16(V) + v] = (unsigned char)it;
       }
     }
     P2[i * BN + c] = p;
@@ -279,42 +282,40 @@ cudaError_t launch_tile(const float* tn, const float* vn, const float* tw,
 }  // namespace
 
 // tn [A, T, D], vn [B, V, D], tw [A, T], vw [B, V], out [A, B]; all fp32,
-// contiguous, 16-byte aligned.  m1 (fp32) and i1 (bytes), both [A, B, T],
-// are the backward's residuals: the max over v and its first index; pass
-// null for both when no gradient will be asked for.  Requires T, V <= 64
-// and D % 16 == 0 (the wrapper checks).
+// contiguous, 16-byte aligned.  m1 [A, B, T] and m2 [A, B, V] (fp32),
+// i1 [A, B, pad16(T)] and i2 [A, B, pad16(V)] (bytes) are the backward's
+// residuals: pass all four, or null for all when no gradient will be asked
+// for.  Requires T, V <= 64 and D % 16 == 0 (the wrapper checks).
 extern "C" int interaction_similarity_blocked_fwd(
     const float* tn, const float* vn, const float* tw, const float* vw,
-    float* out, float* m1, unsigned char* i1, int A, int B, int T, int V,
-    int D, void* stream) {
-  if (bad_shape(A, B, T, V, D) || (m1 == nullptr) != (i1 == nullptr))
+    float* out, float* m1, unsigned char* i1, float* m2, unsigned char* i2,
+    int A, int B, int T, int V, int D, void* stream) {
+  const bool none = !m1 && !i1 && !m2 && !i2;
+  if (bad_shape(A, B, T, V, D) || !(none || (m1 && i1 && m2 && i2)))
     return (int)cudaErrorInvalidValue;
-  return (int)launch_tile(tn, vn, tw, vw, out, m1, i1, nullptr, nullptr, A, B,
-                          T, V, D, (cudaStream_t)stream);
+  return (int)launch_tile(tn, vn, tw, vw, out, m1, i1, m2, i2, A, B, T, V, D,
+                          (cudaStream_t)stream);
 }
 
 // Floats of scratch interaction_similarity_blocked_bwd needs for the
-// partial sums of its gather kernels (0 when neither walk is split).
-extern "C" int interaction_similarity_blocked_bwd_scratch(int A, int B, int T,
-                                                          int V, int D) {
-  return gather_scratch(A, B, T, V, D);
+// partial sums of split walks, for the outputs in `need` (1 dtn, 2 dvn,
+// 4 dtw, 8 dvw).
+extern "C" long long interaction_similarity_blocked_bwd_scratch(
+    int A, int B, int T, int V, int D, int need) {
+  return (long long)routed_scratch(A, B, T, V, D, need);
 }
 
-// Inputs as the forward's plus g [A, B] and the forward's residuals m1, i1
-// [A, B, T].  Scratch: m2 [A, B, V] fp32, i2 [A, B, V] bytes, part
-// (interaction_similarity_blocked_bwd_scratch floats, unused when that is
-// 0).  Out: dtn [A, T, D], dtw [A, T], dvn [B, V, D], dvw [B, V] fp32.
+// Inputs as the forward's plus g [A, B] and the forward's residuals.  Out:
+// dtn [A, T, D], dtw [A, T], dvn [B, V, D], dvw [B, V] fp32, each written
+// when its pointer is not null; part holds
+// interaction_similarity_blocked_bwd_scratch floats for the same outputs.
 extern "C" int interaction_similarity_blocked_bwd(
     const float* tn, const float* vn, const float* tw, const float* vw,
-    const float* g, const float* m1, const unsigned char* i1, float* m2,
-    unsigned char* i2, float* part, float* dtn, float* dtw, float* dvn,
+    const float* g, const float* m1, const unsigned char* i1, const float* m2,
+    const unsigned char* i2, float* part, float* dtn, float* dtw, float* dvn,
     float* dvw, int A, int B, int T, int V, int D, void* stream) {
   if (bad_shape(A, B, T, V, D)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = launch_tile(tn, vn, tw, vw, nullptr, nullptr, nullptr, m2,
-                                i2, A, B, T, V, D, s);
-  if (err != cudaSuccess) return (int)err;
-  // m1/i1 are [A, B, T] here: token stride 1, video stride T
-  return (int)gather_backward(tn, vn, tw, vw, g, m1, m2, i1, i2, part, dtn,
-                              dtw, dvn, dvw, A, B, T, V, D, 1, T, s);
+  return (int)routed_backward(tn, vn, tw, vw, g, m1, i1, m2, i2, part, dtn,
+                              dtw, dvn, dvw, A, B, T, V, D,
+                              (cudaStream_t)stream);
 }

@@ -1,32 +1,56 @@
-// Backward gathers of the token-interaction similarity, shared by
-// interaction_similarity.cu (T <= 64, V <= 16) and
-// interaction_similarity_blocked.cu (T, V <= 64).
+// Backward of the token-interaction similarity from the forward's saved
+// routing, shared by interaction_similarity.cu (K5: T <= 64, V <= 16) and
+// interaction_similarity_blocked.cu (K7: T, V <= 64).
 //
-// Given the reduced maxima of the logits and their first-index arguments
-// (m1, i1 over v per (caption, token, video); m2, i2 over t per (caption,
-// video, video token)) the gradients are sums of routed rows:
+// The forward saves, per (caption a, video b), the reduced maxima of the
+// logits and their FIRST-index arguments:
+//   m1, i1 [A, B, T]: per caption token, the max over video tokens;
+//   m2, i2 [A, B, V]: per video token, the max over caption tokens;
+// m1/m2 fp32, unpadded; i1/i2 one byte each, rows padded to 16 bytes
+// (pad16(T), pad16(V)) so that a pair's routing is one aligned copy.  The
+// gradients are then sums of routed rows:
 //
-//   dtn[a,t] = sum_b 0.5 g[a,b] ( tw[a,t] vn[b, i1[a,t,b]]
+//   dtn[a,t] = sum_b 0.5 g[a,b] ( tw[a,t] vn[b, i1[a,b,t]]
 //                               + sum_{v: i2[a,b,v] == t} vw[b,v] vn[b,v] )
-//   dvn[b,v] = sum_a 0.5 g[a,b] ( sum_{t: i1[a,t,b] == v} tw[a,t] tn[a,t]
-//                               + vw[b,v] tn[a, i2[a,b,v]] )
-//   dtw[a,t] = 0.5 sum_b g[a,b] m1[a,t,b],  dvw[b,v] = 0.5 sum_a g[a,b] m2[a,b,v]
+//   dvn[b,v] = sum_a 0.5 g[a,b] ( vw[b,v] tn[a, i2[a,b,v]]
+//                               + sum_{t: i1[a,b,t] == v} tw[a,t] tn[a,t] )
+//   dtw[a,t] = 0.5 sum_b g[a,b] m1[a,b,t],  dvw[b,v] = 0.5 sum_a g[a,b] m2[a,b,v]
 //
-// m2/i2 are [A, B, V]; m1/i1 hold entry (a, t, b) at a·T·B + t·s1t + b·s1b,
-// so each caller keeps the layout its tile kernel writes best ([A, T, B]:
-// s1t = B, s1b = 1; [A, B, T]: s1t = 1, s1b = T).
+// Both feature gradients have one form: an OWNER (a caption for dtn, a
+// video for dvn) walks its PARTNERS (the other side), and per pair adds
+// (a) for each of its tokens the partner row its max routed to, and (b)
+// each partner row whose max routed to one of its tokens.  routed_gather
+// computes one side; a side autograd does not ask for is not launched.
 //
-// Thread = one feature column, accumulators in shared memory indexed by the
-// routed token (each thread touches only its column).  The walk over the
-// other side is cut into `splits` ranges, one block each, so that short
-// sides still fill the card; a split run writes partials that reduce_rows
-// sums in range order: no float atomics, two runs give the same bits.
-// Inside a range the routed rows are loaded GU at a time ahead of their
-// shared-memory updates: the index → row → update chains of one pair are
-// independent of each other.  (Giving a block several captions or videos,
-// so that each row read from L2 serves them all, halved the speed on an
-// H100: these kernels are bound by their instruction chains and want many
-// small blocks, not fewer bytes.)
+// Design.  What bounds it on an H100 (PERF.md, §6): not bytes, since the
+// staging alone takes about a third of the time, but each warp's chains of
+// routing byte -> row load -> FMAs, whose latency only many warps hide:
+// - a block owns QA owners x one slab of GW = 128 columns and walks a
+//   range of partners in order, in tiles of PT partners: each partner's
+//   [TP, 128] rows, its token weights, the QA cotangents and the QA x
+//   (TO + TP) routing bytes come through a ring of GSTAGES shared-memory
+//   stages of one tile each (16-byte cp.async, one commit group and one
+//   barrier per tile), so a partner row is read from L2 once per QA owners,
+//   not once per routed use.  A tile holds about 32 KB (PT = 1 at 64 x 64
+//   tokens, 2-4 at 24 x 12), enough work between two barriers to keep the
+//   loads of the next five tiles in flight;
+// - a warp owns TG <= 8 of one owner's tokens, a lane 4 consecutive
+//   columns (float4): the accumulators are TG float4 registers and the
+//   owners' token weights sit in shared memory, so that 64 registers a
+//   thread, 32 warps on an SM, suffice.  The NG warps of an owner
+//   interleave its tokens in quads (warp g holds quads g and g + NG), so
+//   that the live tokens, a prefix of a caption or a video, spread evenly
+//   over them;
+//   (a) has static targets: owner token j adds its routed row to acc[j];
+//   (b) has dynamic targets: per token j a ballot over the partner tokens
+//   (lanes hold their targets) finds the rows routed to it, added to acc[j]
+//   in ascending order: no shared-memory accumulators, no read-modify-write
+//   chains.  A token of weight 0 (masked) adds exact zeros and is skipped;
+// - where too few owner tiles fill the card, the partner walk is cut into
+//   ranges whose partial sums reduce_rows adds in range order.
+// Every output element is one fixed sequence of fp32 additions (no float
+// atomics): two runs give the same bits, and a one-side run the bits of
+// the both-side run's side.
 
 #pragma once
 
@@ -34,185 +58,394 @@
 
 namespace {
 
-constexpr int GD = 128;   // feature columns per block; >= the largest T, V
-constexpr int GU = 8;     // routed rows in flight per thread
+constexpr int GW = 128;       // feature columns per slab: 32 lanes x float4
+constexpr int GWARPS = 32;    // warps per block: QA owners x NG token groups
+constexpr int GSTAGES = 6;    // partner tiles in the ring
+constexpr int GMAX_TOKENS = 64;
 
-// how many ranges to cut `other` into when `own` x slabs blocks are too few
-inline int gather_splits(int own, int slabs, int other) {
-  int s = 2048 / (own * slabs);
-  if (s > 16) s = 16;
-  if (s > other / 32) s = other / 32;
-  return s < 1 ? 1 : s;
+__host__ __device__ inline int pad16(int n) { return (n + 15) & ~15; }
+
+// one side's gather: owners o (NO of them, TO tokens) walk partners p (NP,
+// TP tokens); the pair (o, p) is entry o*so + p*sp of g and of the routing
+struct RoutedSide {
+  const float* pf;            // partner features [NP, TP, D]
+  const float* wo;            // owner token weights [NO, TO]
+  const float* wp;            // partner token weights [NP, TP]
+  const float* g;             // cotangent, pair-indexed
+  const unsigned char* ro;    // per owner token: the partner token it routed
+                              // to, [pair][pad16(TO)]
+  const unsigned char* rp;    // per partner token: the owner token it routed
+                              // to, [pair][pad16(TP)]
+  float* out;                 // [splits][NO, TO, D]
+  int NO, NP, TO, TP, D, so, sp;
+};
+
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            bool valid) {
+  // src-size 0 zero-fills (rows past the edge)
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
 }
 
-// block (a, slab, range): out[range][a, :, slab]; slab 0 of range 0 also
-// dtw[a, :]
-__global__ void __launch_bounds__(GD)
-bwd_text_kernel(const float* __restrict__ vn, const float* __restrict__ tw,
-                const float* __restrict__ vw, const float* __restrict__ g,
-                const float* __restrict__ m1, const unsigned char* __restrict__ i1,
-                const unsigned char* __restrict__ i2, float* __restrict__ out,
-                float* __restrict__ dtw, int A, int B, int T, int V, int D,
-                int s1t, int s1b) {
-  extern __shared__ __align__(16) float sm[];
-  float* acc = sm;              // [T][GD]
-  float* tws = sm + T * GD;     // [T]
-  const int a = blockIdx.x, tid = threadIdx.x;
-  const int d = blockIdx.y * GD + tid;
-  const int per = (B + gridDim.z - 1) / gridDim.z;
-  const int b_lo = blockIdx.z * per, b_hi = min(B, b_lo + per);
-  if (tid < T) tws[tid] = tw[(size_t)a * T + tid];
-  if (blockIdx.y == 0 && blockIdx.z == 0 && tid < T) {
-    const float* mr = m1 + (size_t)a * T * B + (size_t)tid * s1t;
-    float s = 0.f;
-    for (int b = 0; b < B; ++b)
-      s += g[(size_t)a * B + b] * mr[(size_t)b * s1b];
-    dtw[(size_t)a * T + tid] = 0.5f * s;
-  }
-  __syncthreads();
-  if (d >= D) return;
-  for (int t = 0; t < T; ++t) acc[t * GD + tid] = 0.f;
-  const unsigned char* i1a = i1 + (size_t)a * T * B;
-  for (int b = b_lo; b < b_hi; ++b) {
-    const float gab = 0.5f * g[(size_t)a * B + b];
-    const float* vb = vn + (size_t)b * V * D + d;
-    const unsigned char* i1ab = i1a + (size_t)b * s1b;
-    // max over v: token t of the caption sends its share to video token i1
-    for (int t0 = 0; t0 < T; t0 += GU) {
-      float x[GU];
-#pragma unroll
-      for (int u = 0; u < GU; ++u) {
-        const int t = t0 + u;
-        x[u] = t < T ? gab * tws[t] * vb[(size_t)i1ab[(size_t)t * s1t] * D]
-                     : 0.f;
-      }
-#pragma unroll
-      for (int u = 0; u < GU; ++u)
-        if (t0 + u < T) acc[(t0 + u) * GD + tid] += x[u];
-    }
-    // max over t: video token v sends its share to caption token i2
-    const unsigned char* i2ab = i2 + ((size_t)a * B + b) * V;
-    for (int v0 = 0; v0 < V; v0 += GU) {
-      float x[GU];
-      int tt[GU];
-#pragma unroll
-      for (int u = 0; u < GU; ++u) {
-        const int v = v0 + u;
-        tt[u] = v < V ? i2ab[v] : 0;
-        x[u] = v < V ? gab * vw[(size_t)b * V + v] * vb[(size_t)v * D] : 0.f;
-      }
-#pragma unroll
-      for (int u = 0; u < GU; ++u)
-        if (v0 + u < V) acc[tt[u] * GD + tid] += x[u];
-    }
-  }
-  float* o = out + (size_t)blockIdx.z * A * T * D;
-  for (int t = 0; t < T; ++t)
-    o[((size_t)a * T + t) * D + d] = acc[t * GD + tid];
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
 }
 
-// block (b, slab, range): out[range][b, :, slab]; slab 0 of range 0 also
-// dvw[b, :]
-__global__ void __launch_bounds__(GD)
-bwd_video_kernel(const float* __restrict__ tn, const float* __restrict__ tw,
-                 const float* __restrict__ vw, const float* __restrict__ g,
-                 const float* __restrict__ m2, const unsigned char* __restrict__ i1,
-                 const unsigned char* __restrict__ i2, float* __restrict__ out,
-                 float* __restrict__ dvw, int A, int B, int T, int V, int D,
-                 int s1t, int s1b) {
-  extern __shared__ __align__(16) float sm[];
-  float* acc = sm;              // [V][GD]
-  float* vws = sm + V * GD;     // [V]
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const int d = blockIdx.y * GD + tid;
-  const int per = (A + gridDim.z - 1) / gridDim.z;
-  const int a_lo = blockIdx.z * per, a_hi = min(A, a_lo + per);
-  if (tid < V) vws[tid] = vw[(size_t)b * V + tid];
-  if (blockIdx.y == 0 && blockIdx.z == 0 && tid < V) {
-    float s = 0.f;
-    for (int a = 0; a < A; ++a)
-      s += g[(size_t)a * B + b] * m2[((size_t)a * B + b) * V + tid];
-    dvw[(size_t)b * V + tid] = 0.5f * s;
+// bytes of one ring stage, and the offsets of its parts
+struct StageLayout {
+  int rows, wp, g, ro, rp, bytes;
+  __host__ __device__ StageLayout(int TO, int TP, int QA) {
+    rows = 0;                                     // [TP][GW] fp32
+    wp = rows + TP * GW * 4;                      // [pad4(TP)] fp32
+    g = wp + ((TP + 3) & ~3) * 4;                 // [pad4(QA)] fp32
+    ro = g + ((QA + 3) & ~3) * 4;                 // [QA][pad16(TO)]
+    rp = ro + QA * pad16(TO);                     // [QA][pad16(TP)]
+    bytes = rp + QA * pad16(TP);
   }
-  __syncthreads();
-  if (d >= D) return;
-  for (int v = 0; v < V; ++v) acc[v * GD + tid] = 0.f;
-  for (int a = a_lo; a < a_hi; ++a) {
-    const float gab = 0.5f * g[(size_t)a * B + b];
-    const float* ta = tn + (size_t)a * T * D + d;
-    const float* twa = tw + (size_t)a * T;
-    const unsigned char* i1ab = i1 + (size_t)a * T * B + (size_t)b * s1b;
-    for (int t0 = 0; t0 < T; t0 += GU) {
-      float x[GU];
-      int vv[GU];
-#pragma unroll
-      for (int u = 0; u < GU; ++u) {
-        const int t = t0 + u;
-        vv[u] = t < T ? i1ab[(size_t)t * s1t] : 0;
-        x[u] = t < T ? gab * twa[t] * ta[(size_t)t * D] : 0.f;
-      }
-#pragma unroll
-      for (int u = 0; u < GU; ++u)
-        if (t0 + u < T) acc[vv[u] * GD + tid] += x[u];
-    }
-    const unsigned char* i2ab = i2 + ((size_t)a * B + b) * V;
-    for (int v0 = 0; v0 < V; v0 += GU) {
-      float x[GU];
-#pragma unroll
-      for (int u = 0; u < GU; ++u) {
-        const int v = v0 + u;
-        x[u] = v < V ? gab * vws[v] * ta[(size_t)i2ab[v] * D] : 0.f;
-      }
-#pragma unroll
-      for (int u = 0; u < GU; ++u)
-        if (v0 + u < V) acc[(v0 + u) * GD + tid] += x[u];
+};
+
+// acc += gab·wps[v]·rows[v] for the partner tokens v = base + the set bits
+// of m, ascending; two rows per round, so that their loads overlap
+__device__ __forceinline__ void add_routed(float4& acc, unsigned m, int base,
+                                           float gab, const float* wps,
+                                           const float* rows) {
+  while (m) {
+    const int v = base + __ffs(m) - 1;
+    m &= m - 1;
+    const bool two = m != 0;
+    const int v2 = two ? base + __ffs(m) - 1 : v;
+    m &= m - 1;
+    const float c = gab * wps[v], c2 = gab * wps[v2];
+    const float4 x = *reinterpret_cast<const float4*>(rows + v * GW);
+    const float4 x2 = *reinterpret_cast<const float4*>(rows + v2 * GW);
+    acc.x = fmaf(c, x.x, acc.x);
+    acc.y = fmaf(c, x.y, acc.y);
+    acc.z = fmaf(c, x.z, acc.z);
+    acc.w = fmaf(c, x.w, acc.w);
+    if (two) {
+      acc.x = fmaf(c2, x2.x, acc.x);
+      acc.y = fmaf(c2, x2.y, acc.y);
+      acc.z = fmaf(c2, x2.z, acc.z);
+      acc.w = fmaf(c2, x2.w, acc.w);
     }
   }
-  float* o = out + (size_t)blockIdx.z * B * V * D;
-  for (int v = 0; v < V; ++v)
-    o[((size_t)b * V + v) * D + d] = acc[v * GD + tid];
 }
 
-// Floats of scratch gather_backward needs for its partial sums at these
-// sizes (0 when neither walk is split).
-inline int gather_scratch(int A, int B, int T, int V, int D) {
-  const int slabs = (D + GD - 1) / GD;
-  const int st = gather_splits(A, slabs, B), sv = gather_splits(B, slabs, A);
-  return (st > 1 ? st * A * T * D : 0) + (sv > 1 ? sv * B * V * D : 0);
+// grid (owner tiles, slabs, partner ranges of `per`); blockDim QA·NG·32;
+// PT partners per ring stage
+template <int TG>
+__global__ void __launch_bounds__(GWARPS * 32)
+routed_gather_kernel(RoutedSide s, int QA, int NG, int per, int PT) {
+  extern __shared__ __align__(16) unsigned char gsm[];
+  const StageLayout L(s.TO, s.TP, QA);
+  const int TOP = pad16(s.TO), TPP = pad16(s.TP);
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int q = warp / NG, grp = warp % NG;
+  const int o0 = blockIdx.x * QA, o = o0 + q;
+  const int c0 = blockIdx.y * GW, col = c0 + lane * 4;
+  const int p_lo = blockIdx.z * per, p_hi = min(s.NP, p_lo + per);
+  const int n = max(0, p_hi - p_lo);
+  // warp-uniform (the ballots need every lane); lanes past D add zeros
+  const bool live = o < s.NO;
+
+  const int SB = PT * L.bytes;   // one stage: PT partner layouts
+  auto load1 = [&](unsigned char* st, int p) {
+    for (int i = tid; i < s.TP * (GW / 4); i += nthreads) {
+      const int r = i / (GW / 4), c = (i % (GW / 4)) * 4;
+      const bool ok = c0 + c < s.D;
+      cp_async_16(st + L.rows + (r * GW + c) * 4,
+                  ok ? s.pf + ((size_t)p * s.TP + r) * s.D + c0 + c : s.pf,
+                  ok);
+    }
+    for (int i = tid; i < s.TP; i += nthreads)
+      cp_async_4(st + L.wp + i * 4, s.wp + (size_t)p * s.TP + i, true);
+    for (int i = tid; i < QA; i += nthreads) {
+      const bool ok = o0 + i < s.NO;
+      cp_async_4(st + L.g + i * 4,
+                 ok ? s.g + (size_t)(o0 + i) * s.so + (size_t)p * s.sp : s.g,
+                 ok);
+    }
+    const int cro = TOP / 16, crp = TPP / 16;
+    for (int i = tid; i < QA * (cro + crp); i += nthreads) {
+      const int qq = i / (cro + crp), c = i % (cro + crp);
+      const bool ok = o0 + qq < s.NO;
+      const size_t pair = (size_t)(o0 + qq) * s.so + (size_t)p * s.sp;
+      if (c < cro)
+        cp_async_16(st + L.ro + qq * TOP + c * 16,
+                    ok ? s.ro + pair * TOP + c * 16 : s.ro, ok);
+      else
+        cp_async_16(st + L.rp + qq * TPP + (c - cro) * 16,
+                    ok ? s.rp + pair * TPP + (c - cro) * 16 : s.rp, ok);
+    }
+  };
+  // the tile of partners k·PT .. of this range into stage k % GSTAGES
+  auto load = [&](int k) {
+    for (int u = 0; u < PT && p_lo + k * PT + u < p_hi; ++u)
+      load1(gsm + (k % GSTAGES) * SB + u * L.bytes, p_lo + k * PT + u);
+  };
+  auto commit = [] { asm volatile("cp.async.commit_group;\n" ::); };
+
+  // accumulator j holds owner token tok(j): quad grp + NG·(j / 4)
+  auto tok = [&](int j) { return 4 * (grp + NG * (j / 4)) + j % 4; };
+  // the owners' token weights [QA][NG·TG] in shared memory past the ring
+  // (registers are the scarce resource at 32 warps an SM)
+  float* wos = reinterpret_cast<float*>(gsm + GSTAGES * SB) + q * NG * TG;
+  float4 acc[TG];
+  unsigned quad_live = 0;
+#pragma unroll
+  for (int j = 0; j < TG; ++j) {
+    const float w = live && tok(j) < s.TO ? s.wo[(size_t)o * s.TO + tok(j)]
+                                          : 0.f;
+    if (lane == 0) wos[grp * TG + j] = w;
+    quad_live |= (w != 0.f) << (j / 4);
+    acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const float* wo = wos + grp * TG;
+
+  const int ntiles = (n + PT - 1) / PT;
+  for (int k = 0; k < GSTAGES - 1; ++k) {
+    if (k < ntiles) load(k);
+    commit();
+  }
+  for (int i = 0; i < ntiles; ++i) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(GSTAGES - 2));
+    __syncthreads();   // tile i is in; every warp is done with tile i - 1
+    if (i + GSTAGES - 1 < ntiles) load(i + GSTAGES - 1);
+    commit();
+    if (!live) continue;
+    for (int pt = 0; pt < PT && i * PT + pt < n; ++pt) {
+      const unsigned char* st = gsm + (i % GSTAGES) * SB + pt * L.bytes;
+      const float* rows =
+          reinterpret_cast<const float*>(st + L.rows) + lane * 4;
+      const float* wps = reinterpret_cast<const float*>(st + L.wp);
+      const float gab = 0.5f * reinterpret_cast<const float*>(st + L.g)[q];
+      const unsigned* ro =
+          reinterpret_cast<const unsigned*>(st + L.ro + q * TOP);
+      const unsigned char* rp = st + L.rp + q * TPP;
+
+      // (a) owner token tok(j) takes the partner row its max routed to.  A
+      // quad of weight-0 tokens (masked, or past TO) adds exact zeros and
+      // is skipped; inside a live quad the four loads go out together (a
+      // weight-0 token adds 0 · a row, its index clamped into the tile)
+#pragma unroll
+      for (int j4 = 0; j4 < TG / 4; ++j4) {
+        if (!(quad_live >> j4 & 1)) continue;
+        const unsigned w = ro[grp + NG * j4];   // the routing of one quad
+        float4 x[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          x[u] = *reinterpret_cast<const float4*>(
+              rows + min((int)(w >> (8 * u)) & 0xff, s.TP - 1) * GW);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          float4& a = acc[j4 * 4 + u];
+          const float c = gab * wo[j4 * 4 + u];
+          a.x = fmaf(c, x[u].x, a.x);
+          a.y = fmaf(c, x[u].y, a.y);
+          a.z = fmaf(c, x[u].z, a.z);
+          a.w = fmaf(c, x[u].w, a.w);
+        }
+      }
+      // (b) partner tokens whose max routed to owner token tok(j), in order;
+      // lane l holds the accumulator index j that partner tokens l and
+      // l + 32 route to in this warp, or -1 (another warp's token, or a
+      // partner token of weight 0, whose rows add exact zeros)
+      auto slot = [&](int v) {
+        if (v >= s.TP || wps[v] == 0.f) return -1;
+        const int t = rp[v], k = (t >> 2) - grp;   // quad grp + NG·k
+        return k == 0 ? (t & 3) : k == NG && TG > 4 ? 4 + (t & 3) : -1;
+      };
+      const int j0 = slot(lane), j1 = slot(lane + 32);
+      const unsigned hit0 = __reduce_or_sync(~0u, j0 < 0 ? 0u : 1u << j0);
+      const unsigned hit1 = __reduce_or_sync(~0u, j1 < 0 ? 0u : 1u << j1);
+      if ((hit0 | hit1) == 0) continue;
+#pragma unroll
+      for (int j = 0; j < TG; ++j) {
+        if (hit0 >> j & 1)
+          add_routed(acc[j], __ballot_sync(~0u, j0 == j), 0, gab, wps, rows);
+        if (hit1 >> j & 1)
+          add_routed(acc[j], __ballot_sync(~0u, j1 == j), 32, gab, wps, rows);
+      }
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  if (!live || col >= s.D) return;
+  float* out = s.out + (size_t)blockIdx.z * s.NO * s.TO * s.D;
+#pragma unroll
+  for (int j = 0; j < TG; ++j)
+    if (tok(j) < s.TO)
+      *reinterpret_cast<float4*>(out + ((size_t)o * s.TO + tok(j)) * s.D +
+                                 col) = acc[j];
 }
 
-// Both gathers (and their ordered reduces where a walk is split): dtn
-// [A, T, D], dtw [A, T], dvn [B, V, D], dvw [B, V] from the maxima, their
-// arguments and g [A, B]; part holds gather_scratch floats.
-inline cudaError_t gather_backward(
-    const float* tn, const float* vn, const float* tw, const float* vw,
-    const float* g, const float* m1, const float* m2, const unsigned char* i1,
-    const unsigned char* i2, float* part, float* dtn, float* dtw, float* dvn,
-    float* dvw, int A, int B, int T, int V, int D, int s1t, int s1b,
-    cudaStream_t s) {
-  const int slabs = (D + GD - 1) / GD;
-  const int st = gather_splits(A, slabs, B), sv = gather_splits(B, slabs, A);
-  float* part_t = part;
-  float* part_v = part + (st > 1 ? (size_t)st * A * T * D : 0);
+// out[split][o, k] = sum over this split's partners p of g[pair] m[pair, k]
+// (pair = o*so + p*sp, m rows of K floats); unsplit, already halved
+__global__ void routed_weight_grad_kernel(const float* __restrict__ g,
+                                          const float* __restrict__ m,
+                                          float* __restrict__ out, int NO,
+                                          int NP, int K, int so, int sp,
+                                          int per, float scale) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= NO * K) return;
+  const int o = idx / K, k = idx % K;
+  const int p_lo = blockIdx.y * per, p_hi = min(NP, p_lo + per);
+  float acc = 0.f;
+  for (int p = p_lo; p < p_hi; ++p) {
+    const size_t pair = (size_t)o * so + (size_t)p * sp;
+    acc += g[pair] * m[pair * K + k];
+  }
+  out[(size_t)blockIdx.y * NO * K + idx] = scale * acc;
+}
 
-  const size_t smem_t = (size_t)(T * GD + T) * sizeof(float);
-  bwd_text_kernel<<<dim3(A, slabs, st), GD, smem_t, s>>>(
-      vn, tw, vw, g, m1, i1, i2, st > 1 ? part_t : dtn, dtw, A, B, T, V, D,
-      s1t, s1b);
+// ---------------------------------------------------------------------------
+// host side: how each side is cut, its scratch, its launches
+// ---------------------------------------------------------------------------
+
+struct GatherPlan {
+  int NG, TG, QA, tiles, slabs, splits, per, PT, smem;
+};
+
+inline GatherPlan plan_gather(int NO, int NP, int TO, int TP, int D) {
+  GatherPlan P;
+  P.NG = (TO + 7) / 8;                              // token groups per owner
+  P.TG = (((TO + P.NG - 1) / P.NG) + 3) & ~3;       // 4 or 8
+  P.QA = GWARPS / P.NG;                             // owners per block
+  P.tiles = (NO + P.QA - 1) / P.QA;
+  P.slabs = (D + GW - 1) / GW;
+  // two blocks' worth of work per SM of an H100 (132), in ranges of at
+  // least 8 partners
+  const int blocks = P.tiles * P.slabs;
+  int sp = (264 + blocks - 1) / blocks;
+  if (sp > 16) sp = 16;
+  if (sp > NP / 8) sp = NP / 8;
+  P.splits = sp < 1 ? 1 : sp;
+  P.per = (NP + P.splits - 1) / P.splits;
+  P.splits = (NP + P.per - 1) / P.per;
+  // about 32 KB of partners per ring stage (at most 6 x 33.6 KB)
+  const int one = StageLayout(TO, TP, P.QA).bytes;
+  P.PT = 32768 / one;
+  P.PT = P.PT < 1 ? 1 : P.PT > 8 ? 8 : P.PT;
+  P.smem = GSTAGES * P.PT * one + GWARPS * 8 * 4;   // + token weights
+  return P;
+}
+
+struct WeightPlan {
+  int splits, per;
+};
+
+inline WeightPlan plan_weight(int NO, int NP, int K) {
+  WeightPlan W;
+  int sp = 65536 / (NO * K);
+  if (sp > 16) sp = 16;
+  if (sp > NP / 16) sp = NP / 16;
+  W.splits = sp < 1 ? 1 : sp;
+  W.per = (NP + W.splits - 1) / W.splits;
+  W.splits = (NP + W.per - 1) / W.per;
+  return W;
+}
+
+// which outputs a backward call asks for
+constexpr int NEED_DTN = 1, NEED_DVN = 2, NEED_DTW = 4, NEED_DVW = 8;
+
+// floats of scratch routed_backward needs for the partial sums of split
+// walks, for the outputs in `need`
+inline size_t routed_scratch(int A, int B, int T, int V, int D, int need) {
+  size_t n = 0;
+  if (need & NEED_DTN) {
+    const GatherPlan P = plan_gather(A, B, T, V, D);
+    if (P.splits > 1) n += (size_t)P.splits * A * T * D;
+  }
+  if (need & NEED_DVN) {
+    const GatherPlan P = plan_gather(B, A, V, T, D);
+    if (P.splits > 1) n += (size_t)P.splits * B * V * D;
+  }
+  if (need & NEED_DTW) {
+    const WeightPlan W = plan_weight(A, B, T);
+    if (W.splits > 1) n += (size_t)W.splits * A * T;
+  }
+  if (need & NEED_DVW) {
+    const WeightPlan W = plan_weight(B, A, V);
+    if (W.splits > 1) n += (size_t)W.splits * B * V;
+  }
+  return n;
+}
+
+inline cudaError_t launch_gather(const RoutedSide& s0, float* out,
+                                 float* part, cudaStream_t st) {
+  RoutedSide s = s0;
+  const GatherPlan P = plan_gather(s.NO, s.NP, s.TO, s.TP, s.D);
+  s.out = P.splits > 1 ? part : out;
+  const int smem = P.smem;
+  const dim3 grid(P.tiles, P.slabs, P.splits);
+  const int threads = P.QA * P.NG * 32;
+  cudaError_t err = cudaSuccess;
+  auto go = [&](auto kern) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return;
+    kern<<<grid, threads, smem, st>>>(s, P.QA, P.NG, P.per, P.PT);
+    err = cudaGetLastError();
+  };
+  if (P.TG == 4)
+    go(routed_gather_kernel<4>);
+  else
+    go(routed_gather_kernel<8>);
+  if (err != cudaSuccess || P.splits == 1) return err;
+  return reduce_rows(part, out, P.splits, s.NO * s.TO * s.D, 1.f, st);
+}
+
+inline cudaError_t launch_weight(const float* g, const float* m, float* out,
+                                 float* part, int NO, int NP, int K, int so,
+                                 int sp, cudaStream_t st) {
+  const WeightPlan W = plan_weight(NO, NP, K);
+  const dim3 grid((NO * K + 127) / 128, W.splits);
+  routed_weight_grad_kernel<<<grid, 128, 0, st>>>(
+      g, m, W.splits > 1 ? part : out, NO, NP, K, so, sp, W.per,
+      W.splits > 1 ? 1.f : 0.5f);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  if (st > 1) {
-    err = reduce_rows(part_t, dtn, st, A * T * D, 1.f, s);
+  if (err != cudaSuccess || W.splits == 1) return err;
+  return reduce_rows(part, out, W.splits, NO * K, 2.f, st);
+}
+
+// The backward from the routing: tn [A, T, D], vn [B, V, D], tw [A, T],
+// vw [B, V], g [A, B], the residuals as above; each of dtn [A, T, D],
+// dvn [B, V, D], dtw [A, T], dvw [B, V] is computed when its pointer is
+// not null.  part holds routed_scratch(..., need) floats.
+inline cudaError_t routed_backward(
+    const float* tn, const float* vn, const float* tw, const float* vw,
+    const float* g, const float* m1, const unsigned char* i1, const float* m2,
+    const unsigned char* i2, float* part, float* dtn, float* dtw, float* dvn,
+    float* dvw, int A, int B, int T, int V, int D, cudaStream_t st) {
+  if (T < 1 || T > GMAX_TOKENS || V < 1 || V > GMAX_TOKENS || D % 4 != 0)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSuccess;
+  if (dtn != nullptr) {   // captions own, videos are the partners
+    const RoutedSide s{vn, tw, vw, g, i1, i2, nullptr, A, B, T, V, D, B, 1};
+    err = launch_gather(s, dtn, part, st);
     if (err != cudaSuccess) return err;
+    const GatherPlan P = plan_gather(A, B, T, V, D);
+    if (P.splits > 1) part += (size_t)P.splits * A * T * D;
   }
-  const size_t smem_v = (size_t)(V * GD + V) * sizeof(float);
-  bwd_video_kernel<<<dim3(B, slabs, sv), GD, smem_v, s>>>(
-      tn, tw, vw, g, m2, i1, i2, sv > 1 ? part_v : dvn, dvw, A, B, T, V, D,
-      s1t, s1b);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  if (sv > 1) return reduce_rows(part_v, dvn, sv, B * V * D, 1.f, s);
-  return cudaSuccess;
+  if (dvn != nullptr) {   // videos own, captions are the partners
+    const RoutedSide s{tn, vw, tw, g, i2, i1, nullptr, B, A, V, T, D, 1, B};
+    err = launch_gather(s, dvn, part, st);
+    if (err != cudaSuccess) return err;
+    const GatherPlan P = plan_gather(B, A, V, T, D);
+    if (P.splits > 1) part += (size_t)P.splits * B * V * D;
+  }
+  if (dtw != nullptr) {
+    err = launch_weight(g, m1, dtw, part, A, B, T, B, 1, st);
+    if (err != cudaSuccess) return err;
+    const WeightPlan W = plan_weight(A, B, T);
+    if (W.splits > 1) part += (size_t)W.splits * A * T;
+  }
+  if (dvw != nullptr) err = launch_weight(g, m2, dvw, part, B, A, V, 1, B, st);
+  return err;
 }
 
 }  // namespace

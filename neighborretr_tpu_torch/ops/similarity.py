@@ -14,12 +14,17 @@ csrc/interaction_similarity.cu, which never materialises the
 [A, T, B, V] logits.  `fused_interaction_mean` (↔ pallas_interaction_mean)
 is the same for the mean of S over one axis, the memory-bank centrality,
 without S.  Both are differentiable: the mask and the L2 normalisation sit
-outside the kernels and get their gradients from autograd, and the kernels'
-backward (↔ _similarity_bwd) recomputes the logits and sends each max's
-gradient to the FIRST index that attains it.  `similarity_bwd_plain` is that
-backward written out, first-index routing included: ties are the normal
-case (masked tokens are zero rows), and `torch.max` on CUDA does not promise
-the first index, so autograd of the plain forward is no reference there.
+outside the kernels and get their gradients from autograd.  Under autograd
+the forward kernels also save the routing: per (caption, video) the max
+over v of each caption token's logits and its FIRST index (m1, i1), and
+the max over t of each video token's and its first index (m2, i2).  The
+backward kernel (↔ _similarity_bwd) recomputes nothing: it sends each max's
+gradient to its saved index, and computes only the feature gradients
+autograd asks for (the memory bank's side is detached in the train step).
+`similarity_routing_plain` and `similarity_bwd_routed_plain` are the two
+halves written out, first-index routing included: ties are the normal case
+(masked tokens are zero rows), and `torch.max` on CUDA does not promise the
+first index, so autograd of the plain forward is no reference there.
 
 `global_similarity` (↔ ops/similarity.py::global_similarity) is the
 unmasked, unnormalised form over the merged global tokens.
@@ -107,40 +112,110 @@ def _first_argmax(x: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.where(hit, pos, n).amin(dim=dim, keepdim=True)
 
 
-def similarity_bwd_plain(tn, vn, tw, vw, g, route=None):
-    """Backward of S = kernel(tn, vn, tw, vw) for the cotangent g [A, B],
-    written out: tn [A, T, D] and vn [B, V, D] are the normalised, masked
-    features the kernels take.  Returns (dtn, dvn, dtw, dvw).  Each max
-    routes to the first index that attains it.  route: a diagnostic's
-    function (i1 [A, T, B, 1], i2 [A, 1, B, V]) → (i1, i2) that sees the
-    routing (the winner over v per text token, over t per video token) and
-    may hand back another to use."""
+def similarity_routing_plain(tn, vn, tw, vw):
+    """S [A, B] of prepared inputs (see `_prepare`) and the routing the
+    backward needs: m1 [A, B, T] (per caption token the max over the video's
+    tokens), i1 [A, B, T] (its first index, uint8), m2 [A, B, V] and
+    i2 [A, B, V] (per video token the max over the caption's tokens)."""
     A, T, D = tn.shape
     B, V, _ = vn.shape
     logits = (tn.reshape(A * T, D) @ vn.reshape(B * V, D).T).reshape(A, T, B, V)
-    half_g = 0.5 * g.float()
     m1 = logits.amax(dim=3)                                   # [A, T, B]
     m2 = logits.amax(dim=1)                                   # [A, B, V]
-    dtw = torch.einsum("ab,atb->at", half_g, m1)
+    sim = 0.5 * (torch.einsum("atb,at->ab", m1, tw)
+                 + torch.einsum("abv,bv->ab", m2, vw))
+    i1 = _first_argmax(logits, 3)[..., 0].transpose(1, 2)     # [A, B, T]
+    i2 = _first_argmax(logits, 1)[:, 0]                       # [A, B, V]
+    return sim, (m1.transpose(1, 2).contiguous(),
+                 i1.to(torch.uint8).contiguous(), m2,
+                 i2.to(torch.uint8).contiguous())
+
+
+def similarity_bwd_routed_plain(tn, vn, tw, vw, g, m1, i1, m2, i2,
+                                need_t: bool = True, need_v: bool = True):
+    """Backward of S for the cotangent g [A, B] from the forward's routing
+    (`similarity_routing_plain`'s, or the kernels' residuals, whose index
+    rows are padded): each max's gradient goes to its saved index.  Returns
+    (dtn or None, dvn or None, dtw, dvw): a feature gradient not asked for
+    is not computed."""
+    A, T, D = tn.shape
+    B, V, _ = vn.shape
+    half_g = 0.5 * g.float()
+    dtw = torch.einsum("ab,abt->at", half_g, m1)
     dvw = torch.einsum("ab,abv->bv", half_g, m2)
+    if not (need_t or need_v):
+        return None, None, dtw, dvw
     c1 = half_g[:, None, :] * tw[:, :, None]                  # [A, T, B]
     c2 = half_g[:, :, None] * vw[None, :, :]                  # [A, B, V]
-    i1, i2 = _first_argmax(logits, 3), _first_argmax(logits, 1)
-    if route is not None:
-        i1, i2 = route(i1, i2)
-    dlogits = torch.zeros_like(logits)
-    dlogits.scatter_(3, i1, c1[..., None])
-    dlogits.scatter_add_(1, i2, c2[:, None])
+    r1 = i1[..., :T].long().transpose(1, 2)[..., None]        # [A, T, B, 1]
+    r2 = i2[..., :V].long()[:, None]                          # [A, 1, B, V]
+    dlogits = torch.zeros((A, T, B, V), dtype=tn.dtype, device=tn.device)
+    dlogits.scatter_(3, r1, c1[..., None])
+    dlogits.scatter_add_(1, r2, c2[:, None])
     dl = dlogits.reshape(A * T, B * V)
-    dtn = (dl @ vn.reshape(B * V, D)).reshape(A, T, D)
-    dvn = (dl.T @ tn.reshape(A * T, D)).reshape(B, V, D)
+    dtn = (dl @ vn.reshape(B * V, D)).reshape(A, T, D) if need_t else None
+    dvn = (dl.T @ tn.reshape(A * T, D)).reshape(B, V, D) if need_v else None
     return dtn, dvn, dtw, dvw
 
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_MEAN_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+def similarity_bwd_plain(tn, vn, tw, vw, g):
+    """Backward of S = kernel(tn, vn, tw, vw) for the cotangent g [A, B],
+    routing recomputed: (dtn, dvn, dtw, dvw)."""
+    _, res = similarity_routing_plain(tn, vn, tw, vw)
+    return similarity_bwd_routed_plain(tn, vn, tw, vw, g, *res)
+
+
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_MEAN_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _LIB = "interaction_similarity"
+# which outputs a backward call asks for (csrc/similarity_gather.cuh)
+_NEED_DTN, _NEED_DVN, _NEED_DTW, _NEED_DVW = 1, 2, 4, 8
+
+
+def _pad16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def residual_buffers(A, T, B, V, device):
+    """Empty routing residuals as the kernels write them: m1 [A, B, T],
+    i1 [A, B, pad16(T)], m2 [A, B, V], i2 [A, B, pad16(V)] (indices one byte,
+    rows padded to 16 bytes so that a pair's routing is one aligned copy)."""
+    return (torch.empty((A, B, T), dtype=torch.float32, device=device),
+            torch.empty((A, B, _pad16(T)), dtype=torch.uint8, device=device),
+            torch.empty((A, B, V), dtype=torch.float32, device=device),
+            torch.empty((A, B, _pad16(V)), dtype=torch.uint8, device=device))
+
+
+def routed_bwd_call(lib, name, tn, vn, tw, vw, g, res, need_t, need_v):
+    """One call of a library's backward entry from the residuals `res`:
+    (dtn or None, dvn or None, dtw, dvw)."""
+    A, T, D = tn.shape
+    B, V, _ = vn.shape
+    g = g.float().contiguous()
+    _check_cuda("g", g, torch.float32, (A, B))
+    for n, t, dtype, shape in zip(("m1", "i1", "m2", "i2"), res,
+                                  (torch.float32, torch.uint8) * 2,
+                                  ((A, B, T), (A, B, _pad16(T)),
+                                   (A, B, V), (A, B, _pad16(V)))):
+        _check_cuda(n, t, dtype, shape)
+    need = (_NEED_DTN * need_t | _NEED_DVN * need_v | _NEED_DTW | _NEED_DVW)
+    n_part = _build.function(lib, f"{name}_scratch", [ctypes.c_int] * 6,
+                             ctypes.c_longlong)(A, B, T, V, D, need)
+    dev = tn.device
+    part = torch.empty((max(n_part, 1),), dtype=torch.float32, device=dev)
+    dtn = torch.empty_like(tn) if need_t else None
+    dvn = torch.empty_like(vn) if need_v else None
+    dtw, dvw = torch.empty_like(tw), torch.empty_like(vw)
+    P = _build.ptr
+    fn = _build.function(lib, name, _BWD_ARGTYPES)
+    with torch.cuda.device(dev):
+        err = fn(P(tn), P(vn), P(tw), P(vw), P(g), *map(P, res), P(part),
+                 P(dtn) if need_t else None, P(dtw),
+                 P(dvn) if need_v else None, P(dvw), A, B, T, V, D,
+                 _build.stream())
+    _build.check(err, name)
+    return dtn, dvn, dtw, dvw
 
 
 def _normalize_masked(x, mask, eps: float = 1e-12) -> torch.Tensor:
@@ -196,20 +271,25 @@ def _similarity_plain(tn, vn, tw, vw) -> torch.Tensor:
                   + torch.einsum("abv,bv->ab", logits.amax(dim=1), vw))
 
 
-def _similarity_fwd(tn, vn, tw, vw) -> torch.Tensor:
+def _similarity_fwd(tn, vn, tw, vw, save: bool = False):
+    """K2 on prepared CUDA inputs → (S, residuals or ())."""
     A, T, D = tn.shape
     B, V, _ = vn.shape
     out = torch.empty((A, B), dtype=torch.float32, device=tn.device)
+    res = residual_buffers(A, T, B, V, tn.device) if save else ()
+    P = _build.ptr
     fn = _build.function(_LIB, "interaction_similarity_fwd", _ARGTYPES)
     with torch.cuda.device(tn.device):
-        err = fn(_build.ptr(tn), _build.ptr(vn), _build.ptr(tw), _build.ptr(vw),
-                 _build.ptr(out), A, B, T, V, D, _build.stream())
+        err = fn(P(tn), P(vn), P(tw), P(vw), P(out),
+                 *(map(P, res) if save else [None] * 4), A, B, T, V, D,
+                 _build.stream())
     _build.check(err, "interaction_similarity_fwd")
     fused_interaction_similarity.launches += 1
-    return out
+    return out, res
 
 
-def _mean_fwd(tn, vn, tw, vw, axis: int) -> torch.Tensor:
+def _mean_fwd(tn, vn, tw, vw, axis: int, save: bool = False):
+    """K4 on prepared CUDA inputs → (mean of S over axis, residuals/())."""
     A, T, D = tn.shape
     B, V, _ = vn.shape
     rows = _build.function(_LIB, "interaction_mean_partial_rows",
@@ -217,78 +297,84 @@ def _mean_fwd(tn, vn, tw, vw, axis: int) -> torch.Tensor:
     n_out = A if axis == 1 else B
     part = torch.empty((rows, n_out), dtype=torch.float32, device=tn.device)
     out = torch.empty((n_out,), dtype=torch.float32, device=tn.device)
+    res = residual_buffers(A, T, B, V, tn.device) if save else ()
+    P = _build.ptr
     fn = _build.function(_LIB, "interaction_mean_fwd", _MEAN_ARGTYPES)
     with torch.cuda.device(tn.device):
-        err = fn(_build.ptr(tn), _build.ptr(vn), _build.ptr(tw), _build.ptr(vw),
-                 _build.ptr(part), _build.ptr(out), A, B, T, V, D, axis,
+        err = fn(P(tn), P(vn), P(tw), P(vw), P(part), P(out),
+                 *(map(P, res) if save else [None] * 4), A, B, T, V, D, axis,
                  _build.stream())
     _build.check(err, "interaction_mean_fwd")
     fused_interaction_mean.launches += 1
-    return out
+    return out, res
 
 
-def fused_similarity_bwd(tn, vn, tw, vw, g):
-    """The backward kernel on prepared inputs (see `_prepare`) and g [A, B]:
-    (dtn, dvn, dtw, dvw), every sum in a fixed order, so two calls give the
-    same bits.  A CPU tensor takes `similarity_bwd_plain`."""
+def fused_similarity_bwd(tn, vn, tw, vw, g, m1, i1, m2, i2,
+                         need_t: bool = True, need_v: bool = True):
+    """The backward kernel on prepared inputs (see `_prepare`), g [A, B]
+    and the forward kernel's residuals (`residual_buffers`): (dtn or None,
+    dvn or None, dtw, dvw).  A side not asked for launches nothing; every
+    sum is in a fixed order, so two calls give the same bits and a one-side
+    call its side of the both-side call's.  A CPU tensor takes
+    `similarity_bwd_routed_plain`."""
     if not tn.is_cuda:
-        return similarity_bwd_plain(tn, vn, tw, vw, g)
-    A, T, D = tn.shape
-    B, V, _ = vn.shape
-    g = g.float().contiguous()
-    _check_cuda("g", g, torch.float32, (A, B))
-    dev = tn.device
-    m1 = torch.empty((A, T, B), dtype=torch.float32, device=dev)
-    m2 = torch.empty((A, B, V), dtype=torch.float32, device=dev)
-    i1 = torch.empty((A, T, B), dtype=torch.uint8, device=dev)
-    i2 = torch.empty((A, B, V), dtype=torch.uint8, device=dev)
-    # partial sums of the gather kernels where a short side is walked in
-    # several ranges
-    n_part = _build.function(_LIB, "interaction_similarity_bwd_scratch",
-                             [ctypes.c_int] * 5)(A, B, T, V, D)
-    part = torch.empty((max(n_part, 1),), dtype=torch.float32, device=dev)
-    dtn, dvn = torch.empty_like(tn), torch.empty_like(vn)
-    dtw, dvw = torch.empty_like(tw), torch.empty_like(vw)
-    fn = _build.function(_LIB, "interaction_similarity_bwd", _BWD_ARGTYPES)
-    P = _build.ptr
-    with torch.cuda.device(dev):
-        err = fn(P(tn), P(vn), P(tw), P(vw), P(g), P(m1), P(m2), P(i1), P(i2),
-                 P(part), P(dtn), P(dtw), P(dvn), P(dvw), A, B, T, V, D,
-                 _build.stream())
-    _build.check(err, "interaction_similarity_bwd")
+        return similarity_bwd_routed_plain(tn, vn, tw, vw, g, m1, i1, m2, i2,
+                                           need_t, need_v)
+    out = routed_bwd_call(_LIB, "interaction_similarity_bwd", tn, vn, tw, vw,
+                          g, (m1, i1, m2, i2), need_t, need_v)
     fused_similarity_bwd.launches += 1
-    return dtn, dvn, dtw, dvw
+    return out
 
 
 fused_similarity_bwd.launches = 0
 
 
+def _wants_grad(*xs) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+def _similarity_nograd(tn, vn, tw, vw, axis, kernels) -> torch.Tensor:
+    """The forward with nothing saved, as `_Similarity` computes it."""
+    if not kernels:
+        sim = _similarity_plain(tn, vn, tw, vw)
+        return sim if axis is None else sim.mean(dim=axis)
+    if axis is None:
+        return _similarity_fwd(tn, vn, tw, vw)[0]
+    return _mean_fwd(tn, vn, tw, vw, axis)[0]
+
+
 class _Similarity(torch.autograd.Function):
-    """S [A, B] (axis None) or its mean over `axis`, on prepared inputs;
-    the backward expands a mean's cotangent to its rank-1 [A, B] form and
-    runs the one backward, kernel or plain."""
+    """S [A, B] (axis None) or its mean over `axis`, on prepared inputs,
+    the routing saved (kernel or plain) for a backward that recomputes
+    nothing; the backward expands a mean's cotangent to its rank-1 [A, B]
+    form and computes the feature gradients autograd asks for."""
 
     @staticmethod
     def forward(ctx, tn, vn, tw, vw, axis, kernels):
-        ctx.save_for_backward(tn, vn, tw, vw)
         ctx.axis, ctx.kernels = axis, kernels
         if not kernels:
-            sim = _similarity_plain(tn, vn, tw, vw)
-            return sim if axis is None else sim.mean(dim=axis)
-        if axis is None:
-            return _similarity_fwd(tn, vn, tw, vw)
-        return _mean_fwd(tn, vn, tw, vw, axis)
+            sim, res = similarity_routing_plain(tn, vn, tw, vw)
+            out = sim if axis is None else sim.mean(dim=axis)
+        elif axis is None:
+            out, res = _similarity_fwd(tn, vn, tw, vw, save=True)
+        else:
+            out, res = _mean_fwd(tn, vn, tw, vw, axis, save=True)
+        ctx.save_for_backward(tn, vn, tw, vw, *res)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        tn, vn, tw, vw = ctx.saved_tensors
+        tn, vn, tw, vw, *res = ctx.saved_tensors
         A, B = tn.shape[0], vn.shape[0]
         if ctx.axis == 1:
             g = (g.float() / B)[:, None].expand(A, B)
         elif ctx.axis == 0:
             g = (g.float() / A)[None, :].expand(A, B)
-        bwd = fused_similarity_bwd if ctx.kernels else similarity_bwd_plain
-        return (*bwd(tn, vn, tw, vw, g), None, None)
+        bwd = fused_similarity_bwd if ctx.kernels else \
+            similarity_bwd_routed_plain
+        need_t, need_v = ctx.needs_input_grad[:2]
+        return (*bwd(tn, vn, tw, vw, g, *res, need_t=need_t, need_v=need_v),
+                None, None, None)
 
 
 def fused_interaction_similarity(t_feat, v_feat, t_mask, v_mask, t_weight,
@@ -305,9 +391,11 @@ def fused_interaction_similarity(t_feat, v_feat, t_mask, v_mask, t_weight,
     if kernels and not t_feat.is_cuda:
         return interaction_similarity(t_feat, v_feat, t_mask, v_mask,
                                       t_weight, v_weight)
-    return _Similarity.apply(*_prepare(t_feat, v_feat, t_mask, v_mask,
-                                       t_weight, v_weight, kernels),
-                             None, kernels)
+    prep = _prepare(t_feat, v_feat, t_mask, v_mask, t_weight, v_weight,
+                    kernels)
+    if _wants_grad(*prep):
+        return _Similarity.apply(*prep, None, kernels)
+    return _similarity_nograd(*prep, None, kernels)
 
 
 fused_interaction_similarity.launches = 0
@@ -329,9 +417,11 @@ def fused_interaction_mean(t_feat, v_feat, t_mask, v_mask, t_weight, v_weight,
     if kernels and sim_dtype != "float32":
         raise ValueError(f"the bank-centrality kernel computes in float32; "
                          f"sim_dtype='{sim_dtype}' has no CUDA kernel yet")
-    return _Similarity.apply(*_prepare(t_feat, v_feat, t_mask, v_mask,
-                                       t_weight, v_weight, kernels),
-                             axis, kernels)
+    prep = _prepare(t_feat, v_feat, t_mask, v_mask, t_weight, v_weight,
+                    kernels)
+    if _wants_grad(*prep):
+        return _Similarity.apply(*prep, axis, kernels)
+    return _similarity_nograd(*prep, axis, kernels)
 
 
 fused_interaction_mean.launches = 0

@@ -29,6 +29,15 @@ the wrapper takes them).
 --step then runs each tree's chip_smoke.py phase 12b (the fused ViT-B/32
 train run, every attention sublayer through K8/K9) in turns A, B, B, A and
 prints its ms/step lines.
+
+--sdpa TREE times that tree's K8 and K9 against
+`scaled_dot_product_attention` and its backward (phase 11's yardstick, the
+same strided views and bf16 mask) in one process, in turns kernel, library,
+library, kernel, three rounds, at every shape: device time behind a sleep
+and one call between two events, and the ratios of their means.
+
+    python3 -m neighborretr_tpu_torch.tools.attention_probe --sdpa . \
+        [--out build/attention_sdpa.json]
 """
 
 from __future__ import annotations
@@ -71,43 +80,48 @@ def _inputs(torch, seed, N, L, H, bias_kind):
     return qkv, dout, bias
 
 
+def _call_ms(torch, fn, reps):
+    """Median ms of one call between two CUDA events (host and device)."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def _device_ms(torch, fn, reps):
+    """(ms per call of `reps` calls queued behind a sleep kernel, whether
+    the host queued them all within the sleep)."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    s0 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    s0.record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    a.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    queued_ms = 1e3 * (time.perf_counter() - t0)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps, queued_ms < s0.elapsed_time(a)
+
+
 def _worker(tree: str) -> dict:
     sys.path.insert(0, os.path.abspath(tree))
     import torch
     from neighborretr_tpu_torch.ops import _build
     from neighborretr_tpu_torch.ops import attention as A
-
-    def call_ms(fn, reps):
-        for _ in range(3):
-            fn()
-        times = []
-        for _ in range(reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
-
-    def device_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        s0 = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        s0.record()
-        torch.cuda._sleep(SLEEP_CYCLES)
-        a.record()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        queued_ms = 1e3 * (time.perf_counter() - t0)
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b) / reps, queued_ms < s0.elapsed_time(a)
 
     def host_us(fn, n=200):       # K9's 400 launches fit the launch queue
         for _ in range(20):
@@ -143,9 +157,9 @@ def _worker(tree: str) -> dict:
         reps = 50 if L <= 64 else 10
         row = {}
         for kern, fn in (("K8", fwd), ("K9", bwd)):
-            dev, queued = device_ms(fn, reps)
-            row[kern] = {"call_ms": call_ms(fn, reps), "device_ms": dev,
-                         "queued": queued}
+            dev, queued = _device_ms(torch, fn, reps)
+            row[kern] = {"call_ms": _call_ms(torch, fn, reps),
+                         "device_ms": dev, "queued": queued}
         if N == 128:
             row["K8"]["host_us"] = host_us(fwd)
             row["K9"]["host_us"] = host_us(bwd)
@@ -187,10 +201,56 @@ def _worker(tree: str) -> dict:
     return result
 
 
+def _sdpa(tree: str) -> dict:
+    """K8 / K9 against the library's call in turns, in one process."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+    import torch.nn.functional as F
+    from neighborretr_tpu_torch.ops import attention as A
+
+    result = {}
+    for name, N, L, H, kind in SHAPES:
+        D = 64 * H
+        qkv, dout, bias = _inputs(torch, 1, N, L, H, kind)
+        out, lse = A.frame_attention(qkv, H, bias, return_lse=True)
+        q, k, v = (t.view(N, L, H, 64).transpose(1, 2)
+                   for t in qkv.split(D, dim=-1))
+        mask = None if bias is None else bias.bfloat16()[:, None]
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        lib = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+        lib_g = dout.view(N, L, H, 64).transpose(1, 2)
+        fns = {"K8": lambda: A.frame_attention(qkv, H, bias, return_lse=True),
+               "SDPA": lambda: F.scaled_dot_product_attention(
+                   q, k, v, attn_mask=mask),
+               "K9": lambda: A.frame_attention_bwd(qkv, H, dout, bias,
+                                                   out=out, lse=lse),
+               "SDPA bwd": lambda: torch.autograd.grad(
+                   lib, leaves, lib_g, retain_graph=True)}
+        reps = 50 if L <= 64 else 10
+        row = {k: {"device_ms": [], "call_ms": []} for k in fns}
+        for _ in range(3):
+            for kern in ("K8", "SDPA", "SDPA", "K8", "K9", "SDPA bwd",
+                         "SDPA bwd", "K9"):
+                row[kern]["device_ms"].append(
+                    _device_ms(torch, fns[kern], reps)[0])
+                row[kern]["call_ms"].append(_call_ms(torch, fns[kern], reps))
+        for key in ("device_ms", "call_ms"):
+            row[f"K8 / SDPA {key}"] = (statistics.mean(row["K8"][key])
+                                       / statistics.mean(row["SDPA"][key]))
+            row[f"K9 / SDPA bwd {key}"] = (
+                statistics.mean(row["K9"][key])
+                / statistics.mean(row["SDPA bwd"][key]))
+        result[name] = row
+        del qkv, dout, bias, out, lse, lib, leaves
+        torch.cuda.empty_cache()
+    return result
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("tree_a")
-    ap.add_argument("tree_b")
+    ap.add_argument("tree_a", nargs="?")
+    ap.add_argument("tree_b", nargs="?")
+    ap.add_argument("--sdpa", default=None)
     ap.add_argument("--step", action="store_true")
     ap.add_argument("--out", default=None)
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
@@ -203,6 +263,20 @@ def main():
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip().splitlines()
     print(card[0] if card else "nvidia-smi: no card")
+    if args.sdpa:
+        res = _sdpa(args.sdpa)
+        for name, row in res.items():
+            print(f"{name}:")
+            for kern in ("K8", "SDPA", "K9", "SDPA bwd"):
+                for key in ("device_ms", "call_ms"):
+                    print(f"  {kern} {key:9s} " + " ".join(
+                        f"{t:.4f}" for t in row[kern][key]))
+            print("  kernel / library (means): " + ", ".join(
+                f"{k} {v:.3f}" for k, v in row.items() if "/" in k))
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"card": card, "sdpa": res}, f, indent=1)
+        return
     runs = []
     for label, tree in (("A", args.tree_a), ("B", args.tree_b),
                         ("B", args.tree_b), ("A", args.tree_a)):

@@ -107,6 +107,86 @@ def test_gradients_match_jax_blocked_kernel(A, B, T, V, D, ragged):
                                    err_msg=name)
 
 
+SIDES = {"text": (0, 4, 5), "video": (1, 4, 5), "both": (0, 1, 4, 5)}
+
+
+@pytest.mark.parametrize("side", ["text", "video", "both"])
+@pytest.mark.parametrize("A,B,T,V,D,ragged", [(8, 16, 64, 64, 16, False),
+                                              (4, 24, 33, 16, 16, False),
+                                              (6, 10, 64, 32, 16, True),
+                                              (5, 7, 1, 64, 16, True),
+                                              (5, 7, 64, 1, 16, True)])
+def test_routed_backward_matches_jax_blocked_kernel(A, B, T, V, D, ragged,
+                                                    side):
+    """The backward from the forward's saved routing with one side of
+    features asking for a gradient, or both: None for a side not asked
+    for, the rest the Pallas kernel's VJP (tolerances as above)."""
+    args = make_inputs(A + 2 * B + T, A, B, T, V, D, ragged)
+    probe = np.random.default_rng(5).normal(size=(A, B)).astype(np.float32)
+    leaves = [torch.tensor(a, requires_grad=i in SIDES[side])
+              for i, a in enumerate(args)]
+    (SB.fused_interaction_similarity_blocked(*leaves)
+     * torch.tensor(probe)).sum().backward()
+    want = jax_grads(args, probe)
+    for k, i in enumerate((0, 1, 4, 5)):
+        if i not in SIDES[side]:
+            assert leaves[i].grad is None
+            continue
+        np.testing.assert_allclose(leaves[i].grad.numpy(), want[k],
+                                   rtol=2e-4, atol=2e-5)
+
+
+def test_routing_chunks_do_not_change_the_result():
+    """The chunked routing is the whole routing, bit for bit; the chunked
+    routed backward is the whole one within fp32 round-off, each side."""
+    args = [torch.tensor(a) for a in make_inputs(19, 5, 11, 16, 8, 32, True)]
+    tn, vn, tw, vw = S._prepare(*args, False)
+    g = torch.randn(5, 11, generator=torch.Generator().manual_seed(3))
+    cap = 5 * 16 * 8 * 4                        # one video per chunk
+    whole_s, whole = S.similarity_routing_plain(tn, vn, tw, vw)
+    got_s, got = SB.similarity_blocked_routing_plain(tn, vn, tw, vw, cap)
+    assert torch.equal(got_s, whole_s)
+    assert all(torch.equal(a, b) for a, b in zip(got, whole))
+    for need_t, need_v in ((True, True), (True, False), (False, True)):
+        a = SB.similarity_blocked_bwd_routed_plain(
+            tn, vn, tw, vw, g, *got, need_t, need_v, cap)
+        b = S.similarity_bwd_routed_plain(tn, vn, tw, vw, g, *whole, need_t,
+                                          need_v)
+        for x, y in zip(a, b):
+            assert (x is None) == (y is None)
+            if x is not None:
+                np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=1e-5,
+                                           atol=1e-6)
+
+
+def test_routing_hook_sees_and_replaces_the_plain_routing(monkeypatch):
+    """The diagnostic hook gets the winners the backward routes by, all B
+    videos at once; on the plain path what it returns is routed by."""
+    args = make_inputs(21, 3, 5, 8, 6, 16, True)
+    seen = []
+
+    def grads(hook):
+        monkeypatch.setattr(SB, "routing_hook", hook)
+        leaves = [torch.tensor(a, requires_grad=i in (0, 1, 4, 5))
+                  for i, a in enumerate(args)]
+        SB.fused_interaction_similarity_blocked(*leaves).sum().backward()
+        return [leaves[i].grad for i in (0, 1)]
+
+    def record(i1, i2, videos, n):
+        seen.append((i1.clone(), i2.clone(), videos, n))
+
+    def shifted(i1, i2, videos, n):      # every text token to video token 0
+        return torch.zeros_like(i1), i2
+
+    base = grads(record)
+    (i1, i2, videos, n), = seen
+    assert i1.shape == (3, 5, 8) and i2.shape == (3, 5, 6)
+    assert videos == slice(0, 5) and n == 5
+    assert all(torch.equal(a, b) for a, b in zip(base, grads(None)))
+    moved = grads(shifted)
+    assert not torch.allclose(moved[0], base[0])
+
+
 def test_gradient_ties_route_to_the_first_index():
     """Duplicated token features tie the max over v and over t: both sides
     send the gradient to the first index, where autograd of amax would

@@ -91,22 +91,24 @@ def test_mean_kernel_refuses_bfloat16(cuda):
 @pytest.mark.parametrize("A,B,T,V,D", SIM_SHAPES)
 def test_similarity_backward_kernel_matches_plain(cuda, A, B, T, V, D):
     """Masked tokens make whole rows of logits tie at 0; duplicated video
-    tokens make ties among live logits too."""
+    tokens make ties among live logits too.  The backward routes by the
+    forward kernel's residuals."""
     tf, vf, tm, vm, tw, vw = sim_inputs(A * B, A, B, T, V, D, cuda)
     vf[:, V - 1] = vf[:, 0]
     vm[:, V - 1] = vm[:, 0]
     tn, vn, tw, vw = S._prepare(tf, vf, tm, vm, tw, vw, True)
     g = torch.as_tensor(np.random.default_rng(7).standard_normal((A, B)),
                         dtype=torch.float32, device=cuda)
+    _, res = S._similarity_fwd(tn, vn, tw, vw, save=True)
     before = S.fused_similarity_bwd.launches
-    got = S.fused_similarity_bwd(tn, vn, tw, vw, g)
+    got = S.fused_similarity_bwd(tn, vn, tw, vw, g, *res)
     torch.cuda.synchronize()
     assert S.fused_similarity_bwd.launches == before + 1
     want = S.similarity_bwd_plain(tn, vn, tw, vw, g)
     for name, a, b in zip(("dtn", "dvn", "dtw", "dvw"), got, want):
         torch.testing.assert_close(a, b, atol=2e-5 * max(A, B) ** 0.5,
                                    rtol=1e-4, msg=lambda m: f"{name}: {m}")
-    again = S.fused_similarity_bwd(tn, vn, tw, vw, g)
+    again = S.fused_similarity_bwd(tn, vn, tw, vw, g, *res)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
@@ -170,19 +172,157 @@ def test_blocked_backward_kernel_matches_plain(cuda, A, B, T, V, D):
     """On inputs with exact logits every gradient agrees elementwise, ties
     included, and two runs give the same bits."""
     tn, vn, tw, vw, g = exact_inputs(A * B, A, B, T, V, D, cuda)
-    out, m1, i1 = SB._blocked_fwd(tn, vn, tw, vw, save=True)
+    out, res = SB._blocked_fwd(tn, vn, tw, vw, save=True)
     torch.testing.assert_close(out, SB.similarity_blocked_plain(tn, vn, tw, vw),
                                **K2_TOL)
     before = SB.fused_blocked_similarity_bwd.launches
-    got = SB.fused_blocked_similarity_bwd(tn, vn, tw, vw, g, m1, i1)
+    got = SB.fused_blocked_similarity_bwd(tn, vn, tw, vw, g, *res)
     torch.cuda.synchronize()
     assert SB.fused_blocked_similarity_bwd.launches == before + 1
     want = SB.similarity_blocked_bwd_plain(tn, vn, tw, vw, g)
     for name, a, b in zip(("dtn", "dvn", "dtw", "dvw"), got, want):
         torch.testing.assert_close(a, b, atol=2e-5 * max(A, B) ** 0.5,
                                    rtol=1e-4, msg=lambda m: f"{name}: {m}")
-    again = SB.fused_blocked_similarity_bwd(tn, vn, tw, vw, g, m1, i1)
+    again = SB.fused_blocked_similarity_bwd(tn, vn, tw, vw, g, *res)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# the routed backward (K5, K7) from the forward kernels' residuals, one side
+# and both: T = 1, V = 1, the widest flat tokens (T = 64, V = 16) and
+# blocked ones (64 x 64), A or B under 32, walks split into ranges (a short
+# owner side against a long partner side), D off the 128-column slab
+ROUTED_SHAPES = [("flat", 5, 37, 1, 3, 64), ("flat", 9, 40, 7, 1, 64),
+                 ("flat", 3, 300, 64, 16, 128), ("flat", 200, 24, 24, 12, 96),
+                 ("flat", 128, 1920, 24, 12, 512),
+                 ("flat", 1920, 128, 24, 12, 512),
+                 ("blocked", 3, 9, 64, 64, 32), ("blocked", 9, 5, 33, 17, 48),
+                 ("blocked", 20, 600, 64, 64, 160),
+                 ("blocked", 128, 1920, 64, 64, 512),
+                 ("blocked", 1920, 128, 64, 64, 512)]
+
+
+def routed_forward(kind, tn, vn, tw, vw):
+    if kind == "flat":
+        return S._similarity_fwd(tn, vn, tw, vw, save=True)
+    return SB._blocked_fwd(tn, vn, tw, vw, save=True)
+
+
+@pytest.mark.parametrize("kind,A,B,T,V,D", ROUTED_SHAPES)
+def test_saved_routing_is_the_plain_first_argmax(cuda, kind, A, B, T, V, D):
+    """Exact logits: the residuals equal the plain routing, ties included,
+    and S the plain S."""
+    tn, vn, tw, vw, _ = exact_inputs(A + B, A, B, T, V, D, cuda)
+    out, res = routed_forward(kind, tn, vn, tw, vw)
+    torch.cuda.synchronize()
+    if A * B * T * V <= 2 ** 27:
+        want_s, want = S.similarity_routing_plain(tn, vn, tw, vw)
+    else:
+        want_s, want = SB.similarity_blocked_routing_plain(tn, vn, tw, vw)
+    torch.testing.assert_close(out, want_s, **K2_TOL)
+    m1, i1, m2, i2 = res
+    assert torch.equal(m1, want[0]) and torch.equal(m2, want[2])
+    assert torch.equal(i1[..., :T], want[1])
+    assert torch.equal(i2[..., :V], want[3])
+
+
+@pytest.mark.parametrize("kind,A,B,T,V,D", ROUTED_SHAPES)
+def test_routed_backward_one_side_and_both(cuda, kind, A, B, T, V, D):
+    """Exact logits: both sides against the plain routed backward; each side
+    alone gives the both-side call's bits for it; two runs give the same
+    bits."""
+    tn, vn, tw, vw, g = exact_inputs(A * B + T, A, B, T, V, D, cuda)
+    _, res = routed_forward(kind, tn, vn, tw, vw)
+    bwd = (S.fused_similarity_bwd if kind == "flat"
+           else SB.fused_blocked_similarity_bwd)
+    both = bwd(tn, vn, tw, vw, g, *res)
+    torch.cuda.synchronize()
+    if A * B * T * V <= 2 ** 27:
+        want = S.similarity_bwd_routed_plain(tn, vn, tw, vw, g, *res)
+    else:
+        want = SB.similarity_blocked_bwd_routed_plain(tn, vn, tw, vw, g, *res)
+    for name, a, b in zip(("dtn", "dvn", "dtw", "dvw"), both, want):
+        torch.testing.assert_close(a, b, atol=2e-5 * max(A, B) ** 0.5,
+                                   rtol=1e-4, msg=lambda m: f"{name}: {m}")
+    text = bwd(tn, vn, tw, vw, g, *res, need_v=False)
+    video = bwd(tn, vn, tw, vw, g, *res, need_t=False)
+    assert text[1] is None and video[0] is None
+    assert torch.equal(text[0], both[0]) and torch.equal(video[1], both[1])
+    for one in (text, video):
+        assert torch.equal(one[2], both[2]) and torch.equal(one[3], both[3])
+    again = bwd(tn, vn, tw, vw, g, *res)
+    assert all(torch.equal(a, b) for a, b in zip(both, again))
+
+
+@pytest.mark.parametrize("kind,A,B,T,V,D", [("flat", 40, 200, 24, 12, 128),
+                                            ("flat", 128, 1920, 24, 12, 512),
+                                            ("blocked", 40, 200, 64, 64, 128)])
+def test_one_side_launches_one_gather(cuda, kind, A, B, T, V, D):
+    """Counted by the profiler: a backward asked for one feature side
+    launches one gather kernel, a both-side backward two."""
+    from torch.profiler import ProfilerActivity, profile
+    tn, vn, tw, vw, g = exact_inputs(A + T, A, B, T, V, D, cuda)
+    _, res = routed_forward(kind, tn, vn, tw, vw)
+    bwd = (S.fused_similarity_bwd if kind == "flat"
+           else SB.fused_blocked_similarity_bwd)
+
+    def gathers(**side):
+        bwd(tn, vn, tw, vw, g, *res, **side)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as trace:
+            bwd(tn, vn, tw, vw, g, *res, **side)
+            torch.cuda.synchronize()
+        return sum(e.count for e in trace.key_averages()
+                   if "routed_gather_kernel" in e.key)
+
+    assert [gathers(need_v=False), gathers(need_t=False), gathers()] == \
+        [1, 1, 2]
+
+
+@pytest.mark.parametrize("form", ["similarity", "mean0", "mean1", "blocked"])
+def test_autograd_forward_keeps_the_no_grad_bits(cuda, form):
+    """The forward kernels with their residual stores (under autograd) give
+    the bits of the forward without them."""
+    T, V = (64, 64) if form == "blocked" else (24, 12)
+    args = sim_inputs(11, 70, 300, T, V, 128, cuda)
+
+    def run(grad):
+        leaves = [a.clone().requires_grad_(grad and i in (0, 4))
+                  for i, a in enumerate(args)]
+        if form == "similarity":
+            return S.fused_interaction_similarity(*leaves)
+        if form == "blocked":
+            return SB.fused_interaction_similarity_blocked(*leaves)
+        return S.fused_interaction_mean(*leaves, axis=int(form[-1]))
+
+    assert torch.equal(run(True).detach(), run(False))
+
+
+@pytest.mark.parametrize("blocked", [False, True])
+def test_detached_partner_gets_no_gradient_on_the_card(cuda, blocked):
+    """The bank's side is detached in the train step: its features get no
+    gradient, in one backward call; the rest equals the both-side run's
+    bits."""
+    T, V = (64, 64) if blocked else (24, 12)
+    args = sim_inputs(12, 40, 200, T, V, 128, cuda)
+    fwd = (SB.fused_interaction_similarity_blocked if blocked
+           else lambda *x: S.fused_interaction_mean(*x, axis=1))
+    bwd = (SB.fused_blocked_similarity_bwd if blocked
+           else S.fused_similarity_bwd)
+
+    def grads(need_v):
+        leaves = [a.clone().requires_grad_(i in (0, 4, 5) or
+                                           (need_v and i == 1))
+                  for i, a in enumerate(args)]
+        fwd(*leaves).square().sum().backward()
+        return [leaves[i].grad for i in (0, 1, 4, 5)]
+
+    both = grads(True)
+    before = bwd.launches
+    one = grads(False)
+    assert bwd.launches == before + 1
+    assert one[1] is None and both[1] is not None
+    for a, b in zip((one[0], one[2], one[3]), (both[0], both[2], both[3])):
+        assert torch.equal(a, b)
 
 
 def test_blocked_autograd_kernels_match_plain(cuda):

@@ -217,6 +217,139 @@ def test_interaction_mean_gradient_matches_pallas(axis):
         np.testing.assert_allclose(a, np.asarray(b), atol=2e-5, rtol=1e-4)
 
 
+# The backward from the forward's saved routing, one feature side or both:
+# the side autograd does not ask for gets no gradient (the memory bank's
+# side is detached in the train step), the others are the Pallas VJP's.
+SIDES = {"text": (0, 4, 5), "video": (1, 4, 5), "both": (0, 1, 4, 5)}
+
+
+def jax_similarity_grads(args, probe, axis=None):
+    tf, vf, tm, vm, tw, vw = map(jnp.asarray, args)
+
+    def loss(tf, vf, tw, vw):
+        if axis is None:
+            out = pallas_interaction_similarity(tf, vf, tm, vm, tw, vw,
+                                                interpret=True)
+        else:
+            out = pallas_interaction_mean(tf, vf, tm, vm, tw, vw, axis=axis,
+                                          interpret=True)
+        return jnp.sum(out * probe)
+
+    return [np.asarray(g) for g in
+            jax.grad(loss, argnums=(0, 1, 2, 3))(tf, vf, tw, vw)]
+
+
+def port_side_grads(args, probe, side, axis=None):
+    """The port's gradients of sum(out * probe) with only `side`'s features
+    (and both weights) asking for one: None where none was asked."""
+    leaves = [T(a).requires_grad_(i in SIDES[side])
+              for i, a in enumerate(args)]
+    if axis is None:
+        out = S.fused_interaction_similarity(*leaves, kernels=False)
+    else:
+        out = S.fused_interaction_mean(*leaves, axis=axis)
+    (out * T(probe)).sum().backward()
+    return [None if leaves[i].grad is None else leaves[i].grad.numpy()
+            for i in (0, 1, 4, 5)]
+
+
+@pytest.mark.parametrize("side", ["text", "video", "both"])
+@pytest.mark.parametrize("A,B,T_,V,D", [(6, 9, 5, 4, 32), (3, 20, 12, 6, 16),
+                                        (4, 7, 1, 3, 16), (5, 6, 8, 1, 16)])
+def test_routed_backward_plain_matches_pallas_vjp(A, B, T_, V, D, side):
+    """Ties on purpose (masked rows, a duplicated video token); T = 1 and
+    V = 1 included.  fp32: the JAX suite's tolerance for this kernel."""
+    args = tie_inputs(A + 3 * B + T_, A, B, T_, V, D)
+    probe = np.random.default_rng(4).normal(size=(A, B)).astype(np.float32)
+    want = jax_similarity_grads(args, probe)
+    got = port_side_grads(args, probe, side)
+    for k, (g, w) in enumerate(zip(got, want)):
+        if k < 2 and (0, 1)[k] not in SIDES[side]:
+            assert g is None
+            continue
+        np.testing.assert_allclose(g, w, atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("side", ["text", "video"])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_routed_mean_backward_matches_pallas_vjp(axis, side):
+    """The bank centrality as the train step differentiates it: one side
+    of features asks for a gradient (cent_t: the captions, cent_v: the
+    videos), both weights do."""
+    A, B, T_, V, D = 6, 19, 8, 4, 32
+    args = tie_inputs(5 + axis, A, B, T_, V, D)
+    probe = np.random.default_rng(6).normal(
+        size=(A if axis == 1 else B,)).astype(np.float32)
+    want = jax_similarity_grads(args, probe, axis)
+    got = port_side_grads(args, probe, side, axis)
+    k_none = 1 if side == "text" else 0
+    assert got[k_none] is None
+    for k, (g, w) in enumerate(zip(got, want)):
+        if k != k_none:
+            np.testing.assert_allclose(g, w, atol=2e-5, rtol=1e-4)
+
+
+def test_routing_plain_is_the_first_argmax():
+    """The saved routing is the first index of each max (ties included) and
+    S is the plain S to the bit."""
+    A, B, T_, V, D = 5, 7, 6, 4, 16
+    args = [T(a) for a in tie_inputs(11, A, B, T_, V, D)]
+    tn, vn, tw, vw = S._prepare(*args, False)
+    sim, (m1, i1, m2, i2) = S.similarity_routing_plain(tn, vn, tw, vw)
+    assert torch.equal(sim, S._similarity_plain(tn, vn, tw, vw))
+    logits = np.einsum("atd,bvd->abtv", tn.numpy(), vn.numpy())
+    assert i1.dtype == torch.uint8 and i2.dtype == torch.uint8
+    np.testing.assert_array_equal(i1.numpy(), np.argmax(logits, axis=3))
+    np.testing.assert_array_equal(i2.numpy(), np.argmax(logits, axis=2))
+    np.testing.assert_allclose(m1.numpy(), logits.max(axis=3), rtol=1e-6,
+                               atol=1e-7)
+    np.testing.assert_allclose(m2.numpy(), logits.max(axis=2), rtol=1e-6,
+                               atol=1e-7)
+    # ties do occur: every masked token's logits are all 0
+    assert (logits.max(axis=3) == 0).any()
+
+
+def test_routed_backward_one_side_is_the_both_side_bits():
+    A, B, T_, V, D = 4, 9, 7, 3, 16
+    args = [T(a) for a in tie_inputs(12, A, B, T_, V, D)]
+    tn, vn, tw, vw = S._prepare(*args, False)
+    g = torch.randn(A, B, generator=torch.Generator().manual_seed(1))
+    _, res = S.similarity_routing_plain(tn, vn, tw, vw)
+    both = S.similarity_bwd_routed_plain(tn, vn, tw, vw, g, *res)
+    text = S.similarity_bwd_routed_plain(tn, vn, tw, vw, g, *res,
+                                         need_v=False)
+    video = S.similarity_bwd_routed_plain(tn, vn, tw, vw, g, *res,
+                                          need_t=False)
+    none = S.similarity_bwd_routed_plain(tn, vn, tw, vw, g, *res,
+                                         need_t=False, need_v=False)
+    assert text[1] is None and video[0] is None
+    assert none[0] is None and none[1] is None
+    assert torch.equal(text[0], both[0]) and torch.equal(video[1], both[1])
+    for one in (text, video, none):
+        assert torch.equal(one[2], both[2]) and torch.equal(one[3], both[3])
+    # the CPU wrapper of the kernel is this plain backward
+    before = S.fused_similarity_bwd.launches
+    wrapped = S.fused_similarity_bwd(tn, vn, tw, vw, g, *res, need_v=False)
+    assert S.fused_similarity_bwd.launches == before
+    assert wrapped[1] is None and torch.equal(wrapped[0], text[0])
+
+
+@pytest.mark.parametrize("axis", [None, 0, 1])
+def test_detached_partner_gets_no_gradient(axis):
+    """A detached bank side: None for it, the needed gradients unchanged
+    (bit for bit against the run that differentiates both sides)."""
+    A, B, T_, V, D = 5, 8, 6, 4, 16
+    args = tie_inputs(13, A, B, T_, V, D)
+    probe = np.random.default_rng(2).normal(
+        size=(A, B) if axis is None else
+        ((A,) if axis == 1 else (B,))).astype(np.float32)
+    both = port_side_grads(args, probe, "both", axis)
+    one = port_side_grads(args, probe, "text", axis)
+    assert one[1] is None and both[1] is not None
+    for k in (0, 2, 3):
+        np.testing.assert_array_equal(one[k], both[k])
+
+
 # ---------------------------------------------------------------------------
 # DPC-KNN, merge_tokens, CTM
 # ---------------------------------------------------------------------------

@@ -19,7 +19,9 @@ Phases (each prints its own lines; any failure exits non-zero):
                long-token trainer's shapes (vision, text, temporal), with
                each shape's share of the bound;
   4. K2      — the similarity kernel against its plain version at
-               Q=64, T=24, N=10,000, V=12, D=512;
+               Q = 64, 8 and 1 queries against N=10,000 videos (T=24, V=12,
+               D=512), each timed beside its bound as SIMT fp32 and as
+               3xTF32 (the kernel's arithmetic) and its share of both;
   5. serving — indexes a 64-video synthetic corpus (one index batch) with
                the full-width ViT-B/32 model (seeded random weights, bf16)
                and answers three requests of 1, 8 and 64 queries through a
@@ -38,7 +40,8 @@ Phases (each prints its own lines; any failure exits non-zero):
                against the plain routed backward, each side alone against
                both (bit-equal), run twice; on exact logits the saved
                routing against the plain first argmax; timed in the train
-               step's form (one side) and with both;
+               step's form (one side) and with both; K4's time beside both
+               bounds (SIMT fp32, 3xTF32);
   8. train   — full-width model, batch 128, memory bank 15 x 128 = 1920:
                bank fill, then 3 optimizer steps on distinct batches through
                the kernels; checks launch counts, finite losses, that
@@ -59,7 +62,8 @@ Phases (each prints its own lines; any failure exits non-zero):
                both (bit-equal), run twice; inputs whose logits are exact
                in fp32 for the saved routing against the plain first
                argmax and the elementwise check of all four gradients; K6
-               timed with and without its residual stores, K7 in the train
+               timed with and without its residual stores beside both
+               bounds (SIMT fp32, its route, and 3xTF32), K7 in the train
                step's form and with both sides; the forward also timed at
                an eval shape;
  10. trainer — `neighborretr_tpu_torch.cli.train` at the reference's
@@ -130,6 +134,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -222,8 +227,10 @@ K7_REAL_REL_L2 = 1e-3
 ONE_SIDE_SHARE = 0.85
 
 # NVIDIA's data sheet for the H100 SXM: dense bf16 tensor-core rate, fp32
-# rate outside the tensor cores, device memory rate
+# rate outside the tensor cores, device memory rate; the dense TF32
+# tensor-core rate (the sheet's 989 is with sparsity)
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+PEAK_TF32 = 494.7e12
 
 
 def bound(flops: float, peak: float, nbytes: float):
@@ -232,6 +239,20 @@ def bound(flops: float, peak: float, nbytes: float):
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def sim_bounds(flops: float, nb: float):
+    """The two bounds of a similarity forward of `flops` FLOP (2·A·T·B·V·D)
+    moving `nb` bytes: (SIMT fp32 ms, which, 3xTF32 ms, which) — fp32 FMAs
+    outside the tensor cores, or three TF32 products a logit on them (the
+    3xTF32 split)."""
+    return (*bound(flops, PEAK_FP32, nb), *bound(3 * flops, PEAK_TF32, nb))
+
+
+def bound_shares(ms: float, b: tuple) -> str:
+    return (f"bound {b[0]:.4f} ms ({b[1]}) as SIMT fp32, {100 * b[0] / ms:.1f}%"
+            f" of it; {b[2]:.4f} ms ({b[3]}) as 3xTF32, "
+            f"{100 * b[2] / ms:.1f}% of it")
 
 
 def nbytes(*tensors) -> int:
@@ -328,10 +349,21 @@ def phase_build():
     for name in LIBS:
         log = _build.compiler_log(name)
         regs = [int(w.split()[0]) for w in log.split("Used ")[1:]]
-        spills = sum("spill" in ln and "0 bytes spill stores, 0 bytes spill"
-                     " loads" not in ln for ln in log.splitlines())
+        # per kernel: its (mangled) name, then its spill line
+        spilling = []
+        for entry in log.split("Compiling entry function '")[1:]:
+            kernel = entry.split("'")[0]
+            if any("spill" in ln and "0 bytes spill stores, 0 bytes spill "
+                   "loads" not in ln for ln in entry.splitlines()):
+                short = re.search(r"\d+([a-z_]+_kernel)(I.*?E)?E", kernel)
+                spilling.append(short.group(1) + (short.group(2) or "")
+                                if short else kernel)
+        serialized = sorted({ln.split("(")[1].split(")")[0]
+                             for ln in log.splitlines() if "(C75" in ln})
         print(f"  {name}: {len(regs)} kernels, at most {max(regs, default=0)}"
-              f" registers/thread, {spills} with register spills")
+              f" registers/thread, {len(spilling)} with register spills"
+              f"{' (' + ', '.join(spilling) + ')' if spilling else ''}, "
+              f"wgmma serialization notes: {serialized or 'none'}")
 
 
 def _attn_inputs(g, N, L, D, bias_kind):
@@ -396,44 +428,53 @@ def phase_k1(g):
 
 
 def phase_k2(g):
+    """K2 against its plain version at serving's three request sizes; the
+    64-query request is the one the JSON line reports (the rows of the
+    others go beside it)."""
     print("== phase 4: K2 interaction_similarity vs its plain version")
+    from neighborretr_tpu_torch.ops import similarity as S
     from neighborretr_tpu_torch.ops.similarity import (
         fused_interaction_similarity, interaction_similarity)
-    Q, T, N, V, D = 64, 24, 10_000, 12, 512
+    T, N, V, D = 24, 10_000, 12, 512
     dev = "cuda"
-    tf = torch.randn(Q, T, D, generator=g, device=dev)
     vf = torch.randn(N, V, D, generator=g, device=dev)
-    tlen = torch.randint(2, T + 1, (Q,), generator=g, device=dev)
     vlen = torch.randint(1, V + 1, (N,), generator=g, device=dev)
-    tm = (torch.arange(T, device=dev)[None] < tlen[:, None]).float()
     vm = (torch.arange(V, device=dev)[None] < vlen[:, None]).float()
-    tw = torch.softmax(torch.randn(Q, T, generator=g, device=dev)
-                       .masked_fill(tm == 0, -9e15), -1)
     vw = torch.softmax(torch.randn(N, V, generator=g, device=dev)
                        .masked_fill(vm == 0, -9e15), -1)
-    args = (tf, vf, tm, vm, tw, vw)
-    got = fused_interaction_similarity(*args)
-    torch.cuda.synchronize()
-    want = interaction_similarity(*args)
-    err = compare(f"Q={Q} T={T} N={N} V={V} D={D}", got, want, K2_TOL)
-    ms = time_ms(lambda: fused_interaction_similarity(*args), 10)
-    plain_ms = time_ms(lambda: interaction_similarity(*args), 5)
-    b_ms, b_by = bound(2 * Q * T * N * V * D, PEAK_FP32, nbytes(*args, got))
-    print(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by})")
-    # under autograd the kernel also stores the backward's routing: the
-    # same S to the bit, timed on the prepared inputs both ways
-    from neighborretr_tpu_torch.ops import similarity as S
-    prep = S._prepare(*args, True)
-    if not torch.equal(S._similarity_fwd(*prep, save=True)[0],
-                       S._similarity_fwd(*prep)[0]):
-        raise SystemExit("K2: the forward with its residual stores differs "
-                         "from the one without")
-    bare_ms = time_ms(lambda: S._similarity_fwd(*prep), 10)
-    save_ms = time_ms(lambda: S._similarity_fwd(*prep, save=True), 10)
-    print(f"  on prepared inputs: {bare_ms:.4f} ms, with the residual stores "
-          f"(under autograd) {save_ms:.4f} ms, bit-equal")
-    return err, ms, plain_ms, b_ms, b_by
+    rows = {}
+    for Q in (64, 8, 1):
+        tf = torch.randn(Q, T, D, generator=g, device=dev)
+        tlen = torch.randint(2, T + 1, (Q,), generator=g, device=dev)
+        tm = (torch.arange(T, device=dev)[None] < tlen[:, None]).float()
+        tw = torch.softmax(torch.randn(Q, T, generator=g, device=dev)
+                           .masked_fill(tm == 0, -9e15), -1)
+        args = (tf, vf, tm, vm, tw, vw)
+        got = fused_interaction_similarity(*args)
+        torch.cuda.synchronize()
+        want = interaction_similarity(*args)
+        err = compare(f"Q={Q} T={T} N={N} V={V} D={D}", got, want, K2_TOL)
+        ms = time_ms(lambda: fused_interaction_similarity(*args), 10)
+        plain_ms = time_ms(lambda: interaction_similarity(*args), 5)
+        b = sim_bounds(2 * Q * T * N * V * D, nbytes(*args, got))
+        print(f"  Q={Q}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              + bound_shares(ms, b))
+        rows[f"Q={Q}"] = (err, ms, plain_ms, b[2], b[3], None, b[0])
+        if Q == 64:
+            # under autograd the kernel also stores the backward's routing:
+            # the same S to the bit, timed on the prepared inputs both ways
+            prep = S._prepare(*args, True)
+            if not torch.equal(S._similarity_fwd(*prep, save=True)[0],
+                               S._similarity_fwd(*prep)[0]):
+                raise SystemExit("K2: the forward with its residual stores "
+                                 "differs from the one without")
+            bare_ms = time_ms(lambda: S._similarity_fwd(*prep), 10)
+            save_ms = time_ms(lambda: S._similarity_fwd(*prep, save=True), 10)
+            print(f"  on prepared inputs: {bare_ms:.4f} ms, with the residual"
+                  f" stores (under autograd) {save_ms:.4f} ms, bit-equal")
+            del prep
+        del want
+    return rows
 
 
 def phase_serving(attention_impl="auto"):
@@ -692,15 +733,16 @@ def phase_k4_k5(g):
         bare_ms = time_ms(lambda: S._mean_fwd(*prep, axis), 10)
         save_ms = time_ms(lambda: S._mean_fwd(*prep, axis, save=True), 10)
         plain_ms = time_ms(lambda: S.interaction_mean(*args, axis=axis), 5)
-        b_ms, b_by = bound(flops, PEAK_FP32, nbytes(*args, got))
+        b = sim_bounds(flops, nbytes(*args, got))
+        b_save = sim_bounds(flops, nbytes(*args, got, *res))
         print(f"  K4 axis={axis}: kernel {ms:.4f} ms (wrapper), plain "
-              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); on prepared "
-              f"inputs {bare_ms:.4f} ms, with the residual stores (under "
-              f"autograd) {save_ms:.4f} ms")
-        k4[axis] = (err, ms, plain_ms, b_ms, b_by)
-        k4[f"{axis} saving"] = (err, save_ms, plain_ms,
-                                *bound(flops, PEAK_FP32,
-                                       nbytes(*args, got, *res)))
+              f"{plain_ms:.4f} ms, " + bound_shares(ms, b))
+        print(f"  K4 axis={axis} on prepared inputs: {bare_ms:.4f} ms; with "
+              f"the residual stores (under autograd, the train step's form) "
+              f"{save_ms:.4f} ms, " + bound_shares(save_ms, b_save))
+        k4[axis] = (err, ms, plain_ms, b[2], b[3], None, b[0])
+        k4[f"{axis} saving"] = (err, save_ms, plain_ms, b_save[2], b_save[3],
+                                None, b_save[0])
 
         # the cotangent the train step hands down: a mean's, spread over
         # the reduced axis
@@ -1174,13 +1216,14 @@ def phase_k6_k7(g):
         ms = time_ms(lambda: SB._blocked_fwd(*prep, save=True), 10)
         plain_ms = time_ms(lambda: SB.similarity_blocked_routing_plain(*prep),
                            3)
-        b_ms, b_by = bound(flops, PEAK_FP32, nbytes(*prep, out, *res))
+        b = sim_bounds(flops, nbytes(*prep, out, *res))
+        b_ng = sim_bounds(flops, nbytes(*prep, out))
         print(f"  K6 {tag}: kernel {ms:.4f} ms with the residual stores "
               f"(under autograd), {nograd_ms:.4f} ms without, plain "
-              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-        k6[(A, B)] = (err6, ms, plain_ms, b_ms, b_by)
-        k6[(A, B, "no grad")] = (err6, nograd_ms, plain_ms,
-                                 *bound(flops, PEAK_FP32, nbytes(*prep, out)))
+              f"{plain_ms:.4f} ms; " + bound_shares(ms, b))
+        k6[(A, B)] = (err6, ms, plain_ms, b[0], b[1], None, b[2])
+        k6[(A, B, "no grad")] = (err6, nograd_ms, plain_ms, b_ng[0], b_ng[1],
+                                 None, b_ng[2])
         side = dict(need_t=need == "text", need_v=need == "video")
         ms = time_ms(lambda: SB.fused_blocked_similarity_bwd(
             *prep, cot, *res, **side), 10)
@@ -1216,11 +1259,10 @@ def phase_k6_k7(g):
     plain_ms = time_ms(lambda: [SB.similarity_blocked_plain(
         prep[0][s:s + 128], prep[1], prep[2][s:s + 128], prep[3])
         for s in range(0, n, 128)], 2)
-    b_ms, b_by = bound(2 * n * 64 * n * 64 * 512, PEAK_FP32,
-                       nbytes(*prep, out))
+    b = sim_bounds(2 * n * 64 * n * 64 * 512, nbytes(*prep, out))
     print(f"  K6 eval A=B={n}: kernel {ms:.4f} ms, plain (8 row blocks) "
-          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    k6[(n, n)] = (err, ms, plain_ms, b_ms, b_by)
+          f"{plain_ms:.4f} ms; " + bound_shares(ms, b))
+    k6[(n, n)] = (err, ms, plain_ms, b[0], b[1], None, b[2])
     return k6, k7
 
 
@@ -2282,8 +2324,10 @@ def main():
                ms_plain_bound_by_shape=by_shape(k1_rows)),
         kernel("interaction_similarity", "interaction_similarity.cu",
                "pallas_similarity.py:132",
-               paths("K2"), k2,
-               "Q=64 T=24 N=10000 V=12 D=512"),
+               paths("K2"), worst(k2, "Q=64"),
+               "Q=64 T=24 N=10000 V=12 D=512 (bound: 3xTF32)",
+               bound_fp32_simt_ms=k2["Q=64"][6],
+               ms_plain_bound_by_shape=by_shape(k2)),
         kernel("ln_attention_residual_bwd", "ln_attention_residual_bwd.cu",
                "pallas_block_attention.py:534",
                paths("K3"),
@@ -2292,7 +2336,8 @@ def main():
         kernel("interaction_mean", "interaction_similarity.cu",
                "pallas_similarity.py:455",
                paths("K4"), worst(k4, 1),
-               "A=128 T=24 B=1920 V=12 D=512 axis=1 (no grad)",
+               "A=128 T=24 B=1920 V=12 D=512 axis=1 (no grad; bound: "
+               "3xTF32)", bound_fp32_simt_ms=k4[1][6],
                ms_plain_bound_by_shape=by_shape(k4)),
         kernel("interaction_similarity_bwd", "interaction_similarity.cu",
                "pallas_similarity.py:336",
@@ -2304,7 +2349,8 @@ def main():
                "interaction_similarity_blocked.cu",
                "pallas_similarity_blocked.py:172",
                paths("K6"), worst(k6, (128, 1920)),
-               "A=128 T=64 B=1920 V=64 D=512, with the residual stores",
+               "A=128 T=64 B=1920 V=64 D=512, with the residual stores "
+               "(bound: SIMT fp32)", bound_3xtf32_ms=k6[(128, 1920)][6],
                ms_plain_bound_by_shape=by_shape(k6)),
         kernel("interaction_similarity_blocked_bwd",
                "interaction_similarity_blocked.cu",

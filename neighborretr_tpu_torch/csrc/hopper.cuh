@@ -1,12 +1,14 @@
 // Hopper building blocks shared by the kernels that feed wgmma from the
-// Tensor Memory Accelerator (frame_attention.cuh, sublayer.cuh):
+// Tensor Memory Accelerator (frame_attention.cuh, sublayer.cuh,
+// interaction_similarity.cu):
 // mbarriers whose waits trap instead of holding the card, TMA tile loads,
 // wgmma shared-memory descriptors and instructions, and on the host the
 // tensor-map encoder (libcuda's cuTensorMapEncodeTiled, reached through the
 // runtime: no -lcuda).
 //
 // Every tile these kernels hand to wgmma is a TMA box whose rows are 128
-// bytes (64 bf16) in the 128-byte swizzle, 1024-byte aligned.  One
+// bytes (64 bf16, or 32 fp32 read as TF32) in the 128-byte swizzle,
+// 1024-byte aligned.  One
 // descriptor form serves both operand orientations:
 //   K-major (the contraction runs along a row): 8-row groups 1024 B apart
 //     (SBO); a k-step of 16 advances the start by 32 B;
@@ -193,6 +195,79 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
+// TF32: d[64 x N] += A[64 x 8] · B[8 x N] in fp32, A from registers (per
+// warp the m16n8k8 tf32 fragment: a0 (row g, col t), a1 (g + 8, t), a2 (g,
+// t + 4), a3 (g + 8, t + 4), g = lane / 4, t = lane % 4), B K-major from
+// shared memory in the 128-byte swizzle: 32 fp32 a row, so a k-step of 8
+// advances the descriptor by 32 B, as bf16's k-step of 16 does.  Operands
+// are passed already rounded (tf32_rna: the low 13 bits zero), so that no
+// rounding of the hardware's enters the products.  acc = 0 discards d's old
+// value: d = A · B.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int acc);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<32>(float (&d)[16],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}"
+      ", {%16,%17,%18,%19}, %20, p, 1, 1;\n}\n"
+      : WG_OUT8(0), WG_OUT8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<64>(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,"
+      "%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}"
+      ", {%32,%33,%34,%35}, %36, p, 1, 1;\n}\n"
+      : WG_OUT8(0), WG_OUT8(8), WG_OUT8(16), WG_OUT8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<96>(float (&d)[48],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,"
+      "%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,"
+      "%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47}"
+      ", {%48,%49,%50,%51}, %52, p, 1, 1;\n}\n"
+      : WG_OUT8(0), WG_OUT8(8), WG_OUT8(16), WG_OUT8(24), WG_OUT8(32),
+        WG_OUT8(40)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<128>(float (&d)[64],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,"
+      "%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,"
+      "%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52,%53,"
+      "%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}"
+      ", {%64,%65,%66,%67}, %68, p, 1, 1;\n}\n"
+      : WG_OUT8(0), WG_OUT8(8), WG_OUT8(16), WG_OUT8(24), WG_OUT8(32),
+        WG_OUT8(40), WG_OUT8(48), WG_OUT8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
 #undef WG_REGS32
 #undef WG_OUT8
 #undef WG_OUTS32
@@ -211,6 +286,25 @@ __device__ __forceinline__ void store2(bf16* p, float v0, float v1) {
 }
 __device__ __forceinline__ void store2(float* p, float v0, float v1) {
   *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+
+// x rounded to TF32 (10 mantissa bits), to nearest, ties away from zero;
+// the low 13 bits of the result are zero
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// orders this thread's shared-memory writes before the async proxy's reads
+// (wgmma, TMA) that a barrier publishes them to
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// barrier `id` (1..15; 0 is __syncthreads) over `n` threads, a multiple of 32
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -243,16 +337,18 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a bf16 tensor of `rank` dimensions (innermost first, strides in bytes of
-// dimensions 1..rank-1) read in boxes `box` in the 128-byte swizzle;
-// elements past a dimension's end are zero-filled → 0 or an error code
-inline int encode_map(CUtensorMap* map, const void* base, cuuint32_t rank,
-                      const cuuint64_t* dims, const cuuint64_t* strides,
-                      const cuuint32_t* box) {
+// a bf16 (or `type`) tensor of `rank` dimensions (innermost first, strides
+// in bytes of dimensions 1..rank-1) read in boxes `box` in the 128-byte
+// swizzle (a box row of 128 bytes: 64 bf16, 32 fp32); elements past a
+// dimension's end are zero-filled → 0 or an error code
+inline int encode_map(
+    CUtensorMap* map, const void* base, cuuint32_t rank,
+    const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return ERR_NO_ENCODE;
   const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+  const CUresult r = fn(map, type, rank,
                         const_cast<void*>(base), dims, strides, box, unit,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,

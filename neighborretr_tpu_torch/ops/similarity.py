@@ -8,12 +8,19 @@ with L2-normalised tokens and masked token logits ZEROED by multiplication
 (not -inf) before the max — the reference's local_level semantics.
 
 `interaction_similarity` is the plain PyTorch version (one [A·T, B·V]
-matmul, then both reductions).  `fused_interaction_similarity` is the
+fp32 matmul, then both reductions).  `fused_interaction_similarity` is the
 kernel's wrapper: a CPU tensor takes the plain version; a CUDA tensor runs
 csrc/interaction_similarity.cu, which never materialises the
-[A, T, B, V] logits.  `fused_interaction_mean` (↔ pallas_interaction_mean)
-is the same for the mean of S over one axis, the memory-bank centrality,
-without S.  Both are differentiable: the mask and the L2 normalisation sit
+[A, T, B, V] logits and computes them on the TF32 tensor cores in a 3xTF32
+split (hi·lo + lo·hi + hi·hi of each operand's two TF32 halves, a fresh
+accumulator every 32 columns of D, the chunks summed in fp32): at D = 512
+its maxima lie within 9e-8 of float64, cuBLAS's fp32 ones within 2.7e-7
+(tools/similarity_probe.py on an H100).  `split_tf32` and
+`similarity_tf32x3` write that arithmetic out for the tests; nothing else
+calls them.
+`fused_interaction_mean` (↔ pallas_interaction_mean) is the same for the
+mean of S over one axis, the memory-bank centrality, without S.  Both are
+differentiable: the mask and the L2 normalisation sit
 outside the kernels and get their gradients from autograd.  Under autograd
 the forward kernels also save the routing: per (caption, video) the max
 over v of each caption token's logits and its FIRST index (m1, i1), and
@@ -29,7 +36,8 @@ first index, so autograd of the plain forward is no reference there.
 `global_similarity` (↔ ops/similarity.py::global_similarity) is the
 unmasked, unnormalised form over the merged global tokens.
 
-These kernels keep one thread's V maxima in registers and take V <= 16; the
+These kernels give a warpgroup 8 videos' V tokens as the N = 8·V columns
+of its wgmma tiles and take V <= 16 (T <= 64, D % 32 == 0); the
 long-token shapes (T·V >= 2048, up to 64 x 64) have their own kernels in
 ops/similarity_blocked.py, and models/neighborretr.py::local_similarity
 routes by shape.
@@ -120,6 +128,12 @@ def similarity_routing_plain(tn, vn, tw, vw):
     A, T, D = tn.shape
     B, V, _ = vn.shape
     logits = (tn.reshape(A * T, D) @ vn.reshape(B * V, D).T).reshape(A, T, B, V)
+    return _routing(logits, tw, vw)
+
+
+def _routing(logits, tw, vw):
+    """S and the routing (see `similarity_routing_plain`) of the logits
+    [A, T, B, V]."""
     m1 = logits.amax(dim=3)                                   # [A, T, B]
     m2 = logits.amax(dim=1)                                   # [A, B, V]
     sim = 0.5 * (torch.einsum("atb,at->ab", m1, tw)
@@ -129,6 +143,38 @@ def similarity_routing_plain(tn, vn, tw, vw):
     return sim, (m1.transpose(1, 2).contiguous(),
                  i1.to(torch.uint8).contiguous(), m2,
                  i2.to(torch.uint8).contiguous())
+
+
+def split_tf32(x: torch.Tensor):
+    """The kernel's split of fp32 x into two TF32 halves (hi, lo), both fp32
+    tensors with the low 13 bits zero: hi = x rounded to 10 mantissa bits,
+    to nearest with ties away from zero (PTX `cvt.rna.tf32.f32`), lo = x -
+    hi rounded the same way, so |x - hi - lo| <= 2^-22 |x|.  Test-only:
+    the emulation of csrc/interaction_similarity.cu's arithmetic."""
+
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    x = x.float()
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def similarity_tf32x3(tn, vn, tw, vw):
+    """S and the routing, as `similarity_routing_plain` returns them, from
+    logits formed as the kernel forms them: hi·lo + lo·hi + hi·hi of
+    `split_tf32`'s halves (each product exact in fp32, the sums fp32; the
+    kernel's tensor cores add in another order).  Test-only."""
+    A, T, D = tn.shape
+    B, V, _ = vn.shape
+    (th, tl), (vh, vl) = split_tf32(tn), split_tf32(vn)
+
+    def mm(t, v):
+        return t.reshape(A * T, D) @ v.reshape(B * V, D).T
+
+    logits = (mm(th, vl) + mm(tl, vh)) + mm(th, vh)
+    return _routing(logits.reshape(A, T, B, V), tw.float(), vw.float())
 
 
 def similarity_bwd_routed_plain(tn, vn, tw, vw, g, m1, i1, m2, i2,
@@ -381,13 +427,14 @@ def fused_interaction_similarity(t_feat, v_feat, t_mask, v_mask, t_weight,
                                  v_weight, kernels: bool = True) -> torch.Tensor:
     """Similarity [A, B] in fp32, differentiable in features and weights.
     CPU tensors take the plain version; CUDA tensors launch the kernel (fp32
-    end to end, no TF32) after the masks are folded into the normalised
-    features, as the TPU wrapper does, with the backward kernel behind it.
-    Kernel limits: T <= 64, V <= 16, D % 32 == 0 (longer videos:
-    ops/similarity_blocked.py).  `kernels=False` is the
-    reference the backward kernel is held to, on any device: the plain
-    forward on the same prepared inputs with the written-out first-index
-    backward."""
+    inputs and outputs, the products in a 3xTF32 split on the tensor cores,
+    no further from float64 than cuBLAS's fp32 GEMM at D = 512) after the
+    masks are folded into the normalised features, as the TPU wrapper does,
+    with the backward kernel behind it.  Kernel limits: T <= 64, V <= 16,
+    D % 32 == 0 (longer videos: ops/similarity_blocked.py).
+    `kernels=False` is the reference the backward kernel is held to, on
+    any device: the plain forward on the same prepared inputs with the
+    written-out first-index backward."""
     if kernels and not t_feat.is_cuda:
         return interaction_similarity(t_feat, v_feat, t_mask, v_mask,
                                       t_weight, v_weight)
@@ -408,9 +455,11 @@ def fused_interaction_mean(t_feat, v_feat, t_mask, v_mask, t_weight, v_weight,
     → [A] row means, axis 0 → [B] column means; differentiable, the gradient
     routed through the first index of each max.  CPU tensors, and any
     tensor under `kernels=False`, take the plain version (which does build
-    the matrix) with the written-out plain backward.  The kernel is fp32
-    only (`sim_dtype="bfloat16"` raises on CUDA) and has the similarity
-    kernel's limits: T <= 64, V <= 16, D % 32 == 0."""
+    the matrix) with the written-out plain backward.  The kernel takes fp32
+    features (its 3xTF32 products as close to float64 as cuBLAS's fp32 ones
+    at D = 512) and no other `sim_dtype` (`sim_dtype="bfloat16"` raises on
+    CUDA); it has the similarity kernel's limits: T <= 64, V <= 16, D % 32
+    == 0."""
     if axis not in (0, 1):
         raise ValueError(f"axis must be 0 or 1, got {axis}")
     kernels = kernels and t_feat.is_cuda

@@ -82,6 +82,73 @@ def test_mean_kernel_matches_plain(cuda, A, B, T, V, D, axis):
     assert torch.equal(got, S.fused_interaction_mean(*args, axis=axis))
 
 
+# the 3xTF32 tile kernel's edges: A off its query groups (1, 7, 9, 130), B
+# off its 16-video tiles, T past a 64-row m-tile (25) and at its limits (1,
+# 64), V at 1, 3, 12, 13, 16 (padded to 4, 4, 12, 16, 16), D = 32, 96, 512
+EDGE_SHAPES = [(1, 17, 24, 12, 512), (7, 33, 7, 3, 96), (9, 15, 25, 13, 32),
+               (130, 37, 1, 1, 96), (1, 5, 64, 16, 32), (9, 1000, 64, 12, 96),
+               (130, 3, 24, 16, 512), (7, 100, 25, 1, 512),
+               (2, 41, 64, 3, 32), (3, 18, 13, 13, 96)]
+
+
+@pytest.mark.parametrize("form", ["similarity", "mean0", "mean1"])
+@pytest.mark.parametrize("A,B,T,V,D", EDGE_SHAPES)
+def test_similarity_kernel_tile_edges(cuda, A, B, T, V, D, form):
+    args = sim_inputs(A * T + B * V, A, B, T, V, D, cuda)
+    if form == "similarity":
+        got = S.fused_interaction_similarity(*args)
+        want = S.interaction_similarity(*args)
+    else:
+        axis = int(form[-1])
+        got = S.fused_interaction_mean(*args, axis=axis)
+        want = S.interaction_mean(*args, axis=axis)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **K2_TOL)
+
+
+@pytest.mark.parametrize("Q", [1, 8, 64])
+def test_similarity_kernel_at_serving_sizes(cuda, Q):
+    """Q queries against a corpus of 10,000 videos, as a request sees it."""
+    args = sim_inputs(Q, Q, 10_000, 24, 12, 512, cuda)
+    got = S.fused_interaction_similarity(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, S.interaction_similarity(*args), **K2_TOL)
+
+
+@pytest.mark.parametrize("form", ["similarity", "mean0", "mean1"])
+def test_similarity_kernels_give_the_same_bits_twice(cuda, form):
+    """No float atomics: two launches give the same output and residuals
+    (the index rows' padding bytes past T and V are never written)."""
+    T, V = 24, 12
+    tn, vn, tw, vw = S._prepare(*sim_inputs(5, 70, 300, T, V, 512, cuda),
+                                True)
+
+    def run():
+        if form == "similarity":
+            return S._similarity_fwd(tn, vn, tw, vw, save=True)
+        return S._mean_fwd(tn, vn, tw, vw, int(form[-1]), save=True)
+
+    (out, res), (again, res2) = run(), run()
+    assert torch.equal(out, again)
+    for a, b, n in zip(res, res2, (T, T, V, V)):
+        assert torch.equal(a[..., :n], b[..., :n])
+
+
+def test_similarity_kernel_is_the_tf32x3_emulation(cuda):
+    """The card's S and maxima against the CPU's written-out 3xTF32
+    arithmetic (`similarity_tf32x3`): the two differ only in the order of
+    their fp32 sums, an order of magnitude inside K2_TOL."""
+    tn, vn, tw, vw = S._prepare(*sim_inputs(9, 9, 40, 24, 12, 512, cuda), True)
+    out, (m1, _, m2, _) = S._similarity_fwd(tn, vn, tw, vw, save=True)
+    torch.cuda.synchronize()
+    want, (w1, _, w2, _) = S.similarity_tf32x3(tn.cpu(), vn.cpu(), tw.cpu(),
+                                               vw.cpu())
+    tight = dict(atol=2e-6, rtol=1e-5)
+    torch.testing.assert_close(out.cpu(), want, **tight)
+    torch.testing.assert_close(m1.cpu(), w1, **tight)
+    torch.testing.assert_close(m2.cpu(), w2, **tight)
+
+
 def test_mean_kernel_refuses_bfloat16(cuda):
     args = sim_inputs(0, 4, 8, 6, 3, 64, cuda)
     with pytest.raises(ValueError, match="float32"):
@@ -110,6 +177,57 @@ def test_similarity_backward_kernel_matches_plain(cuda, A, B, T, V, D):
                                    rtol=1e-4, msg=lambda m: f"{name}: {m}")
     again = S.fused_similarity_bwd(tn, vn, tw, vw, g, *res)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# how close the plain version's logits of two candidates may lie where the
+# kernel's routing picks the other one: at D = 512 the kernel's maxima lie
+# within 9e-8 of float64 and cuBLAS's fp32 ones within 2.7e-7
+# (tools/similarity_probe.py's accuracy report on an H100)
+ROUTING_NEAR = 1e-6
+
+
+@pytest.mark.parametrize("A,B,T,V,D", SIM_SHAPES)
+def test_saved_routing_is_the_plain_one_off_near_ties(cuda, A, B, T, V, D):
+    """Real-valued logits with the backward test's ties (masked tokens,
+    duplicated video tokens): the saved maxima are the plain ones within
+    K2_TOL, and each saved index is the plain first argmax unless the
+    plain logits of the two candidates differ, by at most ROUTING_NEAR (at
+    an exact tie the first index wins)."""
+    tf, vf, tm, vm, tw, vw = sim_inputs(A * B, A, B, T, V, D, cuda)
+    vf[:, V - 1] = vf[:, 0]
+    vm[:, V - 1] = vm[:, 0]
+    tn, vn, tw, vw = S._prepare(tf, vf, tm, vm, tw, vw, True)
+    _, (m1, i1, m2, i2) = S._similarity_fwd(tn, vn, tw, vw, save=True)
+    _, (p1, j1, p2, j2) = S.similarity_routing_plain(tn, vn, tw, vw)
+    torch.testing.assert_close(m1, p1, **K2_TOL)
+    torch.testing.assert_close(m2, p2, **K2_TOL)
+    logits = (tn.reshape(A * T, D) @ vn.reshape(B * V, D).T).reshape(A, T, B,
+                                                                      V)
+    for lg, mine, plain in ((logits.permute(0, 2, 1, 3), i1[..., :T], j1),
+                            (logits.permute(0, 2, 3, 1), i2[..., :V], j2)):
+        gap = (lg.gather(3, plain.long()[..., None])
+               - lg.gather(3, mine.long()[..., None]))[..., 0]
+        near = (gap > 0) & (gap <= ROUTING_NEAR)
+        assert bool(((mine == plain) | near).all())
+
+
+def test_similarity_kernel_is_as_close_to_float64_as_fp32(cuda):
+    """The 3xTF32 logits' accuracy: both maxima no further from their
+    float64 values than the fp32 plain version's (cuBLAS) are, and S no
+    further than 1.5x its distance (S's two weighted sums are the same fp32
+    chains in both, and they dominate its error), on the backward test's
+    kind of inputs at D = 512."""
+    A, B, T, V, D = 64, 200, 24, 12, 512
+    tn, vn, tw, vw = S._prepare(*sim_inputs(A * B, A, B, T, V, D, cuda), True)
+    out, (m1, _, m2, _) = S._similarity_fwd(tn, vn, tw, vw, save=True)
+    plain, (p1, _, p2, _) = S.similarity_routing_plain(tn, vn, tw, vw)
+    logits = tn.reshape(A * T, D).double() @ vn.reshape(B * V, D).double().T
+    exact, (e1, _, e2, _) = S._routing(logits.reshape(A, T, B, V),
+                                       tw.double(), vw.double())
+    for got, fp32, want, slack in ((out, plain, exact, 1.5), (m1, p1, e1, 1),
+                                   (m2, p2, e2, 1)):
+        err = (got.double() - want).abs().max().item()
+        assert err <= slack * (fp32.double() - want).abs().max().item()
 
 
 @pytest.mark.parametrize("axis", [None, 0, 1])

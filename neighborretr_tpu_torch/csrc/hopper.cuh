@@ -1,6 +1,6 @@
 // Hopper building blocks shared by the kernels that feed wgmma from the
 // Tensor Memory Accelerator (frame_attention.cuh, sublayer.cuh,
-// interaction_similarity.cu):
+// similarity_tile.cuh):
 // mbarriers whose waits trap instead of holding the card, TMA tile loads,
 // wgmma shared-memory descriptors and instructions, and on the host the
 // tensor-map encoder (libcuda's cuTensorMapEncodeTiled, reached through the

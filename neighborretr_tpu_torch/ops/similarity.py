@@ -38,7 +38,8 @@ unmasked, unnormalised form over the merged global tokens.
 
 These kernels give a warpgroup 8 videos' V tokens as the N = 8·V columns
 of its wgmma tiles and take V <= 16 (T <= 64, D % 32 == 0); the
-long-token shapes (T·V >= 2048, up to 64 x 64) have their own kernels in
+long-token shapes (T·V >= 2048, up to 64 x 64) run the same tile
+(csrc/similarity_tile.cuh) at other widths through
 ops/similarity_blocked.py, and models/neighborretr.py::local_similarity
 routes by shape.
 """
@@ -150,7 +151,7 @@ def split_tf32(x: torch.Tensor):
     tensors with the low 13 bits zero: hi = x rounded to 10 mantissa bits,
     to nearest with ties away from zero (PTX `cvt.rna.tf32.f32`), lo = x -
     hi rounded the same way, so |x - hi - lo| <= 2^-22 |x|.  Test-only:
-    the emulation of csrc/interaction_similarity.cu's arithmetic."""
+    the emulation of csrc/similarity_tile.cuh's arithmetic (K2, K4, K6)."""
 
     def rna(v):
         bits = v.contiguous().view(torch.int32)

@@ -7,8 +7,12 @@ The function is ops/similarity.py's; what differs is the size.  At T = V =
 neither version here builds them whole:
 
 - `fused_interaction_similarity_blocked` is the kernels' wrapper.  A CUDA
-  tensor runs csrc/interaction_similarity_blocked.cu: the forward tiles the
-  logits in shared memory and writes S [A, B]; under autograd it also saves
+  tensor runs csrc/interaction_similarity_blocked.cu: the forward is the
+  short kernel's tile (csrc/similarity_tile.cuh: the logits on the TF32
+  tensor cores in a 3xTF32 split, a fresh accumulator every 32 columns of
+  D, the chunks summed in fp32, both max-reductions over a logits tile in
+  shared memory) at 2 captions x 2 videos of 64 tokens a warpgroup, and
+  writes S [A, B]; under autograd it also saves
   the routing, per (caption, video) the max over video tokens of each
   caption token's logits and its FIRST index (m1, i1) and the max over
   caption tokens of each video token's and its first index (m2, i2).  The
@@ -24,8 +28,10 @@ neither version here builds them whole:
   split them.
 
 As in the TPU wrapper, the masks and the L2 normalisation sit outside the
-kernels and get their gradients from autograd.  fp32 end to end, no TF32.
-Kernel limits: T, V <= 64, D % 16 == 0.
+kernels and get their gradients from autograd.  fp32 inputs and outputs;
+the kernel's maxima are as close to float64 as cuBLAS's fp32 ones
+(ops/similarity.py::similarity_tf32x3 writes its arithmetic out).  Kernel
+limits: T, V <= 64, D % 16 == 0.
 """
 
 from __future__ import annotations

@@ -305,6 +305,90 @@ def test_blocked_backward_kernel_matches_plain(cuda, A, B, T, V, D):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+# K6's tile edges (csrc/interaction_similarity_blocked.cu): A = 1 and B
+# under one block's videos, T = 1, 8 and 17 (1, 8 and 4 captions a block,
+# one or two m-tiles), V = 5, 32, 33 and 48 (padded to 16, 32, 64, 64
+# token slots: 8, 4, 2, 2 videos a warpgroup), D = 16 and 80 (a last
+# k-chunk of 16 columns)
+BLOCKED_EDGE_SHAPES = [(1, 3, 64, 64, 16), (2, 33, 1, 33, 32),
+                       (9, 17, 17, 32, 80), (17, 9, 8, 5, 64),
+                       (5, 6, 24, 48, 48)]
+
+
+@pytest.mark.parametrize("A,B,T,V,D", BLOCKED_EDGE_SHAPES)
+def test_blocked_similarity_kernel_tile_edges(cuda, A, B, T, V, D):
+    """Exact logits: S the plain S, the residuals the plain routing, ties
+    included; real-valued inputs: S the plain S."""
+    tn, vn, tw, vw, _ = exact_inputs(A + B + T + V, A, B, T, V, D, cuda)
+    out, (m1, i1, m2, i2) = SB._blocked_fwd(tn, vn, tw, vw, save=True)
+    torch.cuda.synchronize()
+    want_s, want = SB.similarity_blocked_routing_plain(tn, vn, tw, vw)
+    torch.testing.assert_close(out, want_s, **K2_TOL)
+    assert torch.equal(m1, want[0]) and torch.equal(m2, want[2])
+    assert torch.equal(i1[..., :T], want[1])
+    assert torch.equal(i2[..., :V], want[3])
+    args = sim_inputs(A * B + D, A, B, T, V, D, cuda)
+    torch.testing.assert_close(
+        SB.fused_interaction_similarity_blocked(*args),
+        SB.fused_interaction_similarity_blocked(*args, kernels=False),
+        **K2_TOL)
+
+
+@pytest.mark.parametrize("A,B,T,V,D", [(9, 40, 64, 64, 512),
+                                       (5, 7, 33, 17, 48)])
+def test_blocked_similarity_kernel_is_the_tf32x3_emulation(cuda, A, B, T, V,
+                                                           D):
+    """K6's S and maxima against the CPU's written-out 3xTF32 arithmetic:
+    the two differ only in the order of their fp32 sums."""
+    tn, vn, tw, vw = S._prepare(*sim_inputs(A + T, A, B, T, V, D, cuda),
+                                False)
+    out, (m1, _, m2, _) = SB._blocked_fwd(tn, vn, tw, vw, save=True)
+    torch.cuda.synchronize()
+    want, (w1, _, w2, _) = S.similarity_tf32x3(tn.cpu(), vn.cpu(), tw.cpu(),
+                                               vw.cpu())
+    tight = dict(atol=2e-6, rtol=1e-5)
+    torch.testing.assert_close(out.cpu(), want, **tight)
+    torch.testing.assert_close(m1.cpu(), w1, **tight)
+    torch.testing.assert_close(m2.cpu(), w2, **tight)
+
+
+def test_blocked_similarity_kernel_is_as_close_to_float64_as_fp32(cuda):
+    """K6's 3xTF32 logits, as K2's: both maxima no further from their
+    float64 values than the fp32 plain version's (cuBLAS) are, and S no
+    further than 1.5x its distance (S's two weighted sums are fp32 chains
+    in both, and they dominate its error), at T = V = 64, D = 512."""
+    A, B, T, V, D = 48, 120, 64, 64, 512
+    tn, vn, tw, vw = S._prepare(*sim_inputs(A * B, A, B, T, V, D, cuda),
+                                False)
+    out, (m1, _, m2, _) = SB._blocked_fwd(tn, vn, tw, vw, save=True)
+    plain, (p1, _, p2, _) = SB.similarity_blocked_routing_plain(tn, vn, tw,
+                                                                vw)
+    logits = tn.reshape(A * T, D).double() @ vn.reshape(B * V, D).double().T
+    exact, (e1, _, e2, _) = S._routing(logits.reshape(A, T, B, V),
+                                       tw.double(), vw.double())
+    for got, fp32, want, slack in ((out, plain, exact, 1.5), (m1, p1, e1, 1),
+                                   (m2, p2, e2, 1)):
+        err = (got.double() - want).abs().max().item()
+        assert err <= slack * (fp32.double() - want).abs().max().item()
+
+
+@pytest.mark.parametrize("T,V,D", [(64, 64, 512), (33, 17, 48)])
+def test_blocked_similarity_kernel_gives_the_same_bits_twice(cuda, T, V, D):
+    """No float atomics: two K6 forwards give the same S and residuals with
+    the residual stores, the same S without them, and S the same bits
+    either way."""
+    tn, vn, tw, vw = S._prepare(*sim_inputs(T + V, 70, 130, T, V, D, cuda),
+                                False)
+    (out, res), (again, res2) = (SB._blocked_fwd(tn, vn, tw, vw, save=True)
+                                 for _ in range(2))
+    bare, bare2 = (SB._blocked_fwd(tn, vn, tw, vw, save=False)[0]
+                   for _ in range(2))
+    assert torch.equal(out, again) and torch.equal(bare, bare2)
+    assert torch.equal(out, bare)
+    for a, b, n in zip(res, res2, (T, T, V, V)):
+        assert torch.equal(a[..., :n], b[..., :n])
+
+
 # the routed backward (K5, K7) from the forward kernels' residuals, one side
 # and both: T = 1, V = 1, the widest flat tokens (T = 64, V = 16) and
 # blocked ones (64 x 64), A or B under 32, walks split into ranges (a short

@@ -1,5 +1,6 @@
-"""The arithmetic of the similarity kernel (K2/K4, 3xTF32 on the tensor
-cores) written out in PyTorch, against the JAX package on the CPU.
+"""The arithmetic of the similarity kernels (K2/K4 and the long-token K6,
+3xTF32 on the tensor cores) written out in PyTorch, against the JAX package
+on the CPU.
 
   * `split_tf32`: hi keeps 10 mantissa bits, rounded to nearest with ties
     away from zero, lo the rest, and x - hi - lo is below 2^-22 |x|;
@@ -8,9 +9,13 @@ cores) written out in PyTorch, against the JAX package on the CPU.
     interpret mode and against the fp32 plain version, within K2_TOL, on
     the train step's kind of inputs (random features, ragged masks) at
     T = 24, V = 12, D = 512;
+  * the same at the long-token shapes (T = V = 64, and a ragged T = 33 /
+    V = 17 at D = 48, whose last 32-column k-chunk is half full) against
+    `pallas_interaction_similarity_blocked` in interpret mode and the
+    blocked plain version, `similarity_blocked_routing_plain`;
   * on inputs whose entries are multiples of 1/8 the split is exact (lo = 0)
-    and the routing is `similarity_routing_plain`'s to the bit, ties
-    included.
+    and the routing is `similarity_routing_plain`'s (and at the long-token
+    shapes `similarity_blocked_routing_plain`'s) to the bit, ties included.
 
 Inputs come from a numpy seed and go to both frameworks as numpy arrays.
 The CUDA kernel is held to this emulation in test_torch_gpu.py.
@@ -23,12 +28,17 @@ import torch
 
 from neighborretr_tpu.ops.pallas_similarity import (
     pallas_interaction_mean, pallas_interaction_similarity)
+from neighborretr_tpu.ops.pallas_similarity_blocked import \
+    pallas_interaction_similarity_blocked
 from neighborretr_tpu_torch.ops import similarity as S
+from neighborretr_tpu_torch.ops import similarity_blocked as SB
 from test_torch_ops import sim_inputs
 
 # the JAX suite's tolerance for the fp32 similarity kernel
 K2_TOL = dict(atol=2e-5, rtol=1e-4)
 SHAPES = [(3, 10, 24, 12, 512), (9, 17, 24, 12, 512)]
+# K6's: T = V = 64, and ragged token counts with D off the 32-column k-chunk
+BLOCKED_SHAPES = [(3, 5, 64, 64, 64), (5, 7, 33, 17, 48)]
 
 
 def prepared(args):
@@ -118,4 +128,31 @@ def test_tf32x3_routing_on_exact_inputs_is_the_plain_routing(A, B, T_, V, D):
         assert torch.equal(a, b)
     # ties decide indices here: masked tokens' logits are all 0, and a
     # video's last token ties its first, which the first index keeps
+    assert (want[0] == 0).any() and not (want[1] == V - 1).any()
+
+
+@pytest.mark.parametrize("A,B,T_,V,D", BLOCKED_SHAPES)
+def test_tf32x3_blocked_similarity_matches_pallas_and_plain(A, B, T_, V, D):
+    args = sim_inputs(A * B + T_, A, B, T_, V, D)
+    want = np.asarray(pallas_interaction_similarity_blocked(
+        *map(jnp.asarray, args), interpret=True))
+    got, (m1, _, m2, _) = S.similarity_tf32x3(*prepared(args))
+    np.testing.assert_allclose(got.numpy(), want, **K2_TOL)
+    plain_s, (p1, _, p2, _) = SB.similarity_blocked_routing_plain(
+        *prepared(args))
+    torch.testing.assert_close(got, plain_s, **K2_TOL)
+    torch.testing.assert_close(m1, p1, **K2_TOL)
+    torch.testing.assert_close(m2, p2, **K2_TOL)
+    assert not torch.equal(m1, p1)
+
+
+@pytest.mark.parametrize("A,B,T_,V,D", BLOCKED_SHAPES)
+def test_tf32x3_blocked_routing_on_exact_inputs_is_the_plain_routing(
+        A, B, T_, V, D):
+    tn, vn, tw, vw = exact_inputs(A * B * T_, A, B, T_, V, D)
+    got_s, got = S.similarity_tf32x3(tn, vn, tw, vw)
+    want_s, want = SB.similarity_blocked_routing_plain(tn, vn, tw, vw)
+    torch.testing.assert_close(got_s, want_s, **K2_TOL)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
     assert (want[0] == 0).any() and not (want[1] == V - 1).any()

@@ -6,9 +6,13 @@ steps at 24 words x 12 frames), the long-token trainer (the train CLI at
 serving and the train step again on the `attention_impl="fused"` route, the
 index/search CLIs and rematerialised train steps at ViT-L/14@336px, the
 kernel check of the sublayer without LayerNorm (`fused_attention_sublayer`),
-and the flagship trainer under `--augment_backend device`.
+the flagship trainer under `--augment_backend device`, and the serving
+daemon (the index, serve, export and export_checkpoint CLIs, HTTP load
+behind the batching dispatcher, a live reload, the deployment bundle).
 
     python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --alone 9 [--seeds S ...]   # phase 9 per seed
+    python3 chip_smoke.py --alone 16                  # phase 16
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. device  — requires CUDA; prints the card's name and power limit;
@@ -61,7 +65,10 @@ Phases (each prints its own lines; any failure exits non-zero):
                against the plain routed backward, each side alone against
                both (bit-equal), run twice; inputs whose logits are exact
                in fp32 for the saved routing against the plain first
-               argmax and the elementwise check of all four gradients; K6
+               argmax and the elementwise check of all four gradients;
+               K7 from K6's routing against the plain routed backward fed
+               float64's first argmax (and the count of K6's indices off
+               it) beside the check against cuBLAS's routing; K6
                timed with and without its residual stores beside both
                bounds (SIMT fp32, its route, and 3xTF32), K7 in the train
                step's form and with both sides; the forward also timed at
@@ -121,9 +128,25 @@ Phases (each prints its own lines; any failure exits non-zero):
                frames, batch 128, bank 15 x 128 cut by the data's length to
                3 x 128, bf16): bank fill, 3 steps, eval; launch counts,
                finite losses, R@K, every augmented batch changed.
+ 16. daemon  — the rest of serving at ViT-B/32 width (bf16, seeded random
+               weights saved once as an npz checkpoint): (a) cli.index on
+               256 synthetic videos, cli.serve --port 0 on it (healthz, a
+               search), cli.index --append of 64 more (256 skipped), POST
+               /reload (320 videos), SIGINT exit 0, cli.export_checkpoint
+               (the reference's keys, read back with torch.load) and
+               cli.export (a bundle); (b) make_server in this process over
+               a 10,000-row index of random features, fp16 then int8, lock-
+               serialised then behind the BatchingDispatcher (2 ms window,
+               64 merged queries, buckets of 8): 64 concurrent single-query
+               clients, 3 rounds: queries/s, p50/p95/p99, device calls per
+               request; K1 = 12 x device calls, K2 = device calls; every
+               response against Searcher.search of its query alone; one
+               round with a staged /reload (512-row slabs) mid-round; (c)
+               the bundle loaded in a process that can import neither
+               package, against Searcher(kernels=False) and the kernels.
 The line before the last is a JSON object with, for each kernel, its
 launches on each main path (all eleven counts are set to 0 before each path
-and read after it), error, times and roofline bound; the last line is the
+and read after it; phase 16's path is its in-process load, (b)), error, times and roofline bound; the last line is the
 device record.
 
 Imports only torch, numpy and the port (no JAX).
@@ -216,18 +239,24 @@ KP_TOL = ((1e-4, 1e-4, 1e-4), (3e-3, 3e-3, 3e-3), 0.05)
 # 5.3e-3 at step 3, whose weights are the kernel run's and differ from run to
 # run; updates up to 0.012.
 LONG_PLAIN_TOL = ((1e-2, 1e-2, 4e-2), (8e-2, 8e-2, 8e-2), 0.15)
-# K7's feature gradients on real-valued inputs, as a whole tensor: the
-# kernel and cuBLAS round a logit differently in its last bits, and where a
-# max's runner-up lies that close the two versions route its gradient to
-# different tokens; one such row of the 31 million maxima at the bank shapes
-# moves the distance by ~4e-4.  K6's 3xTF32 logits lie nearer float64 than
-# cuBLAS's, so such rows are mostly cuBLAS's rounding: at 64 of the bank's
-# 128 captions K6's saved indices are float64's first argmax everywhere,
-# cuBLAS's in all but 3 of 15.7 million (tools/similarity_probe.py's
-# accuracy report).  Observed on an H100: 2.5e-4 .. 9.1e-4 in this script,
-# 1.02e-3 when phase 9 runs alone on its own draws.  On inputs with exact
+# K7's feature gradients on real-valued inputs against the plain version,
+# which routes by cuBLAS's fp32 logits, as a whole tensor: where a max's
+# runner-up lies within cuBLAS's rounding (its maxima lie up to 3.5e-7 from
+# float64) the plain version may route its gradient to another token than
+# float64's first argmax, which K6's routing is (its near-ties re-picked in
+# float64, ops/similarity.py::resolve_near_ties); one such row of the 31
+# million maxima at the bank shapes moves the distance by ~4e-4.  Observed
+# on an H100: 2.5e-4 .. 9.1e-4 in this script, 1.02e-3 when phase 9 ran
+# alone on its own draws (before the re-pick).  On inputs with exact
 # logits all four gradients are held elementwise.
 K7_REAL_REL_L2 = 1e-3
+# K7 on K6's routing against the plain routed backward fed float64's first
+# argmax of the same prepared inputs (both sides, relative L2 of the feature
+# gradients): with the same routing only the fp32 summation order differs
+# (~1e-7); a few maxima routed to other tokens move it by ~1e-4 (9e-5
+# with 2 of 15.7 million text-side indices off float64's, before K6
+# re-picked near-ties in float64; H100)
+K7_F64_REL_L2 = 1e-5
 # K5/K7 with one feature side asked for launch one of the two gathers: at
 # the train step's shapes a side takes 0.5-0.65 of the both-side time
 ONE_SIDE_SHARE = 0.85
@@ -1128,6 +1157,33 @@ def _blocked_inputs(g, A, T, B, V, D, exact: bool):
     return tf, vf, tm, vm, tw, vw
 
 
+def check_f64_routed(tag, prep, cot, res):
+    """K7 from K6's saved routing, both sides, against the plain routed
+    backward fed the routing of float64 logits of the same prepared inputs
+    (their first argmax); prints how many of K6's saved indices differ from
+    float64's and both feature gradients' relative L2."""
+    from neighborretr_tpu_torch.ops import similarity_blocked as SB
+    T, V = prep[0].shape[1], prep[1].shape[1]
+    _, (m1, i1, m2, i2) = SB.similarity_blocked_routing_plain(
+        *(x.double() for x in prep))
+    off = (f"{int((res[1][..., :T] != i1).sum())} of {i1.numel()} (i1), "
+           f"{int((res[3][..., :V] != i2).sum())} of {i2.numel()} (i2)")
+    got = SB.fused_blocked_similarity_bwd(*prep, cot, *res)
+    want = SB.similarity_blocked_bwd_routed_plain(
+        *prep, cot, m1.float(), i1, m2.float(), i2)
+    del m1, i1, m2, i2
+    for n, a, b in zip(("dtn", "dvn"), got, want):
+        rel = ((a - b).norm() / b.norm()).item()
+        ok = bool(torch.isfinite(a).all()) and rel <= K7_F64_REL_L2
+        print(f"  K7 {tag} {n} vs the float64-routed plain backward: rel L2 "
+              f"{rel:.3g} (tolerance {K7_F64_REL_L2:g}) "
+              f"{'ok' if ok else 'FAILED'}; K6's saved indices off "
+              f"float64's first argmax: {off}")
+        if not ok:
+            raise SystemExit(f"K7 {n} disagrees with the float64-routed "
+                             "reference")
+
+
 def phase_k6_k7(g):
     print("== phase 9: K6 interaction_similarity_blocked, K7 its backward vs "
           "their plain versions")
@@ -1193,6 +1249,7 @@ def phase_k6_k7(g):
                                   SB.similarity_blocked_bwd_routed_plain,
                                   prep, cot, res, need)
         err7 = max(err7, e)
+        check_f64_routed(tag, prep, cot, res)
 
         # exact logits: the saved routing is the plain first argmax, ties
         # included, and all four gradients the plain ones elementwise
@@ -2274,7 +2331,444 @@ def phase_trainer(profile: bool, card: str):
             os.remove(carried)
 
 
+# the serving daemon (phase 16): 64 concurrent single-query clients, each
+# round once through the lock and once behind the dispatcher, per index
+# dtype; a 10,000-row index is MSR-VTT's whole corpus
+DAEMON_CLIENTS, DAEMON_ROUNDS, DAEMON_N = 64, 3, 10_000
+DAEMON_WORDS = ("man woman dog cat car street beach kitchen playing running "
+                "cooking singing jumping red blue small large fast slow "
+                "night").split()
+# the bundle (the plain versions traced by torch.export) against the plain
+# Searcher on the card: the same aten ops on the same inputs
+BUNDLE_TOL = 1e-5
+
+
+def _cli(module, *args, wait=True, timeout=600):
+    """A CLI of the port as a subprocess on the card → its result, or (wait
+    False) the running process with stderr piped."""
+    cmd = [sys.executable, "-m", f"neighborretr_tpu_torch.cli.{module}",
+           *map(str, args)]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    if not wait:
+        return subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                stderr=subprocess.PIPE, text=True)
+    r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=timeout)
+    if r.returncode:
+        raise SystemExit(f"cli.{module} failed ({r.returncode}):\n"
+                         f"{r.stderr[-3000:]}")
+    return r
+
+
+def _http(port, method, path, body=None, timeout=120):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    conn.request(method, path, json.dumps(body) if body is not None else None,
+                 {"Content-Type": "application/json"} if body else {})
+    resp = conn.getresponse()
+    out = resp.status, json.loads(resp.read().decode())
+    conn.close()
+    return out
+
+
+def _same_hits(got, want, tol):
+    """Top-k ids equal but for swaps between near-ties (scores within tol),
+    scores within tol → the largest score difference."""
+    worst = 0.0
+    for g_row, w_row in zip(got, want):
+        g_ids, g_s = zip(*g_row)
+        w_ids, w_s = zip(*w_row)
+        worst = max(worst, *(abs(a - b) for a, b in zip(g_s, w_s)))
+        for r, (gi, wi) in enumerate(zip(g_ids, w_ids)):
+            near = [abs(w_s[r] - s) <= tol for s in w_s]
+            if gi != wi and near.count(True) < 2:
+                raise SystemExit(f"rank {r}: {gi} where {wi} ranks alone")
+    if worst > tol:
+        raise SystemExit(f"scores {worst:.3g} apart (tolerance {tol:g})")
+    return worst
+
+
+def phase_serving_daemon(card: str):
+    """The rest of the serving path at ViT-B/32 full width: (a) the index
+    (with --append), serve, export_checkpoint and export CLIs as
+    subprocesses; (b) make_server in this process against a 10,000-row
+    index, lock-serialised and behind the BatchingDispatcher, fp16 and
+    int8, a staged /reload mid-round; (c) the bundle with both packages
+    blocked."""
+    print("== phase 16: serving daemon (ViT-B/32 width, bf16, random "
+          "weights): CLIs, HTTP load, reload, bundle")
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    from neighborretr_tpu_torch import serving
+    from neighborretr_tpu_torch.cli.serve import make_server
+    from neighborretr_tpu_torch.core import checkpoint as ckpt
+    from neighborretr_tpu_torch.core.config import Config, ModelConfig
+    from neighborretr_tpu_torch.data.tokenizer import ClipTokenizer
+    from neighborretr_tpu_torch.models import weights_io
+
+    t_phase = time.perf_counter()
+    cfg = Config(model=ModelConfig())
+    m = cfg.model
+    model = weights_io.init_model(m, seed=0, device="cuda")
+    tok = ClipTokenizer()
+    work = tempfile.mkdtemp(prefix="chip_smoke_daemon_")
+    procs = []
+    try:
+        weights = os.path.join(work, "weights.npz")
+        ckpt.save_params(weights, model)
+        ref_out = os.path.join(work, "reference.bin")
+        procs.append(_cli("export_checkpoint", "--checkpoint", weights,
+                          "--out", ref_out, wait=False))
+
+        # (a) the CLIs
+        idx = os.path.join(work, "index.npz")
+        common = ["--datatype", "synthetic", "--out", idx, "--batch_size",
+                  128, "--checkpoint", weights]
+        t0 = time.perf_counter()
+        _cli("index", "--synthetic_size", 256, *common)
+        print(f"  cli.index: 256 videos in {time.perf_counter() - t0:.1f} s "
+              "(process included)")
+        serve = _cli("serve", "--index", idx, "--checkpoint", weights,
+                     "--port", 0, wait=False)
+        procs.append(serve)
+        import queue
+        lines = queue.Queue()      # its stderr, read to the end by a thread
+        threading.Thread(target=lambda: [lines.put(ln) for ln in
+                                         serve.stderr] + [lines.put("")],
+                         daemon=True).start()
+        port, log, deadline = None, [], time.monotonic() + 300
+        while port is None:
+            try:
+                line = lines.get(timeout=max(deadline - time.monotonic(), 0))
+            except queue.Empty:
+                raise SystemExit("cli.serve did not bind within 300 s:\n"
+                                 + "".join(log[-30:]))
+            if not line:
+                raise SystemExit("cli.serve exited:\n" + "".join(log[-30:]))
+            log.append(line)
+            if "Serving on http://" in line:
+                port = int(line.rsplit(":", 1)[1].split()[0])
+        status, health = _http(port, "GET", "/healthz")
+        status2, got = _http(port, "POST", "/search",
+                             {"queries": ["a dog runs on the beach"],
+                              "topk": 5})
+        if (status, health["videos"], status2, len(got["results"][0])) != \
+                (200, 256, 200, 5):
+            raise SystemExit(f"cli.serve: {status} {health}, {status2} {got}")
+        r = _cli("index", "--synthetic_size", 320, "--append", *common)
+        for said in ("its 256 indexed videos are skipped",
+                     "Appended 64 new videos"):
+            if said not in r.stderr:
+                raise SystemExit(f"cli.index --append did not log {said!r}:"
+                                 f"\n{r.stderr[-2000:]}")
+        status, out = _http(port, "POST", "/reload", timeout=600)
+        _, health = _http(port, "GET", "/healthz")
+        if (status, out.get("videos"), health["videos"]) != (200, 320, 320):
+            raise SystemExit(f"/reload: {status} {out}, healthz {health}")
+        serve.send_signal(signal.SIGINT)
+        rc = serve.wait(timeout=120)
+        print(f"  cli.serve --port 0: healthz 256 videos, a search, "
+              f"cli.index --append (256 skipped, 64 appended), /reload and "
+              f"healthz 320 videos, SIGINT exit {rc}")
+        if rc != 0:
+            raise SystemExit("cli.serve did not exit 0 on SIGINT")
+        bundle_dir = os.path.join(work, "bundle")
+        t0 = time.perf_counter()
+        _cli("export", "--index", idx, "--checkpoint", weights, "--output",
+             bundle_dir, "--query_batch", 8, "--topk", 5)
+        print(f"  cli.export: bundle of 320 videos in "
+              f"{time.perf_counter() - t0:.1f} s (process included)")
+        if procs[0].wait(timeout=600) != 0:
+            raise SystemExit("cli.export_checkpoint failed:\n"
+                             + procs[0].stderr.read()[-2000:])
+        sd = torch.load(ref_out)
+        want = weights_io.reference_state_dict(model)
+        if sorted(sd) != sorted(want) or not all(
+                torch.equal(sd[k], want[k]) for k in want):
+            raise SystemExit("cli.export_checkpoint: keys or tensors differ "
+                             "from the model's reference state dict")
+        print(f"  cli.export_checkpoint: {len(sd)} tensors under the "
+              "reference's names, equal to the model's")
+
+        # (b) load in this process
+        rng = np.random.default_rng(0)
+        F, E = m.max_frames, m.clip.embed_dim
+        fp16 = {"video_ids": np.asarray([f"video{i}"
+                                         for i in range(DAEMON_N)]),
+                "v_feat": rng.normal(size=(DAEMON_N, F, E)).astype(
+                    np.float16),
+                "v_mask": np.ones((DAEMON_N, F), np.float32),
+                "meta": np.frombuffer(json.dumps(serving._config_meta(
+                    cfg, model)).encode(), dtype=np.uint8)}
+        int8 = dict(fp16)
+        int8["v_feat"], int8["v_scale"] = serving.quantize_features(
+            fp16["v_feat"])
+        queries = [" ".join(rng.choice(DAEMON_WORDS, size=8))
+                   for _ in range(DAEMON_CLIENTS)]
+        reload_path = serving.save_index(os.path.join(work, "big"), fp16)
+        searchers = []
+
+        def searcher(index, stage_rows=0, buckets=()):
+            s = serving.Searcher(model, cfg, index, tok, query_batch=8,
+                                 staged_upload_rows=stage_rows)
+            s.warmup()
+            for b in buckets:
+                s.search(["warmup"] * b, topk=5)
+            searchers.append(s)
+            return s
+
+        def rounds(srv, n, reload=False):
+            """n rounds of DAEMON_CLIENTS concurrent single-query clients →
+            (wall s, latencies ms, hits by query); with reload, one round
+            with a POST /reload started after half the clients."""
+            port = srv.server_address[1]
+            lat, hits, failures = [], {}, []
+            lock = threading.Lock()
+
+            def one(i):
+                try:
+                    t0 = time.perf_counter()
+                    status, out = _http(port, "POST", "/search",
+                                        {"queries": [queries[i]],
+                                         "topk": 5})
+                    ms = 1e3 * (time.perf_counter() - t0)
+                    if status != 200:
+                        raise RuntimeError(f"{status} {out}")
+                    with lock:
+                        lat.append(ms)
+                        hits.setdefault(queries[i], []).append(
+                            [(h["video_id"], h["score"])
+                             for h in out["results"][0]])
+                except Exception as exc:     # counted, then fails the phase
+                    failures.append(f"{type(exc).__name__}: {exc}")
+
+            reloaded = []
+            t0 = time.perf_counter()
+            for _ in range(n):
+                threads = [threading.Thread(target=one, args=(i,))
+                           for i in range(DAEMON_CLIENTS)]
+                half = DAEMON_CLIENTS // 2
+                for t in threads[:half]:
+                    t.start()
+                if reload:
+                    rel = threading.Thread(target=lambda: reloaded.append(
+                        _http(port, "POST", "/reload", timeout=600)))
+                    rel.start()
+                for t in threads[half:]:
+                    t.start()
+                for t in threads:
+                    t.join()
+                if reload:
+                    rel.join()
+            wall = time.perf_counter() - t0
+            if failures:
+                raise SystemExit(f"{len(failures)} requests failed: "
+                                 f"{failures[0]}")
+            if reload and reloaded[0] != (200, {"status": "reloaded",
+                                                "videos": DAEMON_N}):
+                raise SystemExit(f"/reload under load: {reloaded[0]}")
+            return wall, lat, hits
+
+        def run(tag, index, dispatch, reload=False):
+            s = searcher(index, buckets=(8, 16, 32, 64) if dispatch else ())
+            d = (serving.BatchingDispatcher(s, max_batch=64, max_wait_ms=2.0)
+                 if dispatch else None)
+            reload_fn = None
+            if reload:
+                def reload_fn():
+                    return searcher(serving.load_index(reload_path),
+                                    stage_rows=512, buckets=d.buckets)
+            srv = make_server(s, "127.0.0.1", 0, default_topk=5,
+                              dispatcher=d, reload_fn=reload_fn)
+            th = threading.Thread(target=srv.serve_forever, daemon=True)
+            th.start()
+            try:
+                calls0 = sum(x.calls for x in searchers)
+                wall, lat, hits = rounds(srv, 1 if reload else DAEMON_ROUNDS,
+                                         reload)
+                calls = sum(x.calls for x in searchers) - calls0
+            finally:
+                srv.shutdown()
+                srv.server_close()
+                th.join(timeout=30)
+                if d is not None:
+                    d.close()
+            n = len(lat)
+            p50, p95, p99 = np.percentile(lat, [50, 95, 99])
+            extra = (f", {d.batches} dispatcher batches" if d else "")
+            print(f"  {tag}: {n / wall:.1f} queries/s, p50 {p50:.3f} p95 "
+                  f"{p95:.3f} p99 {p99:.3f} ms, {calls / n:.4f} device calls "
+                  f"per request ({calls} for {n}{extra}) on {card}")
+            if d is not None and not reload and calls != d.batches:
+                raise SystemExit(f"{calls} device calls, {d.batches} batches")
+            return s, hits, p99
+
+        def load():
+            out = {}
+            for name, index in (("fp16", fp16), ("int8", int8)):
+                for dispatch in (False, True):
+                    tag = (f"{name}, "
+                           f"{'dispatcher' if dispatch else 'lock'}")
+                    out[tag] = run(tag, index, dispatch)
+            out["reload"] = run("fp16, dispatcher, /reload (stage rows 512) "
+                                "mid-round", fp16, True, reload=True)
+            return out
+
+        for x in searchers:
+            x.calls = 0
+        results, counts = counted(load)
+        calls = sum(x.calls for x in searchers)
+        want = dict.fromkeys(kernel_wrappers(), 0)
+        want["K1"] = m.clip.transformer_layers * calls
+        want["K2"] = calls
+        print(f"  launches: {counts} for {calls} device calls (expected "
+              f"K1 = {m.clip.transformer_layers} x calls, K2 = calls, every "
+              "other 0)")
+        if counts != want:
+            raise SystemExit("launch counts do not match the daemon's path")
+        worst = 0.0
+        for tag, (s, hits, _) in results.items():
+            for q, rows in hits.items():
+                alone = s.search([q], topk=5)
+                worst = max(worst, _same_hits(rows, alone * len(rows),
+                                              SERVE_TOL[0]))
+        print(f"  every response's top-5 is Searcher.search of its query "
+              f"alone (near-ties aside), scores within {worst:.3g} "
+              f"(tolerance {SERVE_TOL[0]:g})")
+        print(f"  p99 of the round with a /reload: {results['reload'][2]:.3f}"
+              f" ms; of the rounds without: "
+              f"{results['fp16, dispatcher'][2]:.3f} ms")
+        # the device call alone, without HTTP (host clock, synchronized)
+        s = results["fp16, dispatcher"][0]
+        for n in (1, 8, 64):
+            direct = []
+            for _ in range(7):
+                t0 = time.perf_counter()
+                s.search(queries[:n], topk=5)
+                torch.cuda.synchronize()
+                direct.append(1e3 * (time.perf_counter() - t0))
+            print(f"  Searcher.search of {n} queries without HTTP: median "
+                  f"{statistics.median(direct):.3f} ms of 7")
+
+        # (c) the bundle, both packages blocked
+        script = os.path.join(work, "load_bundle.py")
+        with open(script, "w") as f:
+            f.write(BUNDLE_LOADER)
+        bundle_q = queries[:8]
+        from neighborretr_tpu_torch.data.text import encode_caption
+        enc = [encode_caption(tok, q, m.max_words) for q in bundle_q]
+        np.save(os.path.join(work, "q_ids.npy"),
+                np.stack([e[0] for e in enc]).astype(np.int32))
+        np.save(os.path.join(work, "q_mask.npy"),
+                np.stack([e[1] for e in enc]).astype(np.float32))
+        r = subprocess.run([sys.executable, script, bundle_dir, work],
+                           cwd=work, capture_output=True, text=True,
+                           timeout=600)
+        if r.returncode or "BUNDLE_OK" not in r.stdout:
+            raise SystemExit(f"bundle loader failed:\n{r.stderr[-3000:]}")
+        vals = np.load(os.path.join(work, "out_vals.npy"))
+        ids = np.load(os.path.join(work, "out_idx.npy"))
+        index320 = serving.load_index(idx)
+        vid = [str(v) for v in index320["video_ids"]]
+        got = [[(vid[j], float(v)) for j, v in zip(ir, vr)]
+               for ir, vr in zip(ids, vals)]
+        plain = serving.Searcher(model, cfg, index320, tok,
+                                 kernels=False).search(bundle_q, topk=5)
+        kern = serving.Searcher(model, cfg, index320, tok).search(bundle_q,
+                                                                  topk=5)
+        if [[v for v, _ in row] for row in got] != \
+                [[v for v, _ in row] for row in plain]:
+            raise SystemExit("the bundle's top-5 ids differ from the plain "
+                             "Searcher's")
+        err_plain = max(abs(a[1] - b[1]) for ra, rb in zip(got, plain)
+                        for a, b in zip(ra, rb))
+        if err_plain > BUNDLE_TOL:
+            raise SystemExit(f"bundle vs plain Searcher: {err_plain:.3g}")
+        err_k = _same_hits(got, kern, SERVE_TOL[0])
+        print(f"  bundle in a process that can import neither package: top-5"
+              f" ids equal to Searcher(kernels=False), scores within "
+              f"{err_plain:.3g} (tolerance {BUNDLE_TOL:g}); within "
+              f"{err_k:.3g} of the kernel Searcher (tolerance "
+              f"{SERVE_TOL[0]:g}); {r.stdout.strip().splitlines()[-1]}")
+        print(f"  phase 16 took {time.perf_counter() - t_phase:.1f} s")
+        return counts
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# run as a script with both packages (and JAX) blocked: loads a bundle with
+# torch.export.load, torch and numpy only, and saves its top-k
+BUNDLE_LOADER = r"""
+import json, os, sys, time
+
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("neighborretr_tpu", "neighborretr_tpu_torch",
+                                  "jax"):
+            raise ImportError(f"{name} imported by the bundle loader")
+        return None
+sys.meta_path.insert(0, _Block())
+
+import numpy as np
+import torch
+
+d, work = sys.argv[1], sys.argv[2]
+t0 = time.perf_counter()
+meta = json.load(open(os.path.join(d, "meta.json")))
+dev = torch.device(meta["platforms"][0])
+program = torch.export.load(os.path.join(d, "query_program.pt2")).module()
+with np.load(os.path.join(d, "params.npz"), allow_pickle=False) as z:
+    leaves = [torch.as_tensor(z[k].astype(meta["param_dtypes"][k]),
+                              device=dev) for k in sorted(z.files)]
+with np.load(os.path.join(d, "index.npz"), allow_pickle=False) as z:
+    index = {k: z[k] for k in z.files}
+v_feat = index["v_feat"].astype(np.float32)
+if "v_scale" in index:
+    v_feat = v_feat * index["v_scale"].astype(np.float32)[..., None]
+ids = np.load(os.path.join(work, "q_ids.npy"))
+mask = np.load(os.path.join(work, "q_mask.npy"))
+load_s = time.perf_counter() - t0
+with torch.no_grad():
+    vals, idx = program(leaves, torch.as_tensor(ids, device=dev),
+                        torch.as_tensor(mask, device=dev),
+                        torch.as_tensor(v_feat, device=dev),
+                        torch.as_tensor(index["v_mask"].astype(np.float32),
+                                        device=dev))
+np.save(os.path.join(work, "out_vals.npy"), vals.cpu().numpy())
+np.save(os.path.join(work, "out_idx.npy"), idx.cpu().numpy())
+print("BUNDLE_OK")
+print(f"bundle on {dev}: loaded in {load_s:.1f} s")
+"""
+
+
+def alone(argv):
+    """`--alone 9 [--seeds S ...]`: phase 9 by itself once per generator
+    seed; `--alone 16`: phase 16 by itself.  Prints no JSON lines."""
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--alone", choices=("9", "16"), required=True)
+    ap.add_argument("--seeds", type=int, nargs="+", default=[0])
+    args = ap.parse_args(argv)
+    card = phase_device()
+    phase_build()
+    if args.alone == "16":
+        phase_serving_daemon(card)
+        return
+    for seed in args.seeds:
+        print(f"-- phase 9 alone, generator seed {seed}")
+        phase_k6_k7(torch.Generator(device="cuda").manual_seed(seed))
+
+
 def main():
+    if "--alone" in sys.argv[1:]:
+        return alone(sys.argv[1:])
     profile = "--profile" in sys.argv[1:]
     card = phase_device()
     phase_build()
@@ -2296,6 +2790,7 @@ def main():
     backbone_counts, _ = phase_vit_l(card, profile)
     check_counts, k10, k11 = phase_k10_k11(g)
     augment_counts, _, _ = phase_augment(card, block_ms)
+    daemon_counts = phase_serving_daemon(card)
 
     def kernel(name, source, replaces, launches, row, timed_at, **extra):
         err, ms, plain_ms, bound_ms, bound_by, *library_ms = row
@@ -2316,7 +2811,8 @@ def main():
                 "fused_train": fused_train_counts[k],
                 "larger_backbones": backbone_counts[k],
                 "sublayer_kernel_check": check_counts[k],
-                "augment_trainer": augment_counts[k]}
+                "augment_trainer": augment_counts[k],
+                "serving_daemon": daemon_counts[k]}
 
     def by_shape(rows):
         return {str(k): list(r[1:]) for k, r in rows.items()}

@@ -185,6 +185,11 @@ extern "C" int interaction_mean_fwd(const float* tn, const float* vn,
                          : reduce_rows(part, out, rows, B, (float)A, s));
 }
 
+// routed_gather_kernel launches made by this library so far.
+extern "C" long long interaction_similarity_gather_launches() {
+  return __atomic_load_n(&g_gather_launches, __ATOMIC_RELAXED);
+}
+
 // Floats of scratch interaction_similarity_bwd needs for the partial sums
 // of split walks, for the outputs in `need` (1 dtn, 2 dvn, 4 dtw, 8 dvw).
 extern "C" long long interaction_similarity_bwd_scratch(int A, int B, int T,

@@ -36,8 +36,10 @@
 // writes S, and under autograd the backward's residuals: m1/i1 (the max
 // over v per text token and its first index) and m2/i2 (the max over t per
 // video token and its first index), fp32 + one byte, in the layouts of
-// similarity_gather.cuh, with S's bits unchanged.  The [A, T, B, V] logits
-// never reach device memory.
+// similarity_gather.cuh, with S's bits unchanged; an index whose max has a
+// runner-up within TIE_GAP carries bit 7 (similarity_tile.cuh), which the
+// wrapper resolves in float64 before any backward reads it.  The [A, T,
+// B, V] logits never reach device memory.
 //
 // interaction_similarity_blocked_bwd: no recompute; from those residuals
 // the gathers of similarity_gather.cuh, one per side autograd asks for,
@@ -69,7 +71,7 @@ blocked_similarity_kernel(const __grid_constant__ CUtensorMap tm_t,
                           const float* __restrict__ vw,
                           float* __restrict__ out, Routing res, int A, int B,
                           int T, int V, int D, int QB, int stages) {
-  similarity_tile<MAX_N / VP, VP, MT, SAVE, double>(
+  similarity_tile<MAX_N / VP, VP, MT, SAVE, double, SAVE>(
       &tm_t, &tm_v, tw, vw, out, res, A, B, T, V, D, QB, STORE, stages);
 }
 
@@ -127,18 +129,27 @@ inline bool bad_shape(int A, int B, int T, int V, int D) {
 // m2 [A, B, V] (fp32),
 // i1 [A, B, pad16(T)] and i2 [A, B, pad16(V)] (bytes) are the backward's
 // residuals: pass all four, or null for all when no gradient will be asked
-// for.  Requires T, V <= 64 and D % 16 == 0 (the wrapper checks).
+// for.  With them, ct [A, T] and cv [B, V] (bytes): each token's first
+// identical token in its caption / video (near-tie flags skip those).
+// Requires T, V <= 64 and D % 16 == 0 (the wrapper checks).
 extern "C" int interaction_similarity_blocked_fwd(
     const float* tn, const float* vn, const float* tw, const float* vw,
     float* out, float* m1, unsigned char* i1, float* m2, unsigned char* i2,
-    int A, int B, int T, int V, int D, void* stream) {
-  const Routing r{m1, i1, m2, i2};
-  if (bad_shape(A, B, T, V, D) || bad_routing(r))
+    const unsigned char* ct, const unsigned char* cv, int A, int B, int T,
+    int V, int D, void* stream) {
+  const Routing r{m1, i1, m2, i2, ct, cv};
+  if (bad_shape(A, B, T, V, D) || bad_routing(r) ||
+      (m1 != nullptr && (ct == nullptr || cv == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   return r.m1 != nullptr
              ? launch_vp<true>(tn, vn, tw, vw, out, r, A, B, T, V, D, st)
              : launch_vp<false>(tn, vn, tw, vw, out, r, A, B, T, V, D, st);
+}
+
+// routed_gather_kernel launches made by this library so far.
+extern "C" long long interaction_similarity_blocked_gather_launches() {
+  return __atomic_load_n(&g_gather_launches, __ATOMIC_RELAXED);
 }
 
 // Floats of scratch interaction_similarity_blocked_bwd needs for the

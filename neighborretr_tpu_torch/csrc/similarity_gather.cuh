@@ -375,6 +375,12 @@ inline size_t routed_scratch(int A, int B, int T, int V, int D, int need) {
   return n;
 }
 
+// routed_gather_kernel launches this library has made (each library that
+// includes this header has its own count), read through its C entry
+// <lib>_gather_launches: a count taken where the launches are made, for
+// tests that need the number of kernels a call launched
+long long g_gather_launches = 0;
+
 inline cudaError_t launch_gather(const RoutedSide& s0, float* out,
                                  float* part, cudaStream_t st) {
   RoutedSide s = s0;
@@ -390,6 +396,8 @@ inline cudaError_t launch_gather(const RoutedSide& s0, float* out,
     if (err != cudaSuccess) return;
     kern<<<grid, threads, smem, st>>>(s, P.QA, P.NG, P.per, P.PT);
     err = cudaGetLastError();
+    if (err == cudaSuccess) __atomic_add_fetch(&g_gather_launches, 1,
+                                               __ATOMIC_RELAXED);
   };
   if (P.TG == 4)
     go(routed_gather_kernel<4>);

@@ -59,6 +59,21 @@
 //   moves only where fmaxf changes the running max), so S keeps its bits,
 //   and the routing is the forward's own.  Ties are the normal case:
 //   masked tokens are zero rows and their logits are exactly 0.
+// - Under TIES (K6) a max whose runner-up lies within TIE_GAP of it (a
+//   tie, or a near-tie the fp32 logits may have ordered otherwise than
+//   exact arithmetic) gets bit 7 of its index byte set; the wrapper
+//   re-picks those indices as the first argmax of float64 logits and
+//   clears the bit (ops/similarity.py::resolve_near_ties) before a
+//   backward reads them.  The runner-up is tracked beside the max without
+//   branches (the top two values), over the tokens that are not identical
+//   to an earlier token of their caption / video (res.ct / res.cv: each
+//   token's first identical token; such a token's logit is -inf for the
+//   runner-up): an identical token's logit equals the earlier one's in any
+//   arithmetic and can move neither the max nor its first index.  A max
+//   and runner-up both exactly 0 (the logits of masked, zero tokens) are
+//   not flagged either.  The maxima and S keep their bits.
+// - Both reductions run two rows' chains a thread at a time (independent
+//   fmaxf chains in flight together; each row's order is unchanged).
 // - Grid: one block per (query group, video tile), the side with fewer
 //   tiles varying fastest so that blocks running together share the other
 //   side's tiles in L2.  No float atomics: two runs give the same bits.
@@ -79,6 +94,12 @@ constexpr int MAX_QB = 8;           // queries of a block
 constexpr int MAX_N = 128;          // columns of a warpgroup's tile
 constexpr int SMEM_LIMIT = 232448;  // a block's shared memory on an H100
 constexpr int STATIC_SMEM = 4096;   // room left for the static arrays
+// a runner-up this close to the max is flagged under TIES: the 3xTF32
+// maxima lie within 8.25e-8 of float64 at the bank shapes (H100,
+// tools/similarity_probe.py), so two logits can swap order only within
+// twice that; 1e-6 leaves a factor of 6
+constexpr float TIE_GAP = 1e-6f;
+constexpr unsigned char TIE_FLAG = 0x80;
 
 // what the tile's epilogue does with its [QB, 2·VIDS] block of S
 constexpr int STORE = 0;      // out [A, B] = S
@@ -91,6 +112,10 @@ struct Routing {
   unsigned char* i1;   // [A, B, pad16(T)]
   float* m2;           // [A, B, V]
   unsigned char* i2;   // [A, B, pad16(V)]
+  // under TIES: per token the index of the first identical token of its
+  // caption [A, T] / video [B, V]
+  const unsigned char* ct = nullptr;
+  const unsigned char* cv = nullptr;
 };
 
 // N = VIDS·VP columns a warpgroup, MT m-tiles
@@ -106,7 +131,17 @@ __host__ __device__ constexpr int epilogue_floats(int N, int MT) {
 
 // The tile of the block blockIdx.x; tm_t / tm_v are the kernel's
 // __grid_constant__ tensor maps (tile_maps), `stages` the ring's depth.
-template <int VIDS, int VP, int MT, bool SAVE, typename Sum = float>
+__device__ __forceinline__ unsigned char routed_index(int ix, float m,
+                                                      float second,
+                                                      bool ties) {
+  const bool near = ties && m - second < TIE_GAP &&
+                    !(m == 0.f && second == 0.f);
+  return (unsigned char)(ix | (near ? TIE_FLAG : 0));
+}
+
+
+template <int VIDS, int VP, int MT, bool SAVE, typename Sum = float,
+          bool TIES = false>
 __device__ __forceinline__ void similarity_tile(
     const CUtensorMap* tm_t, const CUtensorMap* tm_v,
     const float* __restrict__ tw, const float* __restrict__ vw,
@@ -125,6 +160,10 @@ __device__ __forceinline__ void similarity_tile(
   __shared__ float tw_s[MAX_ROWS];        // [q][t] of the block's queries
   __shared__ float vw_s[BV * VP];         // [video][v]
   __shared__ float s_blk[MAX_QB * BV];    // S of the block, [q][video]
+  // under TIES: -inf where a token is identical to an earlier token of its
+  // caption / video (it takes no part in the runner-up), else 0
+  __shared__ float pen_t[TIES ? MT * 64 : 1];           // [q][t]
+  __shared__ float pen_v[TIES ? BV * VP : 1];           // [video][v]
   uint8_t* ring = align1024(smem_raw);
   uint64_t* full = bars;
   uint64_t* empty = bars + MAX_STAGES;
@@ -150,6 +189,17 @@ __device__ __forceinline__ void similarity_tile(
   for (int i = threadIdx.x; i < BV * V; i += THREADS) {
     const int b = b0 + i / V;
     vw_s[(i / V) * VP + i % V] = b < B ? vw[(size_t)b * V + i % V] : 0.f;
+  }
+  if (TIES) {
+    for (int i = threadIdx.x; i < QB * T; i += THREADS) {
+      const int a = a0 + i / T, t = i % T;
+      pen_t[i] = a < A && res.ct[(size_t)a * T + t] != t ? -INFINITY : 0.f;
+    }
+    for (int i = threadIdx.x; i < BV * VP; i += THREADS) {
+      const int b = b0 + i / VP, v = i % VP;
+      pen_v[i] = b < B && v < V && res.cv[(size_t)b * V + v] != v ? -INFINITY
+                                                                 : 0.f;
+    }
   }
   // thread 0 issues the loads: k-chunk c into stage c % stages
   auto load = [&](int c) {
@@ -277,46 +327,99 @@ __device__ __forceinline__ void similarity_tile(
                sum[i][4 * j + 2 * h], sum[i][4 * j + 2 * h + 1]);
   named_sync(1 + wg, 128);
 
-  // per (row r = t·QB + q, video): max over v, first index; the row's
-  // padding columns keep it
-  for (int it = tid; it < QB * T * VIDS; it += 128) {
-    const int r = it / VIDS, vid = it % VIDS;
-    const float* x = L + r * LS + vid;
-    float m = -INFINITY;
-    int ix = 0;
+  // per (row r = t·QB + q, video): max over v, first index; two rows a
+  // thread at a time (independent chains)
+  {
+    const int n1 = QB * T * VIDS;
+    for (int base = tid; base < n1; base += 256) {
+      int r[2], vid[2];
+      const float* x[2];
+      const float* pv[2];
+      float m[2], second[2];
+      int ix[2];
 #pragma unroll
-    for (int v = 0; v < VP; ++v)
-      if (v < V) {
-        const float nm = fmaxf(m, x[VIDS * v]);
-        if (SAVE && nm != m) ix = v;
-        m = nm;
+      for (int k = 0; k < 2; ++k) {
+        const int it = base + 128 * k < n1 ? base + 128 * k : base;
+        r[k] = it / VIDS;
+        vid[k] = it % VIDS;
+        x[k] = L + r[k] * LS + vid[k];
+        pv[k] = pen_v + (wg * VIDS + vid[k]) * VP;
+        m[k] = -INFINITY;
+        second[k] = -INFINITY;
+        ix[k] = 0;
       }
-    L[r * LS + N + vid] = m;
-    const int a = a0 + r % QB, b = b0 + wg * VIDS + vid, t = r / QB;
-    if (SAVE && a < A && b < B) {
-      const size_t pair = (size_t)a * B + b;
-      res.m1[pair * T + t] = m;
-      res.i1[pair * pad16(T) + t] = (unsigned char)ix;
+#pragma unroll
+      for (int v = 0; v < VP; ++v)
+        if (v < V) {
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            const float xv = x[k][VIDS * v];
+            const float nm = fmaxf(m[k], xv);
+            // the top two values: an identical token's -inf adds nothing
+            if (TIES)
+              second[k] = fmaxf(second[k], fminf(m[k], xv + pv[k][v]));
+            if (SAVE && nm != m[k]) ix[k] = v;
+            m[k] = nm;
+          }
+        }
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        if (base + 128 * k >= n1) continue;
+        L[r[k] * LS + N + vid[k]] = m[k];
+        const int a = a0 + r[k] % QB, b = b0 + wg * VIDS + vid[k];
+        const int t = r[k] / QB;
+        if (SAVE && a < A && b < B) {
+          const size_t pair = (size_t)a * B + b;
+          res.m1[pair * T + t] = m[k];
+          res.i1[pair * pad16(T) + t] =
+              routed_index(ix[k], m[k], second[k], TIES);
+        }
+      }
     }
   }
-  // per (query, token v, video): max over t, first index
-  for (int it = tid; it < QB * VP * VIDS; it += 128) {
-    const int vid = it % VIDS, v = (it / VIDS) % VP, q = it / (VIDS * VP);
-    if (v >= V) continue;
-    const float* x = L + q * LS + VIDS * v + vid;
-    float m = -INFINITY;
-    int ix = 0;
-    for (int t = 0; t < T; ++t) {
-      const float nm = fmaxf(m, x[t * QB * LS]);
-      if (SAVE && nm != m) ix = t;
-      m = nm;
-    }
-    M2[it] = m;
-    const int a = a0 + q, b = b0 + wg * VIDS + vid;
-    if (SAVE && a < A && b < B) {
-      const size_t pair = (size_t)a * B + b;
-      res.m2[pair * V + v] = m;
-      res.i2[pair * pad16(V) + v] = (unsigned char)ix;
+  // per (query, token v, video): max over t, first index; two a thread at
+  // a time
+  {
+    const int n2 = QB * VP * VIDS;
+    for (int base = tid; base < n2; base += 256) {
+      int it[2], v[2], q[2];
+      const float* x[2];
+      float m[2], second[2];
+      int ix[2];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        it[k] = base + 128 * k < n2 ? base + 128 * k : base;
+        v[k] = (it[k] / VIDS) % VP;
+        q[k] = it[k] / (VIDS * VP);
+        x[k] = L + q[k] * LS + VIDS * v[k] + it[k] % VIDS;
+        m[k] = -INFINITY;
+        second[k] = -INFINITY;
+        ix[k] = 0;
+      }
+      for (int t = 0; t < T; ++t) {
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const float xt = x[k][t * QB * LS];
+          const float nm = fmaxf(m[k], xt);
+          if (TIES)
+            second[k] =
+                fmaxf(second[k], fminf(m[k], xt + pen_t[q[k] * T + t]));
+          if (SAVE && nm != m[k]) ix[k] = t;
+          m[k] = nm;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        if (base + 128 * k >= n2 || v[k] >= V) continue;
+        M2[it[k]] = m[k];
+        const int a = a0 + q[k], b = b0 + wg * VIDS + it[k] % VIDS;
+        if (SAVE && a < A && b < B) {
+          const size_t pair = (size_t)a * B + b;
+          res.m2[pair * V + v[k]] = m[k];
+          res.i2[pair * pad16(V) + v[k]] =
+              routed_index(ix[k], m[k], second[k], TIES);
+        }
+      }
     }
   }
   named_sync(1 + wg, 128);

@@ -9,6 +9,8 @@ linears transpose, and the flattened [P·P·3, width] patch embedding
 becomes the [width, 3, P, P] `conv1.weight`.  `to_jax_params` is the way
 back: the port's state dict as the JAX package's pytree (numpy leaves), so
 a test can compare every tensor after training steps in both packages.
+`save_reference_checkpoint` writes the port's weights as the reference's
+torch state dict (↔ weights_io.save_reference_checkpoint).
 """
 
 from __future__ import annotations
@@ -29,12 +31,20 @@ WEIGHT_NETS = ("text_weight_fc", "video_weight_fc", "text_weight_fc1",
                "video_weight_fc1")
 
 
+def _f32(a):
+    return a.float() if torch.is_tensor(a) else np.asarray(a, np.float32)
+
+
+def _permute(a, *axes):
+    return a.permute(*axes) if torch.is_tensor(a) else a.transpose(*axes)
+
+
 def _block_sd(blocks: Tree, i: int, prefix: str, out: Dict[str, np.ndarray]):
     def leaf(*path):
         a = blocks
         for k in path:
             a = a[k]
-        return np.asarray(a[i], np.float32)
+        return _f32(a[i])
 
     in_w = leaf("attn", "in_proj", "w")
     d = in_w.shape[0]
@@ -58,17 +68,17 @@ def _blocks_sd(blocks: Tree, n: int, prefix: str, out):
 
 def state_dict_from_jax_params(params: Tree,
                                cfg: ModelConfig) -> Dict[str, np.ndarray]:
-    """The JAX package's parameter pytree (numpy leaves) → the port's state
-    dict, under the reference's names."""
-    def f32(a):
-        return np.asarray(a, np.float32)
-
+    """The JAX package's parameter pytree → the port's state dict, under
+    the reference's names.  Numpy leaves give numpy arrays; torch leaves
+    give tensors made by torch ops (a traced program can take the JAX
+    layout, deploy.py)."""
+    f32 = _f32
     sd: Dict[str, np.ndarray] = {}
     c = cfg.clip
     vis, txt = params["clip"]["visual"], params["clip"]["text"]
     P, width = c.vision_patch_size, c.vision_width
-    sd["clip.visual.conv1.weight"] = f32(vis["patch_embed"]).reshape(
-        P, P, 3, width).transpose(3, 2, 0, 1)
+    sd["clip.visual.conv1.weight"] = _permute(
+        f32(vis["patch_embed"]).reshape(P, P, 3, width), 3, 2, 0, 1)
     sd["clip.visual.class_embedding"] = f32(vis["class_embedding"])
     sd["clip.visual.positional_embedding"] = f32(vis["positional_embedding"])
     sd["clip.visual.ln_pre.weight"] = f32(vis["ln_pre"]["scale"])
@@ -105,7 +115,8 @@ def state_dict_from_jax_params(params: Tree,
             c, b = stack[f"ctm{i}"], stack[f"block{i}"]
             cp, bp = f"{modality}_ctm{i}", f"{modality}_block{i}"
             # Conv1d [C_out, C_in, K] from the JAX [K, C_in, C_out]
-            sd[f"{cp}.conv.conv.weight"] = f32(c["conv"]["w"]).transpose(2, 1, 0)
+            sd[f"{cp}.conv.conv.weight"] = _permute(f32(c["conv"]["w"]),
+                                                    2, 1, 0)
             sd[f"{cp}.norm.weight"] = f32(c["norm"]["scale"])
             sd[f"{cp}.norm.bias"] = f32(c["norm"]["bias"])
             sd[f"{cp}.score.weight"] = f32(c["score"]["w"]).T
@@ -211,6 +222,27 @@ def from_jax_params(params: Tree, cfg: ModelConfig,
     model.load_state_dict({k: torch.tensor(v) for k, v in sd.items()},
                           strict=True)
     return model.eval().requires_grad_(False)
+
+
+def reference_state_dict(model: NeighborRetr) -> Dict[str, torch.Tensor]:
+    """The port's weights as the reference's torch state dict
+    (modeling.py:46 names; ↔ weights_io.reference_state_dict_from_params):
+    fp32, contiguous, on the CPU.  The port's module names are the
+    reference's, and it holds nothing the JAX exporter leaves out (the
+    reference's unused weighting nets *_fc0 / *_intra and its mb_*
+    buffers), so this is its state dict.  A scalar (logit_scale) is
+    written with shape [1], as the JAX exporter writes it (np.
+    ascontiguousarray of a 0-d array); load_state_dict reads a [1] tensor
+    into a 0-d parameter."""
+    return {k: v.detach().to("cpu", torch.float32).reshape(
+                v.shape or (1,)).contiguous()
+            for k, v in model.state_dict().items()}
+
+
+def save_reference_checkpoint(model: NeighborRetr, path: str) -> None:
+    """torch.save a reference-layout checkpoint (loadable by the reference's
+    --init_model / load_state_dict(strict=False))."""
+    torch.save(reference_state_dict(model), path)
 
 
 def read_npz_params(path: str) -> Tree:

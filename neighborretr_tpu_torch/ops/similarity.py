@@ -146,6 +146,53 @@ def _routing(logits, tw, vw):
                  i2.to(torch.uint8).contiguous())
 
 
+TIE_FLAG = 0x80   # bit 7 of a saved index: its max has a near-tie
+
+
+def canonical_tokens(x: torch.Tensor) -> torch.Tensor:
+    """x [N, L, D] → [N, L] uint8: for each token the index of the first
+    token of its row (caption or video) whose vector is identical, bit for
+    bit (its own index when none is).  Identical vectors are found by two
+    fixed random projections in one product (identical rows give identical
+    results); distinct vectors with equal projections would need equal
+    fp32 sums along two random directions."""
+    N, L, D = x.shape
+    gen = torch.Generator(device=x.device).manual_seed(0x5EED)
+    proj = torch.randn(D, 2, generator=gen, device=x.device, dtype=x.dtype)
+    h = (x.reshape(N * L, D) @ proj).reshape(N, L, 2)
+    same = (h[:, :, None, :] == h[:, None, :, :]).all(-1)      # [N, L, L]
+    return same.to(torch.uint8).argmax(dim=2).to(torch.uint8)
+
+
+def resolve_near_ties(tn, vn, m1, i1, m2, i2) -> int:
+    """Re-pick every saved index the forward kernel flagged (TIE_FLAG: its
+    max had a runner-up within the kernel's TIE_GAP, csrc/
+    similarity_tile.cuh) as the first argmax of the float64 logits of that
+    max, and clear the flags, in place: i1 [A, B, >= T] routes each caption
+    token's max over the video's tokens, i2 [A, B, >= V] each video token's
+    over the caption's.  Returns the number of indices re-picked."""
+    T, V = tn.shape[1], vn.shape[1]
+    n = 0
+    for idx, k in ((i1, T), (i2, V)):
+        view = idx[..., :k]
+        a, b, j = (view >= TIE_FLAG).nonzero(as_tuple=True)
+        if a.numel() == 0:
+            continue
+        # caption a's token j against video b's tokens, or video b's token
+        # j against caption a's, 1,024 maxima at a time
+        own, rows, other, partners = ((tn, a, vn, b) if idx is i1
+                                      else (vn, b, tn, a))
+        for s in range(0, a.numel(), 1024):
+            c = slice(s, s + 1024)
+            logits = torch.einsum("nd,nkd->nk",
+                                  own[rows[c], j[c]].double(),
+                                  other[partners[c]].double())
+            view[a[c], b[c], j[c]] = _first_argmax(logits, 1)[:, 0].to(
+                torch.uint8)
+        n += a.numel()
+    return n
+
+
 def split_tf32(x: torch.Tensor):
     """The kernel's split of fp32 x into two TF32 halves (hi, lo), both fp32
     tensors with the low 13 bits zero: hi = x rounded to 10 mantissa bits,
@@ -263,6 +310,14 @@ def routed_bwd_call(lib, name, tn, vn, tw, vw, g, res, need_t, need_v):
                  _build.stream())
     _build.check(err, name)
     return dtn, dvn, dtw, dvw
+
+
+def gather_launches(lib: str = _LIB) -> int:
+    """routed_gather_kernel launches library `lib` has made in this process,
+    counted in its C code where each launch is made (the gathers of K5 in
+    this library, of K7 in interaction_similarity_blocked)."""
+    return _build.function(lib, f"{lib}_gather_launches", [],
+                           ctypes.c_longlong)()
 
 
 def _normalize_masked(x, mask, eps: float = 1e-12) -> torch.Tensor:

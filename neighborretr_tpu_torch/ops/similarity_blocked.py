@@ -15,7 +15,9 @@ neither version here builds them whole:
   writes S [A, B]; under autograd it also saves
   the routing, per (caption, video) the max over video tokens of each
   caption token's logits and its FIRST index (m1, i1) and the max over
-  caption tokens of each video token's and its first index (m2, i2).  The
+  caption tokens of each video token's and its first index (m2, i2); an
+  index whose max has a near-tie is re-picked in float64, so the routing
+  is float64's first argmax.  The
   backward kernel recomputes nothing: it gathers, in a fixed order, the
   feature gradients autograd asks for by those saved indices (two runs give
   the same bits).  A CPU tensor, or `kernels=False` on any device, takes
@@ -56,7 +58,7 @@ MAX_TOKENS = 64
 # fault (scripts/torch_step_gap.py --long, chip_smoke.py's trainer phase).
 routing_hook = None
 _LIB = "interaction_similarity_blocked"
-_FWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_FWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def _video_chunk(tn, vn, max_logits_bytes: int) -> int:
@@ -138,21 +140,28 @@ def _check_kernel_inputs(tn, vn, tw, vw) -> None:
 
 def _blocked_fwd(tn, vn, tw, vw, save: bool):
     """The forward kernel on prepared CUDA inputs → (S, residuals): the
-    routing (ops/similarity.py::residual_buffers) if `save`, else ()."""
+    routing (ops/similarity.py::residual_buffers) if `save`, else ().  The
+    kernel flags the indices of maxima with a near-tie; they are re-picked
+    in float64 here (`S.resolve_near_ties`), so the routing is float64's
+    first argmax."""
     A, T, D = tn.shape
     B, V, _ = vn.shape
     dev = tn.device
     out = torch.empty((A, B), dtype=torch.float32, device=dev)
     res = S.residual_buffers(A, T, B, V, dev) if save else ()
+    canon = ((S.canonical_tokens(tn), S.canonical_tokens(vn)) if save
+             else (None, None))
     fn = _build.function(_LIB, "interaction_similarity_blocked_fwd",
                          _FWD_ARGTYPES)
     P = _build.ptr
     with torch.cuda.device(dev):
         err = fn(P(tn), P(vn), P(tw), P(vw), P(out),
-                 *(map(P, res) if save else [None] * 4),
+                 *(map(P, res + canon) if save else [None] * 6),
                  A, B, T, V, D, _build.stream())
     _build.check(err, "interaction_similarity_blocked_fwd")
     fused_interaction_similarity_blocked.launches += 1
+    if save:
+        S.resolve_near_ties(tn, vn, *res)
     return out, res
 
 

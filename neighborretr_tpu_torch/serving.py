@@ -10,14 +10,21 @@ either package loads and verifies in the other:
   v_mask    [N,F]    frame validity
   meta      json     model config + weights fingerprint
 
-The dynamic-batching dispatcher and the HTTP daemon are not ported yet.
+A `Searcher` keeps the corpus on the model's device across requests;
+`BatchingDispatcher` merges concurrent requests into one device call, and
+`cli/serve.py` puts both behind HTTP with a live `/reload`.  The JAX
+package's mesh branches (a corpus sharded over devices) are not ported.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
+import queue
+import threading
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -69,15 +76,76 @@ def quantize_features(v: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return q, scale[..., 0].astype(np.float16)
 
 
-def index_video_features(index: Dict[str, np.ndarray],
-                         device) -> torch.Tensor:
+def device_scope(device):
+    """Make `device` the thread's current CUDA device (the current device
+    and stream are per thread: a handler or dispatcher thread starts on
+    device 0's default stream); a no-op for the CPU."""
+    if device is not None and torch.device(device).type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def staged_device_put(a: np.ndarray, rows: int, device,
+                      yield_fn=None) -> torch.Tensor:
+    """H2D upload in row slabs instead of one transfer (↔ serving.
+    staged_device_put): the buffer is allocated once on the device in
+    a's dtype, each slab is copied from a pinned host chunk, and `yield_fn`
+    (default: a GIL yield) runs between slabs, so searches from other
+    threads interleave with a live reload's upload.  rows <= 0, or a single
+    slab that holds every row, is one copy.  A slab count that does not
+    divide the rows ends on an overlapping slab of the same shape."""
+    dev = torch.device(device)
+    n = a.shape[0]
+    if rows <= 0 or rows >= n:
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    buf = torch.empty(a.shape, dtype=torch.from_numpy(a[:0]).dtype,
+                      device=dev)
+    offsets = list(range(0, n - rows + 1, rows))
+    if offsets[-1] + rows < n:
+        offsets.append(n - rows)
+    pinned = dev.type == "cuda"
+    for off in offsets:
+        chunk = torch.from_numpy(np.ascontiguousarray(a[off:off + rows]))
+        if pinned:
+            # the caching host allocator keeps a pinned chunk alive until
+            # the copy that reads it has run
+            chunk = chunk.pin_memory()
+        buf[off:off + rows].copy_(chunk, non_blocking=pinned)
+        if yield_fn is not None:
+            yield_fn()
+        else:
+            time.sleep(0)
+    return buf
+
+
+def index_video_features(index: Dict[str, np.ndarray], device,
+                         staged_rows: int = 0,
+                         yield_fn=None) -> torch.Tensor:
     """fp32 device view of the stored features.  The upload crosses in the
-    stored dtype (fp16/int8) and widens on the device."""
-    q = torch.as_tensor(np.asarray(index["v_feat"]), device=device)
-    if "v_scale" in index:
-        s = torch.as_tensor(np.asarray(index["v_scale"]), device=device)
-        return q.float() * s.float()[..., None]
-    return q.float()
+    stored dtype (fp16/int8) and widens on the device; with staged_rows > 0
+    it goes up in row slabs (`staged_device_put`), on a CUDA device on a
+    side stream that the current stream then waits for, so work queued
+    meanwhile on the current stream does not wait behind the copies."""
+    dev = torch.device(device)
+    side = (torch.cuda.Stream(dev) if staged_rows > 0 and dev.type == "cuda"
+            else None)
+    if side is not None:
+        side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side) if side is not None else \
+            contextlib.nullcontext():
+        q = staged_device_put(np.asarray(index["v_feat"]), staged_rows, dev,
+                              yield_fn)
+        if "v_scale" in index:
+            s = torch.as_tensor(np.asarray(index["v_scale"]), device=dev)
+            feat = q.float() * s.float()[..., None]
+        else:
+            feat = q.float()
+    if side is not None:
+        main = torch.cuda.current_stream(dev)
+        main.wait_stream(side)
+        # allocated on the side stream, read on the main one from now on
+        feat.record_stream(main)
+    return feat
 
 
 def build_video_index(model: NeighborRetr, cfg: Config, loader,
@@ -131,6 +199,30 @@ def build_video_index(model: NeighborRetr, cfg: Config, loader,
     if feature_dtype == "int8":
         index["v_feat"], index["v_scale"] = quantize_features(index["v_feat"])
     return index
+
+
+def append_index(existing: Dict[str, np.ndarray],
+                 new: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Merge a freshly built index into an existing one (↔ serving.
+    append_index).  Both must come from the same config and weights
+    (byte-equal meta) and the same feature dtype layout; rows of `new`
+    whose video id is already there are dropped."""
+    if existing["meta"].tobytes() != new["meta"].tobytes():
+        raise ValueError(
+            "cannot append: the existing index was built with a different "
+            "model config or checkpoint (meta mismatch) — rebuild instead")
+    if ("v_scale" in existing) != ("v_scale" in new):
+        raise ValueError("cannot append: feature_dtype differs from the "
+                         "existing index (int8 vs float16)")
+    have = {str(v) for v in existing["video_ids"]}
+    fresh = [i for i, v in enumerate(new["video_ids"]) if str(v) not in have]
+    if not fresh:
+        return existing
+    out = {"meta": existing["meta"]}
+    for key in ("video_ids", "v_feat", "v_mask") + (
+            ("v_scale",) if "v_scale" in existing else ()):
+        out[key] = np.concatenate([existing[key], new[key][fresh]])
+    return out
 
 
 def index_path(path: str) -> str:
@@ -206,11 +298,14 @@ def masked_topk(sim: torch.Tensor, kk: int, n_valid: int):
 class Searcher:
     """Query engine over a loaded index: the corpus features live on the
     model's device across requests, and query batches pad up to a multiple
-    of `query_batch` ("" queries, rows dropped)."""
+    of `query_batch` ("" queries, rows dropped).  staged_upload_rows > 0
+    uploads the corpus in row slabs on a side stream (the live reload
+    path, `index_video_features`)."""
 
     def __init__(self, model: NeighborRetr, cfg: Config,
                  index: Dict[str, np.ndarray], tokenizer,
-                 query_batch: int = 8, kernels: bool = True):
+                 query_batch: int = 8, kernels: bool = True,
+                 staged_upload_rows: int = 0):
         if query_batch < 1:
             raise ValueError(f"query_batch must be >= 1, got {query_batch}")
         check_meta(index, cfg, model)
@@ -218,14 +313,30 @@ class Searcher:
         self.kernels = kernels
         self.video_ids = [str(v) for v in index["video_ids"]]
         self.query_batch = int(query_batch)
-        dev = model.clip.logit_scale.device
-        self._v_feat = index_video_features(index, dev)
-        self._v_mask = torch.as_tensor(np.asarray(index["v_mask"], np.float32),
-                                       device=dev)
+        self.device = model.clip.logit_scale.device
+        self.calls = 0           # device calls made (text encode + K2)
+        with device_scope(self.device):
+            self._v_feat = index_video_features(
+                index, self.device, staged_rows=staged_upload_rows)
+            self._v_mask = torch.as_tensor(
+                np.asarray(index["v_mask"], np.float32), device=self.device)
 
+    def __len__(self) -> int:
+        return len(self.video_ids)
+
+    def warmup(self) -> None:
+        """Pay, before the first request, for what it would wait on: the
+        kernel libraries' build and load (ops/_build.py), the cuBLAS
+        handles, the allocator's first blocks (the daemon calls this
+        before binding its port)."""
+        self.search(["warmup"], topk=1)
+        self.similarities(["warmup"])
+
+    @torch.no_grad()
     def _similarity(self, queries: Sequence[str]) -> torch.Tensor:
         """Device [Q_padded, N] similarity for a padded query list."""
         padded = list(queries) + [""] * ((-len(queries)) % self.query_batch)
+        self.calls += 1
         t_feat, t_mask = encode_queries(self.model, self.cfg, self.tokenizer,
                                         padded, self.kernels)
         return similarity_matrix_device(
@@ -237,7 +348,8 @@ class Searcher:
         n = len(queries)
         if n == 0:
             return np.zeros((0, len(self.video_ids)), np.float32)
-        return self._similarity(queries)[:n].cpu().numpy()
+        with device_scope(self.device):
+            return self._similarity(queries)[:n].cpu().numpy()
 
     def search(self, queries: Sequence[str], topk: int = 5,
                ) -> List[List[Tuple[str, float]]]:
@@ -247,13 +359,14 @@ class Searcher:
         k = max(min(topk, len(self.video_ids)), 0)
         if n == 0 or k == 0:
             return [[] for _ in queries]
-        sim = self._similarity(queries)
-        # k bucketed to the next power of two, min 8, as the JAX searcher
-        # does to reuse its compiled top-k programs
-        kk = min(max(8, 1 << (k - 1).bit_length()), sim.shape[1])
-        vals, idx = masked_topk(sim, kk, len(self.video_ids))
-        vals = vals[:n, :k].cpu().numpy()
-        idx = idx[:n, :k].cpu().numpy()
+        with device_scope(self.device):
+            sim = self._similarity(queries)
+            # k bucketed to the next power of two, min 8, as the JAX
+            # searcher does to reuse its compiled top-k programs
+            kk = min(max(8, 1 << (k - 1).bit_length()), sim.shape[1])
+            vals, idx = masked_topk(sim, kk, len(self.video_ids))
+            vals = vals[:n, :k].cpu().numpy()
+            idx = idx[:n, :k].cpu().numpy()
         return [[(self.video_ids[j], float(v)) for j, v in zip(irow, vrow)]
                 for irow, vrow in zip(idx, vals)]
 
@@ -265,3 +378,143 @@ def search(model: NeighborRetr, cfg: Config, index: Dict[str, np.ndarray],
     return Searcher(model, cfg, index, tokenizer,
                     query_batch=max(len(queries), 1),
                     kernels=kernels).search(queries, topk)
+
+
+class _Pending:
+    __slots__ = ("queries", "topk", "event", "results", "error")
+
+    def __init__(self, queries: Sequence[str], topk: int):
+        self.queries = list(queries)
+        self.topk = int(topk)
+        self.event = threading.Event()
+        self.results = None
+        self.error: Optional[BaseException] = None
+
+
+class BatchingDispatcher:
+    """Cross-request dynamic batching over one Searcher (↔ serving.
+    BatchingDispatcher).
+
+    The daemon's handler threads each carry one request; this dispatcher
+    merges whatever is queued (waiting at most `max_wait_ms` after the first
+    arrival, up to `max_batch` queries, the merge rounded up to a
+    power-of-two multiple of the searcher's `query_batch` with "" queries)
+    into ONE `searcher.search` call at the batch's largest topk, then hands
+    each request its own rows at its own topk.  A request that would push
+    the merge past `max_batch` starts the next batch, so a batch exceeds it
+    only when a single request does.  An error in the device call reaches
+    every co-batched caller; `close()` fails whatever is still queued.
+
+    The dispatcher's thread makes the searcher's device its current one
+    before each call (`device_scope`): the current CUDA device and stream
+    belong to a thread.  `searcher` may be swapped (the daemon's /reload)."""
+
+    def __init__(self, searcher, max_batch: Optional[int] = None,
+                 max_wait_ms: float = 2.0):
+        if max_batch is not None and max_batch < 1:
+            raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        self.searcher = searcher
+        self.max_batch = int(max_batch or max(searcher.query_batch * 8, 64))
+        self.max_wait = max(float(max_wait_ms), 0.0) / 1e3
+        qb = int(searcher.query_batch)
+        self.buckets = []
+        b = qb
+        while b < self.max_batch:
+            self.buckets.append(b)
+            b *= 2
+        self.buckets.append(self.max_batch)
+        self._queue: "queue.SimpleQueue[Optional[_Pending]]" = \
+            queue.SimpleQueue()
+        self._carry: Optional[_Pending] = None   # dequeued but over the cap
+        self._closed = False
+        self.batches = 0
+        self.requests = 0
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="nrtpu-serve-batcher")
+        self._thread.start()
+
+    def submit(self, queries: Sequence[str], topk: int
+               ) -> List[List[Tuple[str, float]]]:
+        if self._closed:
+            raise RuntimeError("BatchingDispatcher is closed")
+        p = _Pending(queries, topk)
+        self._queue.put(p)
+        # bounded waits: a submit racing close() must raise, not hang
+        while not p.event.wait(timeout=1.0):
+            if self._closed and not p.event.is_set():
+                raise RuntimeError("BatchingDispatcher closed mid-request")
+        if p.error is not None:
+            raise p.error
+        return p.results
+
+    def close(self) -> None:
+        self._closed = True
+        self._queue.put(None)
+        self._thread.join(timeout=10)
+        while True:              # fail whatever is still queued
+            try:
+                p = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if p is not None:
+                p.error = RuntimeError("BatchingDispatcher closed")
+                p.event.set()
+
+    def _collect(self) -> Optional[List[_Pending]]:
+        """One merged batch: block for the first request, then drain the
+        queue until max_batch or the window closes."""
+        first = self._carry if self._carry is not None else self._queue.get()
+        self._carry = None
+        if first is None:
+            return None
+        batch = [first]
+        total = len(first.queries)
+        deadline = time.monotonic() + self.max_wait
+        while total < self.max_batch:
+            remaining = deadline - time.monotonic()
+            try:
+                nxt = (self._queue.get_nowait() if remaining <= 0
+                       else self._queue.get(timeout=remaining))
+            except queue.Empty:
+                break
+            if nxt is None:            # close() while a batch is forming:
+                self._queue.put(None)  # serve it, exit on the next round
+                break
+            if total + len(nxt.queries) > self.max_batch:
+                self._carry = nxt      # would overflow: starts the next batch
+                break
+            batch.append(nxt)
+            total += len(nxt.queries)
+        return batch
+
+    def _loop(self) -> None:
+        while True:
+            batch = self._collect()
+            if batch is None:
+                return
+            merged: List[str] = []
+            for p in batch:
+                merged.extend(p.queries)
+            n_real = len(merged)
+            for b in self.buckets:       # round up to a bucket
+                if b >= n_real:
+                    merged.extend([""] * (b - n_real))
+                    break
+            searcher = self.searcher
+            try:
+                with device_scope(getattr(searcher, "device", None)):
+                    hits = searcher.search(merged,
+                                           topk=max(p.topk for p in batch))
+                off = 0
+                for p in batch:
+                    rows = hits[off:off + len(p.queries)]
+                    p.results = [row[:p.topk] for row in rows]
+                    off += len(p.queries)
+            except BaseException as exc:  # noqa: BLE001 — to every waiter
+                for p in batch:
+                    p.error = exc
+            finally:
+                self.batches += 1
+                self.requests += len(batch)
+                for p in batch:
+                    p.event.set()

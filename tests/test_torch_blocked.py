@@ -234,6 +234,52 @@ def test_gradient_ties_across_jax_chunks(monkeypatch):
         np.abs(got[1][:, 1]).max()
 
 
+def test_canonical_tokens_find_identical_vectors():
+    """Each token's first bit-identical token in its row: duplicates and
+    the zero rows of masked tokens share one; distinct vectors keep their
+    own index."""
+    x = torch.randn(3, 6, 32, generator=torch.Generator().manual_seed(1))
+    x[0, 4] = x[0, 1]
+    x[1, 3:] = 0
+    x[2, 5] = x[2, 0] * (1 + 2 ** -20)        # close, but not identical
+    got = S.canonical_tokens(x)
+    assert got.dtype == torch.uint8
+    assert got.tolist() == [[0, 1, 2, 3, 1, 5], [0, 1, 2, 3, 3, 3],
+                            [0, 1, 2, 3, 4, 5]]
+
+
+@pytest.mark.parametrize("T,V", [(7, 5), (64, 64)])
+def test_resolve_near_ties_repicks_float64_first_argmax(T, V):
+    """Flagged saved indices (the kernel's TIE_FLAG, whatever index they
+    carry) become the first argmax of the float64 logits and lose the flag;
+    unflagged ones are left alone; the count is the number flagged."""
+    A, B, D = 3, 4, 24
+    g = torch.Generator().manual_seed(T)
+    tn = S.l2_normalize(torch.randn(A, T, D, generator=g))
+    vn = S.l2_normalize(torch.randn(B, V, D, generator=g))
+    vn[:, V - 1] = vn[:, 0]                 # ties of identical tokens
+    _, (m1, i1, m2, i2) = SB.similarity_blocked_routing_plain(
+        tn.double(), vn.double(), torch.ones(A, T, dtype=torch.float64) / T,
+        torch.ones(B, V, dtype=torch.float64) / V)
+    want = (i1.clone(), i2.clone())
+    saved = []
+    for idx, k in ((i1, T), (i2, V)):
+        pad = torch.full(idx.shape[:2] + (S._pad16(k),), 7, dtype=torch.uint8)
+        pad[..., :k] = idx
+        flag = torch.rand(idx.shape, generator=g) < 0.3
+        wrong = (idx.long() + 1 + torch.randint(0, k, idx.shape,
+                                                generator=g)) % k
+        pad[..., :k] = torch.where(flag, wrong.to(torch.uint8) | S.TIE_FLAG,
+                                   idx)
+        saved.append((pad, int(flag.sum())))
+    (r1, n1), (r2, n2) = saved
+    assert S.resolve_near_ties(tn, vn, m1.float(), r1, m2.float(), r2) == \
+        n1 + n2
+    assert torch.equal(r1[..., :T], want[0]) and torch.equal(r2[..., :V],
+                                                             want[1])
+    assert (r1[..., T:] == 7).all() and (r2[..., V:] == 7).all()
+
+
 def test_plain_backward_chunks_do_not_change_the_result():
     args = [torch.tensor(a) for a in make_inputs(9, 5, 11, 16, 8, 32, True)]
     tn, vn, tw, vw = S._prepare(*args, False)

@@ -459,25 +459,44 @@ def test_routed_backward_one_side_and_both(cuda, kind, A, B, T, V, D):
                                             ("flat", 128, 1920, 24, 12, 512),
                                             ("blocked", 40, 200, 64, 64, 128)])
 def test_one_side_launches_one_gather(cuda, kind, A, B, T, V, D):
-    """Counted by the profiler: a backward asked for one feature side
-    launches one gather kernel, a both-side backward two."""
-    from torch.profiler import ProfilerActivity, profile
+    """A backward asked for one feature side launches one gather kernel, a
+    both-side backward two: counted by the library where it launches them
+    (`similarity.gather_launches`; torch.profiler's kernel records were
+    lost now and then, tools/profiler_probe.py)."""
     tn, vn, tw, vw, g = exact_inputs(A + T, A, B, T, V, D, cuda)
     _, res = routed_forward(kind, tn, vn, tw, vw)
     bwd = (S.fused_similarity_bwd if kind == "flat"
            else SB.fused_blocked_similarity_bwd)
+    lib = "interaction_similarity" + ("" if kind == "flat" else "_blocked")
 
     def gathers(**side):
+        before = S.gather_launches(lib)
         bwd(tn, vn, tw, vw, g, *res, **side)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as trace:
-            bwd(tn, vn, tw, vw, g, *res, **side)
-            torch.cuda.synchronize()
-        return sum(e.count for e in trace.key_averages()
-                   if "routed_gather_kernel" in e.key)
+        return S.gather_launches(lib) - before
 
     assert [gathers(need_v=False), gathers(need_t=False), gathers()] == \
         [1, 1, 2]
+
+
+@pytest.mark.parametrize("A,B,T,V,D", [(40, 300, 64, 64, 128),
+                                       (128, 1920, 64, 64, 512)])
+def test_blocked_routing_is_float64_first_argmax(cuda, A, B, T, V, D):
+    """Real-valued inputs with ragged masks and identical tokens: K6's saved
+    routing (its near-ties re-picked in float64) is the first argmax of
+    float64 logits everywhere, its maxima and S unchanged by the re-pick."""
+    args = sim_inputs(A + B + 1, A, B, T, V, D, cuda)
+    args[0][:, 3] = args[0][:, 2]
+    args[1][:, 1] = args[1][:, 0]
+    prep = S._prepare(*args, False)
+    out, res = SB._blocked_fwd(*prep, save=True)
+    bare, _ = SB._blocked_fwd(*prep, save=False)
+    assert torch.equal(out, bare)
+    _, want = SB.similarity_blocked_routing_plain(*(x.double() for x in prep))
+    assert torch.equal(res[1][..., :T], want[1])
+    assert torch.equal(res[3][..., :V], want[3])
+    torch.testing.assert_close(res[0], want[0].float(), atol=2e-7, rtol=0)
+    torch.testing.assert_close(res[2], want[2].float(), atol=2e-7, rtol=0)
 
 
 @pytest.mark.parametrize("form", ["similarity", "mean0", "mean1", "blocked"])
@@ -1241,3 +1260,127 @@ def test_device_augment_on_the_card_matches_the_cpu(cuda):
     d = (got.cpu().int() - want.int()).abs()
     assert d.max().item() <= 1 and (d > 0).float().mean().item() <= 0.005
     assert (want != video).any()
+
+
+def _serving_setup(device, n_videos=300, seed=0):
+    """A tiny fp32 model (K2 on the card; the towers' attention is plain in
+    fp32) and an index of random fp16 features under its meta."""
+    import json
+    from neighborretr_tpu_torch import serving
+    from neighborretr_tpu_torch.core.config import Config, ModelConfig
+    from neighborretr_tpu_torch.models import weights_io
+    cfg = Config(model=ModelConfig.tiny(max_words=8, max_frames=4))
+    model = weights_io.init_model(cfg.model, seed, device)
+    rng = np.random.default_rng(seed)
+    E = cfg.model.clip.embed_dim
+    index = {"video_ids": np.asarray([f"v{i}" for i in range(n_videos)]),
+             "v_feat": rng.standard_normal((n_videos, 4, E)).astype(
+                 np.float16),
+             "v_mask": (np.arange(4)[None] < rng.integers(
+                 1, 5, n_videos)[:, None]).astype(np.float32),
+             "meta": np.frombuffer(json.dumps(
+                 serving._config_meta(cfg, model)).encode(), dtype=np.uint8)}
+    return cfg, model, index
+
+
+class _Tok:
+    def tokenize(self, text):
+        return text.split()
+
+    def convert_tokens_to_ids(self, tokens):
+        import zlib
+        special = {"<|startoftext|>": 1, "<|endoftext|>": 2}
+        return [special.get(t, 3 + zlib.crc32(t.encode()) % 500)
+                for t in tokens]
+
+
+SERVE_QUERIES = [f"caption {w} number {i}" for i, w in
+                 enumerate("red green blue cyan gold pink gray teal".split())]
+
+
+@pytest.mark.parametrize("rows", [0, 7, 64, 300])
+def test_staged_upload_on_card_equals_one_copy(cuda, rows):
+    """The staged upload (pinned slabs on a side stream) gives one copy's
+    bits, raw and through a Searcher, fp16 and int8."""
+    from neighborretr_tpu_torch import serving
+    cfg, model, index = _serving_setup(cuda)
+    a = index["v_feat"]
+    got = serving.staged_device_put(a, rows, cuda)
+    assert got.is_cuda and torch.equal(got.cpu(), torch.from_numpy(a))
+    q8 = dict(index)
+    q8["v_feat"], q8["v_scale"] = serving.quantize_features(a)
+    for idx in (index, q8):
+        one = serving.Searcher(model, cfg, idx, _Tok(), query_batch=4)
+        staged = serving.Searcher(model, cfg, idx, _Tok(), query_batch=4,
+                                  staged_upload_rows=rows)
+        assert torch.equal(one._v_feat, staged._v_feat)
+        np.testing.assert_array_equal(one.similarities(SERVE_QUERIES),
+                                      staged.similarities(SERVE_QUERIES))
+
+
+# serving scores on the card: a query's features may depend on the merged
+# batch's size (cuBLAS picks a GEMM per shape); chip_smoke.py's SERVE_TOL
+SERVE_TOL = 5e-3
+
+
+def test_dispatcher_on_card_matches_sequential(cuda):
+    """Concurrent requests through the dispatcher on the card: the hits of
+    each query searched alone (ids, near-ties aside; scores within
+    SERVE_TOL), K2 launched once per device call."""
+    import threading
+    from neighborretr_tpu_torch import serving
+    cfg, model, index = _serving_setup(cuda)
+    searcher = serving.Searcher(model, cfg, index, _Tok(), query_batch=4)
+    searcher.warmup()
+    want = [searcher.search([q], topk=5)[0] for q in SERVE_QUERIES]
+    d = serving.BatchingDispatcher(searcher, max_batch=16, max_wait_ms=50.0)
+    got = [None] * len(SERVE_QUERIES)
+    try:
+        before = S.fused_interaction_similarity.launches
+
+        def one(i):
+            got[i] = d.submit([SERVE_QUERIES[i]], 5)[0]
+
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(SERVE_QUERIES))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert S.fused_interaction_similarity.launches - before == d.batches
+        assert d.batches < len(SERVE_QUERIES)
+    finally:
+        d.close()
+    for g_row, w_row in zip(got, want):
+        g_ids, g_s = zip(*g_row)
+        w_ids, w_s = zip(*w_row)
+        np.testing.assert_allclose(g_s, w_s, atol=SERVE_TOL, rtol=0)
+        for r, (gi, wi) in enumerate(zip(g_ids, w_ids)):
+            near = [abs(w_s[r] - s) <= SERVE_TOL for s in w_s]
+            assert gi == wi or near.count(True) > 1, (r, gi, wi)
+
+
+def test_bundle_exported_on_card_matches_plain_searcher(cuda, tmp_path):
+    """A bundle exported on cuda runs there and gives the plain Searcher's
+    top-k ids with scores within 1e-5."""
+    from neighborretr_tpu_torch import deploy, serving
+    from neighborretr_tpu_torch.data.text import encode_caption
+    cfg, model, index = _serving_setup(cuda)
+    deploy.save_bundle(str(tmp_path), model, cfg, index, query_batch=4,
+                       topk=5)
+    bundle = deploy.load_bundle(str(tmp_path))
+    assert bundle.meta["platforms"] == ["cuda"] and bundle.device.type == \
+        "cuda"
+    plain = serving.Searcher(model, cfg, index, _Tok(), query_batch=4,
+                             kernels=False)
+    for s in range(0, len(SERVE_QUERIES), 4):
+        qs = SERVE_QUERIES[s:s + 4]
+        enc = [encode_caption(_Tok(), q, 8) for q in qs]
+        vals, idx = bundle.search_tokens(
+            np.stack([e[0] for e in enc]).astype(np.int32),
+            np.stack([e[1] for e in enc]).astype(np.float32))
+        for q, hits in enumerate(plain.search(qs, topk=5)):
+            assert [bundle.video_ids[j] for j in idx[q]] == \
+                [vid for vid, _ in hits]
+            np.testing.assert_allclose(vals[q], [sc for _, sc in hits],
+                                       rtol=0, atol=1e-5)

@@ -13,6 +13,7 @@ behind the batching dispatcher, a live reload, the deployment bundle).
     python3 chip_smoke.py [--profile]
     python3 chip_smoke.py --alone 9 [--seeds S ...]   # phase 9 per seed
     python3 chip_smoke.py --alone 16                  # phase 16
+    python3 chip_smoke.py --alone 17                  # phase 17
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. device  — requires CUDA; prints the card's name and power limit;
@@ -144,6 +145,25 @@ Phases (each prints its own lines; any failure exits non-zero):
                round with a staged /reload (512-row slabs) mid-round; (c)
                the bundle loaded in a process that can import neither
                package, against Searcher(kernels=False) and the kernels.
+ 17. data parallel — torch.distributed at ViT-B/32 width (bf16, depth not
+               cut, seeded random weights, synthetic data): (a) cli.train
+               --num_devices 1 at the MSR-VTT recipe (batch 128, bank 15 x
+               128 filled by the data's length to 2 x 128, 2 steps, eval)
+               through a one-rank NCCL group: launch counts, ms per step
+               and peak memory beside phase 8's; (b) two ranks on the one
+               card (two processes over gloo with the tensors on the card:
+               NCCL takes one rank a device), global batch 128 = 2 x 64,
+               bank 15 x 128, bank fill and 2 steps in the gathered form,
+               then in the explicit row-sharded form (K2/K5 on the bank
+               rows), each against one process over the same batches with
+               its DPC-KNN clusters and top-k masks replayed: loss terms,
+               gradient norms, moments, every parameter's update, the bank;
+               the ranks' parameters bit-equal; (c) the long recipe's
+               explicit form (64 words x 64 frames, batch 32 = 2 x 16, bank
+               15 x 32, 1 step; K6/K7) the same way; (d) a Searcher over
+               10,000 videos in two shards on [cuda:0, cuda:0] against one
+               shard: top-5 ids and scores, K2 once a shard.  Two ranks on
+               one card measure no scale-out.
 The line before the last is a JSON object with, for each kernel, its
 launches on each main path (all eleven counts are set to 0 before each path
 and read after it; phase 16's path is its in-process load, (b)), error, times and roofline bound; the last line is the
@@ -1122,7 +1142,7 @@ def phase_train(profile: bool, card: str, attention_impl="auto"):
                          + ", ".join(failed))
     pms = statistics.median(p["ms"])
     print(f"  plain run: fill {p['t_fill']:.3f} s, median {pms:.1f} ms/step")
-    return counts, ms, pms
+    return counts, ms, pms, peak_gib
 
 
 def _blocked_inputs(g, A, T, B, V, D, exact: bool):
@@ -1944,8 +1964,8 @@ def phase_augment(card: str, block_ms: float):
     real_step, real_aug = LOOP.train_step, TS._maybe_device_augment
     record = {"ms": [], "metrics": [], "changed": []}
 
-    def augment(cfg, batch, generator):
-        out = real_aug(cfg, batch, generator)
+    def augment(cfg, batch, generator, *mesh):
+        out = real_aug(cfg, batch, generator, *mesh)
         record["changed"].append(
             (out["video"] != batch["video"]).float().mean().item())
         return out
@@ -2748,12 +2768,500 @@ print(f"bundle on {dev}: loaded in {load_s:.1f} s")
 """
 
 
+# ---------------------------------------------------------------------------
+# phase 17: data parallelism over torch.distributed
+# ---------------------------------------------------------------------------
+
+# (a) the train CLI at the MSR-VTT recipe on one rank over NCCL: a bank of
+# 15 x 128 capacity, filled by the data's length (2 x 128), 2 steps, eval
+DP_CLI_ARGV = [
+    "--datatype", "synthetic", "--clip_checkpoint", "random",
+    "--max_words", "24", "--max_frames", "12", "--batch_size", "128",
+    "--mb_batch", "15", "--epochs", "1", "--synthetic_size", "256",
+    "--batch_size_val", "128", "--n_display", "1", "--mid_epoch_eval", "0",
+    "--workers", "8", "--seed", "42", "--num_devices", "1"]
+# (b), (c): two ranks on the one card over gloo (NCCL refuses two ranks on
+# one device) against one process over the same global batches, with that
+# process's discrete decisions (DPC-KNN clusters, top-k masks) replayed:
+# loss terms and gradient norms relative, the Adam first moment of the
+# compared parameters (their gradient) and every parameter's update as a
+# relative L2 distance per tensor, the bank's features as a relative L2
+# distance over the whole bank.  The ranks encode 64 rows where the process
+# encodes 128 (16 where 32 at the long shapes); on an H100 the features
+# came out bit-equal (the bank: 0 apart), so what is left is the float
+# atomics of torch's scatter-adds in the replicated loss code (CTM's
+# index_add_), which differ from run to run: observed loss terms within
+# 2.6e-7, gradient norms 3.6e-4, moments 8.7e-3 and updates 2.4e-2 (Adam's
+# m / sqrt(v) enlarges a small gradient's noise); the tolerances below
+# leave 3x and more above those.  Two kinds of tensor are counted but not
+# held: one whose update in the one-process run stays within 4 ulps of its
+# values everywhere (LayerNorm scales of the CLIP branch, whose learning
+# rate is 1e-7), and a bias whose gradient is zero analytically: the last
+# layer's of a token-weight net (`*_weight_fc.2.bias`, feeding a softmax
+# over tokens) and a CTM's score bias (`*_ctm*.score.bias`, feeding an
+# exp-weighted average over a cluster's tokens and the next block's
+# attention softmax), neither of which changes when every logit moves by
+# the same amount (but for the average's 1e-6 guard).  Such a bias receives
+# rounding noise, which Adam's m / sqrt(v) scales to a full-size update of
+# random sign (text_ctm1.score.bias: 0.1 and 0.2 rel L2 on an H100 in
+# the two forms).
+DP_LOSS_RTOL = 1e-4
+DP_GRAD_NORM_RTOL = 5e-3
+DP_MOMENT_REL_L2 = 0.03
+DP_UPDATE_REL_L2 = 0.1
+DP_BANK_REL_L2 = 1e-3
+DP_FILL, DP_STEPS = 15, 2
+DP_LONG_B, DP_LONG_STEPS = 32, 1
+DP_TIMEOUT = 600
+
+
+def dp_configs():
+    """(MSR-VTT recipe, long recipe) configs: ViT-B/32 at full width and
+    depth, bf16; batch 128 and bank 15 x 128, and 64 words x 64 frames at
+    batch 32 and bank 15 x 32."""
+    import dataclasses as dc
+
+    from neighborretr_tpu_torch.core.config import Config
+    short = Config()
+    long = dc.replace(
+        short, model=dc.replace(short.model, max_words=64, max_frames=64),
+        data=dc.replace(short.data, max_words=64, max_frames=64),
+        train=dc.replace(short.train, batch_size=DP_LONG_B))
+    return short, long
+
+
+def device_batch(m, B: int, seed: int):
+    """A synthetic global batch made on the card from `seed` (the same bits
+    in every process on the card): ragged captions ending in the EOT id,
+    uint8 frames."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    W, F, R = m.max_words, m.max_frames, m.clip.image_resolution
+    vocab = m.clip.vocab_size
+    lens = torch.randint(4, W + 1, (B,), generator=g, device="cuda")
+    mask = (torch.arange(W, device="cuda")[None] < lens[:, None]).float()
+    ids = torch.randint(1, vocab - 1, (B, W), generator=g, device="cuda",
+                        dtype=torch.int32) * mask.int()
+    ids[torch.arange(B, device="cuda"), lens - 1] = vocab - 1
+    return {"text_ids": ids, "text_mask": mask,
+            "video": torch.randint(0, 256, (B, F, R, R, 3), generator=g,
+                                   device="cuda", dtype=torch.uint8),
+            "video_mask": torch.ones(B, F, device="cuda"),
+            "idx": torch.arange(B, dtype=torch.int32, device="cuda")
+            + B * seed}
+
+
+def dp_run(cfg, n_steps: int, mesh=None, replay=None, seed0: int = 100):
+    """Bank fill (DP_FILL batches) and n_steps steps from init_model(seed=0)
+    on this process's block of each global batch → record: per step the
+    metrics, ms and decisions; launch counts; the final parameters, the
+    compared parameters' first moments and the bank on the host; a hash of
+    the parameters."""
+    import hashlib
+
+    from neighborretr_tpu_torch.models.weights_io import init_model
+    from neighborretr_tpu_torch.parallel import mesh as pmesh
+    from neighborretr_tpu_torch.train import memory_bank as MB
+    from neighborretr_tpu_torch.train import step as TS
+
+    m, B = cfg.model, cfg.train.batch_size
+    model = init_model(m, seed=0, device="cuda")
+    if mesh is not None:
+        pmesh.replicate(model, mesh)
+
+    def block(b):
+        return pmesh.batch_block(b, mesh) if mesh is not None else b
+
+    rec = dict(metrics=[], ms=[], decisions=[])
+
+    def run():
+        bank = MB.create(cfg.train.memory_bank_capacity, m.max_words,
+                         m.max_frames, m.width, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(DP_FILL):
+            bank = TS.fill_bank_step(model, bank, block(device_batch(
+                m, B, seed0 + i)), cfg, i * B, mesh=mesh)
+        torch.cuda.synchronize()
+        rec["fill_s"] = time.perf_counter() - t0
+        state = TS.create_train_state(model, bank)
+        for i in range(n_steps):
+            batch = block(device_batch(m, B, seed0 + DP_FILL + i))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            # the DPC-KNN tie-break draws: the same generator state on
+            # every rank (and in the one process) at each step
+            gen = torch.Generator(device="cuda").manual_seed(1000 + i)
+            log = []
+            with decisions(log, replay[i] if replay else None):
+                state, met = TS.train_step(state, batch, cfg, 30, gen,
+                                           mesh=mesh)
+            torch.cuda.synchronize()
+            rec["ms"].append(1e3 * (time.perf_counter() - t0))
+            rec["decisions"].append(log)
+            rec["metrics"].append({k: v.item() for k, v in met.items()})
+        return state
+
+    torch.cuda.reset_peak_memory_stats()
+    state, rec["counts"] = counted(run)
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    params = dict(model.named_parameters())
+    rec["params"] = {n: p.detach().cpu() for n, p in params.items()}
+    rec["moments"] = {n: state.opt.m[n].cpu() for n in TRAIN_COMPARED}
+    rec["bank"] = [t.cpu() for t in state.bank]
+    rec["hash"] = hashlib.sha256(b"".join(
+        rec["params"][n].numpy().tobytes() for n in sorted(params))
+        + b"".join(state.opt.m[n].cpu().numpy().tobytes()
+                   for n in sorted(params))).hexdigest()
+    del model, state, params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def dp_rank_worker(rank: int, port: int, work: str) -> None:
+    """One rank of phase 17's (b) and (c): gloo over localhost with the
+    tensors on the card, the forms in turn, results to work/rank{r}.pt."""
+    import torch.distributed as dist
+
+    from neighborretr_tpu_torch.ops import _build
+    from neighborretr_tpu_torch.parallel import mesh as pmesh
+    _build.load(*LIBS)                 # built by the parent: loads only
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=rank)
+    mesh = pmesh.make_mesh("cuda:0")
+    plan = torch.load(os.path.join(work, "plan.pt"), map_location="cuda:0",
+                      weights_only=False)
+    short, long = dp_configs()
+    import dataclasses as dc
+    out = {}
+    for form, cfg, steps in (("gathered", short, DP_STEPS),
+                             ("explicit", short, DP_STEPS),
+                             ("long_explicit", long, DP_LONG_STEPS)):
+        cfg = dc.replace(cfg, train=dc.replace(
+            cfg.train, explicit_spmd=form != "gathered"))
+        rec = dp_run(cfg, steps, mesh, plan["long" if form == "long_explicit"
+                                            else "short"])
+        rec.pop("decisions")
+        if rank:
+            rec = {k: rec[k] for k in ("counts", "hash", "ms", "metrics")}
+        out[form] = rec
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def dp_held(label, got, want, start):
+    """Two ranks' record against one process's: loss terms, gradient norms,
+    compared moments, every parameter's update, the bank."""
+    failed = []
+    for i, (a, b) in enumerate(zip(got["metrics"], want["metrics"])):
+        for n in LOSS_TERMS + ("grad_norm",):
+            tol = DP_GRAD_NORM_RTOL if n == "grad_norm" else DP_LOSS_RTOL
+            rel = abs(a[n] - b[n]) / max(abs(b[n]), 1e-6)
+            ok = np.isfinite(a[n]) and rel <= tol
+            print(f"  {label} step {i + 1} {n}: two ranks {a[n]:.6f} one "
+                  f"process {b[n]:.6f} rel {rel:.3g} (tolerance {tol:g}) "
+                  f"{'ok' if ok else 'FAILED'}")
+            if not ok:
+                failed.append(f"step {i + 1} {n}")
+    worst_m = max((_rel_l2(got["moments"][n], want["moments"][n]), n)
+                  for n in TRAIN_COMPARED)
+    print(f"  {label} Adam first moments of the {len(TRAIN_COMPARED)} "
+          f"compared parameters: worst rel L2 {worst_m[0]:.3g} "
+          f"({worst_m[1]}; tolerance {DP_MOMENT_REL_L2:g})")
+    if worst_m[0] > DP_MOMENT_REL_L2:
+        failed.append(f"moment of {worst_m[1]}")
+    rows, below, invariant = [], 0, 0
+    for n, p0 in start.items():
+        if n.endswith(("_weight_fc.2.bias", "_weight_fc1.2.bias",
+                       ".score.bias")):
+            invariant += 1
+            continue
+        dw = want["params"][n] - p0
+        dg = got["params"][n] - p0
+        ulp = torch.finfo(torch.float32).eps * p0.abs().max().clamp_min(
+            1e-30)
+        if dw.abs().max() <= 4 * ulp:
+            below += 1
+            continue
+        rows.append((_rel_l2(dg, dw), n))
+    rows.sort(reverse=True)
+    if rows:
+        print(f"  {label} updates: {len(rows)} parameters held, {below} "
+              f"within 4 ulps of their values and {invariant} biases with "
+              f"an analytically zero gradient not held; worst rel L2 "
+              + ", ".join(f"{n} {r:.3g}" for r, n in rows[:3])
+              + f" (tolerance {DP_UPDATE_REL_L2:g})")
+        bad = [n for r, n in rows if r > DP_UPDATE_REL_L2]
+        if bad:
+            failed.append(f"updates of {len(bad)} parameters ({bad[0]}...)")
+    ind, ft, fv, mt, mv = got["bank"]
+    if not (torch.equal(ind, want["bank"][0]) and torch.equal(
+            mt, want["bank"][3]) and torch.equal(mv, want["bank"][4])):
+        failed.append("bank ids or masks")
+    for name, a, b in (("text", ft, want["bank"][1]),
+                       ("video", fv, want["bank"][2])):
+        rel = _rel_l2(a, b)
+        print(f"  {label} bank {name} features: rel L2 {rel:.3g}, max abs "
+              f"{(a - b).abs().max().item():.3g} (tolerance "
+              f"{DP_BANK_REL_L2:g}); ids and masks equal")
+        if rel > DP_BANK_REL_L2:
+            failed.append(f"bank {name} features")
+    if failed:
+        raise SystemExit(f"phase 17 {label}: two ranks disagree with one "
+                         "process: " + ", ".join(failed))
+
+
+def phase_data_parallel(card: str, train_ms=None, train_peak=None):
+    """(a) the train CLI at --num_devices 1 over NCCL, (b) two ranks on the
+    card in both forms against one process, (c) the long recipe's explicit
+    form the same way, (d) a two-shard Searcher against one shard →
+    launch counts by path.  train_ms / train_peak: phase 8's step time and
+    peak memory, printed beside (a)'s (None when phase 8 did not run)."""
+    print("== phase 17: data parallel (torch.distributed; ViT-B/32 width, "
+          "bf16, depth not cut)")
+    import shutil
+    import socket
+    import tempfile
+
+    import torch.distributed as dist
+
+    from neighborretr_tpu_torch.cli import train as cli
+    from neighborretr_tpu_torch.train import loop as LOOP
+    t_phase = time.perf_counter()
+    paths = {}
+
+    # (a)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    argv = DP_CLI_ARGV + ["--output_dir", out_dir]
+    cfg = cli.build_config(cli.parse_args(argv))
+    m = cfg.model
+    layers = (m.clip.vision_layers + m.clip.transformer_layers
+              + m.temporal_layers)
+    inits, step_ms = [], []
+    real_init, real_step = dist.init_process_group, LOOP.train_step
+
+    def init(backend=None, *a, **kw):
+        inits.append((backend, kw.get("world_size")))
+        return real_init(backend, *a, **kw)
+
+    def step(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_step(*a, **kw)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    try:
+        dist.init_process_group, LOOP.train_step = init, step
+        torch.cuda.reset_peak_memory_stats()
+        (state, tracker), counts = counted(lambda: cli.main(argv))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        dist.init_process_group, LOOP.train_step = real_init, real_step
+    try:
+        print(f"  (a) {' '.join(argv[:-2])}")
+        if inits != [("nccl", 1)] or dist.is_initialized():
+            raise SystemExit(f"the CLI's process group: {inits} (expected "
+                             "one NCCL group of world size 1, destroyed at "
+                             "the end)")
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            rows = [json.loads(r) for r in f]
+        ev = [r for r in rows if r["kind"] == "eval"]
+        has_best = os.path.exists(os.path.join(out_dir, "best.npz"))
+        n_evals = len(ev) + has_best
+        n_fill = min(cfg.train.mb_batch, 256 // 128)
+        want = dict.fromkeys(kernel_wrappers(), 0)
+        want.update({"K1": (n_fill + 2 + n_evals) * layers,
+                     "K3": 2 * layers, "K4": 4, "K5": 4, "K2": n_evals})
+        print(f"  (a) init_process_group {inits}; launches {counts} "
+              f"(expected {want}: per step K1 = K3 = {layers}, K4 = K5 = 2; "
+              f"per fill or eval batch K1 = {layers}; per evaluation K2 = 1)")
+        if counts != want:
+            raise SystemExit("phase 17 (a): launch counts do not match the "
+                             "train CLI's path")
+        train = [r for r in rows if r["kind"] == "train"]
+        if [r["step"] for r in train] != [1, 2] or not all(
+                np.isfinite(r[k]) for r in train for k in LOSS_TERMS):
+            raise SystemExit("phase 17 (a): the steps' metrics")
+        if state.step != 2 or not ev:
+            raise SystemExit("phase 17 (a): the run's end state")
+        beside = (f"phase 8's median {train_ms:.1f} ms/step and peak "
+                  f"{train_peak:.2f} GiB" if train_ms is not None
+                  else "phase 8 not run in this call")
+        print(f"  (a) steps {' / '.join(f'{t:.1f}' for t in step_ms)} ms "
+              f"(the first with the NCCL group's warm-up), peak device "
+              f"memory {peak:.2f} GiB; against {beside}; eval t2v R@1 "
+              f"{ev[0]['t2v']['R1']:.2f} (random weights) on {card}")
+        paths["dp_cli"] = counts
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    del state, tracker
+    torch.cuda.empty_cache()
+
+    # (b), (c): one process first, its decisions recorded
+    short, long = dp_configs()
+    from neighborretr_tpu_torch.models.weights_io import init_model
+    start = {n: p.detach().cpu() for n, p in init_model(
+        short.model, 0, "cuda").named_parameters()}
+    torch.cuda.empty_cache()
+    ref = {"short": dp_run(short, DP_STEPS), "long": dp_run(long,
+                                                            DP_LONG_STEPS)}
+    long_start = {n: p.detach().cpu() for n, p in init_model(
+        long.model, 0, "cuda").named_parameters()}
+    torch.cuda.empty_cache()
+    wb = dict.fromkeys(kernel_wrappers(), 0)
+    wb.update({"K1": (DP_FILL + DP_STEPS) * layers, "K3": DP_STEPS * layers,
+               "K4": 2 * DP_STEPS, "K5": 2 * DP_STEPS})
+    wl = dict.fromkeys(kernel_wrappers(), 0)
+    wl.update({"K1": (DP_FILL + DP_LONG_STEPS) * layers,
+               "K3": DP_LONG_STEPS * layers, "K6": 3 * DP_LONG_STEPS,
+               "K7": 3 * DP_LONG_STEPS})
+    for key, want in (("short", wb), ("long", wl)):
+        r = ref[key]
+        print(f"  one process, {key}: fill {r['fill_s']:.2f} s, steps "
+              f"{' / '.join(f'{t:.1f}' for t in r['ms'])} ms, peak "
+              f"{r['peak_gib']:.2f} GiB, launches {r['counts']}")
+        if r["counts"] != want:
+            raise SystemExit(f"phase 17: the one-process {key} run's "
+                             f"launches, expected {want}")
+    work = tempfile.mkdtemp(prefix="chip_smoke_dp_ranks_")
+    procs = []
+    try:
+        torch.save({k: r["decisions"] for k, r in ref.items()},
+                   os.path.join(work, "plan.pt"))
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+             str(port), work], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        logs = []
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=DP_TIMEOUT)[0])
+            except subprocess.TimeoutExpired:
+                raise SystemExit(f"phase 17: a rank did not finish in "
+                                 f"{DP_TIMEOUT} s")
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise SystemExit(f"phase 17: rank {r} failed:\n{log[-4000:]}")
+        print(f"  two ranks (two processes on {card}, gloo with the tensors "
+              f"on the card) ran all three forms in "
+              f"{time.perf_counter() - t0:.1f} s, processes included")
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"),
+                            weights_only=False) for r in range(2)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+
+    we = dict(wb, K4=0, K2=2 * DP_STEPS)
+    for form, want, key, st in (
+            ("gathered", wb, "short", start),
+            ("explicit", we, "short", start),
+            ("long_explicit", wl, "long", long_start)):
+        r0, r1 = ranks[0][form], ranks[1][form]
+        label = {"gathered": "(b) gathered", "explicit": "(b) explicit",
+                 "long_explicit": "(c) long explicit"}[form]
+        print(f"  {label}: launches per rank {r0['counts']} / {r1['counts']}"
+              f" (expected {want}); steps {' / '.join(f'{t:.1f}' for t in r0['ms'])}"
+              f" ms on rank 0 of two on one card: not a scale-out number; "
+              f"fill {r0['fill_s']:.2f} s; peak {r0['peak_gib']:.2f} GiB a "
+              "rank")
+        if r0["counts"] != want or r1["counts"] != want:
+            raise SystemExit(f"phase 17 {label}: launch counts")
+        if r0["hash"] != r1["hash"]:
+            raise SystemExit(f"phase 17 {label}: the ranks' parameters or "
+                             "moments differ")
+        # the loss terms come from each rank's own run of the replicated
+        # loss code, whose float atomics (torch's scatter-adds) may round
+        # otherwise from run to run; the gradient norm is the all-reduced
+        # gradients'
+        gap = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6)
+                  for a, b in zip(r0["metrics"], r1["metrics"]) for k in a)
+        print(f"  {label}: parameters and moments bit-equal across the "
+              f"ranks (sha256 {r0['hash'][:16]}...); the ranks' metrics "
+              f"differ by at most {gap:.3g} relative")
+        dp_held(label, r0, ref[key], st)
+        paths[f"dp_{form}_two_ranks"] = {
+            k: r0["counts"][k] + r1["counts"][k] for k in r0["counts"]}
+    del ref, ranks, start, long_start
+
+    # (d) the corpus in two shards on the one card against one shard
+    from neighborretr_tpu_torch import serving
+    from neighborretr_tpu_torch.data.tokenizer import ClipTokenizer
+    model = init_model(short.model, 0, "cuda")
+    rng = np.random.default_rng(3)
+    F, E = short.model.max_frames, short.model.clip.embed_dim
+    index = {"video_ids": np.asarray([f"video{i}" for i in range(DAEMON_N)]),
+             "v_feat": rng.normal(size=(DAEMON_N, F, E)).astype(np.float16),
+             "v_mask": (np.arange(F)[None] < rng.integers(
+                 1, F + 1, DAEMON_N)[:, None]).astype(np.float32),
+             "meta": np.frombuffer(json.dumps(serving._config_meta(
+                 short, model)).encode(), dtype=np.uint8)}
+    tok = ClipTokenizer()
+    queries = [" ".join(rng.choice(DAEMON_WORDS, size=8)) for _ in range(64)]
+    one = serving.Searcher(model, short, index, tok, query_batch=8)
+    two = serving.Searcher(model, short, index, tok, query_batch=8,
+                           devices=["cuda:0", "cuda:0"])
+    one.warmup()
+    two.warmup()
+    hits, counts = counted(lambda: two.search(queries, topk=5))
+    want = dict.fromkeys(kernel_wrappers(), 0)
+    want.update({"K1": m.clip.transformer_layers, "K2": 2})
+    print(f"  (d) Searcher over {DAEMON_N} videos in 2 shards on [cuda:0, "
+          f"cuda:0], 64 queries: launches {counts} (expected {want}: K2 once "
+          "a shard)")
+    if counts != want:
+        raise SystemExit("phase 17 (d): launch counts")
+    base = one.search(queries, topk=5)
+    ids_equal = [[v for v, _ in a] for a in hits] == \
+        [[v for v, _ in b] for b in base]
+    diff = max(abs(s - t) for a, b in zip(hits, base)
+               for (_, s), (_, t) in zip(a, b))
+    sim_equal = np.array_equal(two.similarities(queries),
+                               one.similarities(queries))
+    def request_ms(searcher):
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            searcher.search(queries, topk=5)
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times)
+
+    ms1, ms2 = request_ms(one), request_ms(two)
+    print(f"  (d) top-5 ids equal to one shard's: {ids_equal}; largest score "
+          f"difference {diff:.3g}; the [64, {DAEMON_N}] similarity bit-equal:"
+          f" {sim_equal}; {ms2:.3f} ms a request in two shards, {ms1:.3f} ms "
+          f"in one (median of 5, host clock around the synchronised call) on "
+          f"{card}")
+    if not ids_equal or diff != 0.0 or not sim_equal:
+        raise SystemExit("phase 17 (d): the sharded Searcher disagrees with "
+                         "one shard")
+    paths["sharded_serving"] = counts
+    print(f"  phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def alone(argv):
     """`--alone 9 [--seeds S ...]`: phase 9 by itself once per generator
-    seed; `--alone 16`: phase 16 by itself.  Prints no JSON lines."""
+    seed; `--alone 16` / `--alone 17`: phase 16 / 17 by itself.  Prints no
+    JSON lines."""
     import argparse
     ap = argparse.ArgumentParser()
-    ap.add_argument("--alone", choices=("9", "16"), required=True)
+    ap.add_argument("--alone", choices=("9", "16", "17"), required=True)
     ap.add_argument("--seeds", type=int, nargs="+", default=[0])
     args = ap.parse_args(argv)
     card = phase_device()
@@ -2761,12 +3269,19 @@ def alone(argv):
     if args.alone == "16":
         phase_serving_daemon(card)
         return
+    if args.alone == "17":
+        phase_data_parallel(card)
+        return
     for seed in args.seeds:
         print(f"-- phase 9 alone, generator seed {seed}")
         phase_k6_k7(torch.Generator(device="cuda").manual_seed(seed))
 
 
 def main():
+    if "--dp-rank" in sys.argv[1:]:          # a rank of phase 17's (b), (c)
+        i = sys.argv.index("--dp-rank")
+        return dp_rank_worker(int(sys.argv[i + 1]), int(sys.argv[i + 2]),
+                              sys.argv[i + 3])
     if "--alone" in sys.argv[1:]:
         return alone(sys.argv[1:])
     profile = "--profile" in sys.argv[1:]
@@ -2778,12 +3293,12 @@ def main():
     serving_counts, _ = phase_serving()
     k3_rows = phase_k3(g)
     k4, k5 = phase_k4_k5(g)
-    train_counts, block_ms, _ = phase_train(profile, card)
+    train_counts, block_ms, _, train_peak = phase_train(profile, card)
     k6, k7 = phase_k6_k7(g)
     trainer_counts, _, _ = phase_trainer(profile, card)
     k8, k9 = phase_k8_k9(g)
     fused_serving_counts, _ = phase_serving("fused")
-    fused_train_counts, fused_ms, _ = phase_train(profile, card, "fused")
+    fused_train_counts, fused_ms, _, _ = phase_train(profile, card, "fused")
     print(f"  ViT-B/32 train step, batch 128, on {card}: {fused_ms:.1f} ms on "
           f"the attention_impl='fused' route (K8/K9), {block_ms:.1f} ms on "
           "the sublayer kernels' route (K1/K3, phase 8)")
@@ -2791,6 +3306,7 @@ def main():
     check_counts, k10, k11 = phase_k10_k11(g)
     augment_counts, _, _ = phase_augment(card, block_ms)
     daemon_counts = phase_serving_daemon(card)
+    dp_counts = phase_data_parallel(card, block_ms, train_peak)
 
     def kernel(name, source, replaces, launches, row, timed_at, **extra):
         err, ms, plain_ms, bound_ms, bound_by, *library_ms = row
@@ -2812,7 +3328,8 @@ def main():
                 "larger_backbones": backbone_counts[k],
                 "sublayer_kernel_check": check_counts[k],
                 "augment_trainer": augment_counts[k],
-                "serving_daemon": daemon_counts[k]}
+                "serving_daemon": daemon_counts[k],
+                **{path: c[k] for path, c in dp_counts.items()}}
 
     def by_shape(rows):
         return {str(k): list(r[1:]) for k, r in rows.items()}

@@ -1,5 +1,6 @@
-"""Shared setup for the port's index/search CLIs (↔ cli/common.py): device,
-config with the --tiny switch, dataset, and weights.
+"""Shared setup for the port's CLIs (↔ cli/common.py): the process group
+(`init_distributed`, `--num_devices` on one host), device, config with the
+--tiny switch, dataset, and weights.
 
 Without --checkpoint the weights are seeded random (weights_io.init_model,
 seed 0, so an index built that way verifies in a search that way); nothing
@@ -9,8 +10,13 @@ is downloaded.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses as dc
 import logging
+import os
+import socket
+import subprocess
+import sys
 
 import numpy as np
 import torch
@@ -18,6 +24,111 @@ import torch
 from ..core.config import ClipConfig, Config, ModelConfig
 
 RANDOM_WEIGHTS_SEED = 0
+
+
+def add_distributed_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--num_devices", type=int, default=None,
+                   help="data-parallel ranks on this host, one process and "
+                        "one device each (cuda:0..N-1, or the CPU N times "
+                        "under --device cpu), meeting over a local TCP "
+                        "rendezvous; this process is rank 0")
+    p.add_argument("--coordinator", default=None,
+                   help="multi-process: rendezvous address host:port of "
+                        "rank 0 (launch the CLI once per process with the "
+                        "same arguments)")
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="multi-process: total process count")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="multi-process: this process's rank")
+
+
+def init_distributed(args) -> bool:
+    """`torch.distributed.init_process_group` from --coordinator host:port
+    --num_processes N --process_id I (↔ cli/common.py::init_distributed):
+    NCCL under a CUDA --device, gloo on the CPU.  All three flags or none;
+    returns whether a process group was started."""
+    flags = (args.coordinator, args.num_processes, args.process_id)
+    if all(v is None for v in flags):
+        return False
+    if any(v is None for v in flags):
+        raise SystemExit("--coordinator, --num_processes and --process_id "
+                         "must be given together")
+    if not (0 <= args.process_id < args.num_processes):
+        raise SystemExit(f"--process_id {args.process_id} out of range for "
+                         f"--num_processes {args.num_processes}")
+    import torch.distributed as dist
+
+    from ..parallel.mesh import rank_device
+    device = torch.device(getattr(args, "device", "cuda"))
+    if device.type == "cuda":
+        torch.cuda.set_device(rank_device(device, args.process_id))
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method=f"tcp://{args.coordinator}",
+                            world_size=args.num_processes,
+                            rank=args.process_id)
+    return True
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _without_flag(argv, flag: str):
+    out, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+        elif a == flag:
+            skip = True
+        elif not a.startswith(flag + "="):
+            out.append(a)
+    return out
+
+
+@contextlib.contextmanager
+def ranks_on_this_host(args, module: str, argv):
+    """`--num_devices N` without --coordinator: this process becomes rank 0
+    of N, and ranks 1..N-1 run `python -m module` with the same arguments in
+    child processes; all meet at a free localhost port (PyTorch's idiom for
+    the JAX CLI's N-device mesh).  Sets the three rendezvous flags on
+    `args`.  On leaving, the children are waited for (a failed child fails
+    the command); if this process fails, they are killed."""
+    n = args.num_devices
+    if n is None or args.coordinator is not None:
+        yield
+        return
+    from ..parallel.mesh import take_devices
+    try:
+        take_devices(n, torch.device(args.device).type)
+    except ValueError as e:
+        raise SystemExit(f"--num_devices {n}: {e}")
+    addr = f"localhost:{_free_port()}"
+    base = _without_flag(list(sys.argv[1:] if argv is None else argv),
+                         "--num_devices")
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    children = [subprocess.Popen(
+        [sys.executable, "-m", module, *base, "--coordinator", addr,
+         "--num_processes", str(n), "--process_id", str(r)], env=env)
+        for r in range(1, n)]
+    args.coordinator, args.num_processes, args.process_id = addr, n, 0
+    try:
+        yield
+    except BaseException:
+        for c in children:
+            c.kill()
+        for c in children:
+            c.wait()
+        raise
+    failed = [(r, c.wait()) for r, c in enumerate(children, 1)]
+    failed = [(r, rc) for r, rc in failed if rc != 0]
+    if failed:
+        raise SystemExit("ranks exited with errors: " + ", ".join(
+            f"rank {r} → {rc}" for r, rc in failed))
 
 
 def setup_logger() -> logging.Logger:

@@ -5,7 +5,11 @@ package, run the retrieval evaluation on a dataset split, print R@K.
         --anno_path ... --video_path ... --checkpoint outputs/msrvtt/best.npz
 
 `--datatype synthetic --tiny` evaluates generated smoke data; without
-`--checkpoint` the weights are seeded random.  One device (`--device`).
+`--checkpoint` the weights are seeded random.  `--num_devices N` encodes
+over N data-parallel ranks on this host (one process and one device each;
+`--coordinator/--num_processes/--process_id` start one rank by hand): each
+rank encodes its block of every batch and every rank computes the R@K of
+the gathered features.
 """
 
 from __future__ import annotations
@@ -31,28 +35,63 @@ def main(argv=None):
     p.add_argument("--workers", type=int, default=8)
     p.add_argument("--worker_mode", choices=["thread", "process"],
                    default="thread")
-    from .common import add_model_args
+    p.add_argument("--tensor_parallel", type=int, default=1,
+                   help="the JAX CLI's sharded tower weights: not ported")
+    from .common import add_distributed_args, add_model_args
     add_model_args(p)
+    add_distributed_args(p)
     args = p.parse_args(argv)
     args.batch_size = args.batch_size_val       # build_dataset's default size
+    if args.tensor_parallel != 1:
+        raise SystemExit(str(NotImplementedError(
+            "not ported to PyTorch yet: --tensor_parallel")))
 
-    from ..core.config import ClipConfig
-    from ..data.loader import BatchLoader
-    from ..train.evaluate import evaluate
-    from .common import (build_dataset, load_model, model_config,
-                         resolve_device, setup_logger)
+    from .common import (init_distributed, ranks_on_this_host, resolve_device,
+                         setup_logger)
 
     logger = setup_logger()
-    device = resolve_device(args.device)
+    resolve_device(args.device)
+    world = args.num_processes or args.num_devices or 1
+    if args.batch_size_val % world:
+        if args.coordinator is not None:
+            raise SystemExit(f"--batch_size_val {args.batch_size_val} must "
+                             f"be divisible by the {world} ranks")
+        logger.warning("batch_size_val %d not divisible by %d devices; "
+                       "running single-device eval", args.batch_size_val,
+                       world)
+        args.num_devices = None
+    with ranks_on_this_host(args, "neighborretr_tpu_torch.cli.eval", argv):
+        started = init_distributed(args)
+        try:
+            return _run(args, logger)
+        finally:
+            if started:
+                import torch.distributed as dist
+                dist.destroy_process_group()
+
+
+def _run(args, logger):
+    from ..core.config import ClipConfig
+    from ..data.loader import BatchLoader
+    from ..parallel.mesh import make_mesh
+    from ..train.evaluate import evaluate
+    from .common import build_dataset, load_model, model_config, resolve_device
+
+    mesh = make_mesh(args.device)
+    device = resolve_device(str(mesh.device))
+    if mesh.rank:
+        logger.setLevel("ERROR")           # one rank logs
     # a tiny model on real data keeps the full BPE vocabulary
     vocab = None if args.datatype == "synthetic" else ClipConfig().vocab_size
     cfg = model_config(args, args.max_frames, vocab)
     ds = build_dataset(args, cfg)
     loader = BatchLoader(ds, args.batch_size_val, shuffle=False,
                          drop_last=False, workers=args.workers,
-                         worker_mode=args.worker_mode, pad_to_batch=True)
+                         worker_mode=args.worker_mode, pad_to_batch=True,
+                         process_index=mesh.rank, process_count=mesh.world)
     model = load_model(args, cfg, device, logger)
-    return evaluate(model, cfg, loader, dataset=ds, logger=logger)
+    return evaluate(model, cfg, loader, dataset=ds, logger=logger,
+                    mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -9,6 +9,8 @@ search` or `.serve` (or the JAX package's CLIs, with the same weights)
 answer free-text queries against it.  `--append` grows an existing index:
 its videos are skipped, only the new ones are encoded, and the merge is
 written back (a running `cli.serve` picks it up on POST /reload).
+`--num_devices N` splits each encode batch over N devices of this process
+(cuda:0..N-1, or the CPU N times under --device cpu).
 """
 
 from __future__ import annotations
@@ -34,6 +36,10 @@ def main(argv=None):
                    help="--datatype synthetic: corpus size (default "
                         "max(32, batch_size))")
     p.add_argument("--workers", type=int, default=8)
+    p.add_argument("--num_devices", type=int, default=1,
+                   help="shard each encode batch over this many devices "
+                        "(data-parallel corpus ViT forwards; batch_size "
+                        "must divide). 1 = single device")
     p.add_argument("--append", action="store_true",
                    help="incremental build: if --out already exists, skip "
                         "its videos, encode only the new ones, and merge "
@@ -51,6 +57,16 @@ def main(argv=None):
 
     logger = setup_logger()
     device = resolve_device(args.device)
+    devices = None
+    if args.num_devices > 1:
+        if args.batch_size % args.num_devices:
+            raise SystemExit(f"--batch_size {args.batch_size} must divide "
+                             f"over --num_devices {args.num_devices}")
+        from ..parallel.mesh import take_devices
+        devices = take_devices(args.num_devices, device.type)
+        device = devices[0]
+        logger.info("Encoding data-parallel over %d devices",
+                    args.num_devices)
     # a tiny model takes its checkpoint's vocabulary; without one, the
     # full BPE vocabulary on real data
     if args.tiny and args.checkpoint:
@@ -84,7 +100,7 @@ def main(argv=None):
         index = serving.build_video_index(model, cfg, loader, dataset=ds,
                                           logger=logger,
                                           feature_dtype=args.feature_dtype,
-                                          skip_ids=skip)
+                                          skip_ids=skip, devices=devices)
     except ValueError as e:
         if existing is not None and "no valid videos" in str(e):
             logger.info("No new videos to index; %s unchanged", out_path)

@@ -195,8 +195,10 @@ def main(argv=None):
                    help="cap on the merged query count per device call "
                         "(default: 8x query_batch, min 64)")
     p.add_argument("--num_devices", type=int, default=1,
-                   help="the JAX CLI's corpus sharding; the port serves "
-                        "from one device")
+                   help="shard the corpus over this many devices of this "
+                        "process (cuda:0..N-1, or the CPU N times under "
+                        "--device cpu): one shard a device, the top-k "
+                        "merged; for indexes that outgrow one device")
     p.add_argument("--reload_stage_rows", type=int, default=512,
                    help="POST /reload uploads the fresh corpus in row slabs "
                         "of this size on a side stream, so searches "
@@ -204,9 +206,9 @@ def main(argv=None):
     from .common import add_model_args
     add_model_args(p)
     args = p.parse_args(argv)
-    if args.num_devices != 1:
-        raise SystemExit("--num_devices: the port serves from one device; "
-                         "a corpus sharded over devices is not ported yet")
+    if args.num_devices < 1:
+        raise SystemExit(f"--num_devices {args.num_devices}: need at least "
+                         "one device")
 
     from ..data.tokenizer import ClipTokenizer
 
@@ -215,12 +217,18 @@ def main(argv=None):
 
     logger = setup_logger()
     device = resolve_device(args.device)
+    devices = None
+    if args.num_devices > 1:
+        from ..parallel.mesh import take_devices
+        devices = take_devices(args.num_devices, device.type)
+        device = devices[0]
+        logger.info("Sharding the corpus over %d devices", args.num_devices)
     index = serving.load_index(args.index)
     cfg, model = load_query_model(args, index, device, logger)
     tok = ClipTokenizer()
 
     searcher = serving.Searcher(model, cfg, index, tok,
-                                query_batch=args.query_batch)
+                                query_batch=args.query_batch, devices=devices)
     dispatcher = None
     if args.batch_window_ms > 0:
         dispatcher = serving.BatchingDispatcher(
@@ -247,7 +255,8 @@ def main(argv=None):
         index built with other weights or another config."""
         fresh = serving.Searcher(model, cfg, serving.load_index(args.index),
                                  tok, query_batch=args.query_batch,
-                                 staged_upload_rows=args.reload_stage_rows)
+                                 staged_upload_rows=args.reload_stage_rows,
+                                 devices=devices)
         warm(fresh)
         logger.info("Reloaded index: %d videos", len(fresh))
         return fresh

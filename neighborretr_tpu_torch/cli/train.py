@@ -9,8 +9,16 @@ The flags are the JAX CLI's, for everything the port supports, plus
 `--datatype synthetic` trains on generated data: tiny towers unless
 `--clip_checkpoint random` asks for the full-size model with seeded random
 weights.  A flag for an option that is not ported exits with the reason.
-Checkpoints (`best.npz`, `state_epochN.npz`, `state_preempt.npz`) are in the
-JAX package's npz layout and resume in either package.
+Checkpoints (`best.npz`, `state_epochN.npz`, `state_preempt.npz`, and the
+sharded preempt set of a multi-process run) are in the JAX package's npz
+layout and resume in either package.
+
+Data parallelism: `--num_devices N` runs N ranks on this host, one process
+and one device each (this process is rank 0, the others are started with
+the same arguments); `--coordinator host:port --num_processes N
+--process_id I` starts one rank of a group launched by hand.  Each rank
+takes its block of every global batch; `--explicit_spmd` takes the
+row-sharded loss form (parallel/spmd.py).
 """
 
 from __future__ import annotations
@@ -20,16 +28,15 @@ import dataclasses as dc
 
 from ..core.config import (ClipConfig, Config, DataConfig, LossConfig,
                            ModelConfig, OptimizerConfig, TrainConfig, validate)
-from .common import add_attention_impl_arg, resolve_device
+from .common import (add_attention_impl_arg, add_distributed_args,
+                     init_distributed, ranks_on_this_host, resolve_device)
 
 # flags the JAX CLI has and the port does not honour yet: asking for one
 # (a value other than the default shown) exits
 UNPORTED = {
-    "num_devices": None, "explicit_spmd": False,
     "bank_placement": "device",
     "opt_moments_placement": "device", "tensor_parallel": 1,
     "pipeline_parallel": 1, "pipeline_microbatches": 0, "fsdp": False,
-    "coordinator": None, "num_processes": None, "process_id": None,
     "debug_nans": False,
 }
 
@@ -128,9 +135,13 @@ def parse_args(argv=None):
     p.add_argument("--unroll_layers", action="store_true",
                    help="accepted for the JAX CLI's sake: the port's loop "
                         "over layers is always unrolled")
+    add_distributed_args(p)
+    p.add_argument("--explicit_spmd", action="store_true",
+                   help="row-sharded losses on a data group of more than one "
+                        "rank: each rank computes its rows of the similarity "
+                        "matrices (parallel/spmd.py) instead of all of them "
+                        "on the gathered features")
     # the JAX CLI's flags for options that are not ported
-    p.add_argument("--num_devices", type=int, default=None)
-    p.add_argument("--explicit_spmd", action="store_true")
     p.add_argument("--bank_placement", default="device",
                    choices=["device", "host"])
     p.add_argument("--opt_moments_placement", default="device",
@@ -139,9 +150,6 @@ def parse_args(argv=None):
     p.add_argument("--pipeline_parallel", type=int, default=1)
     p.add_argument("--pipeline_microbatches", type=int, default=0)
     p.add_argument("--fsdp", action="store_true")
-    p.add_argument("--coordinator", default=None)
-    p.add_argument("--num_processes", type=int, default=None)
-    p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--debug_nans", action="store_true")
     return p.parse_args(argv)
 
@@ -211,6 +219,8 @@ def build_config(args) -> Config:
                           resume_checkpoint=args.resume_checkpoint,
                           profile_dir=args.profile_dir,
                           micro_batches=args.micro_batches,
+                          num_devices=args.num_devices,
+                          explicit_spmd=args.explicit_spmd,
                           mid_epoch_eval=bool(args.mid_epoch_eval)))
 
 
@@ -244,19 +254,43 @@ def build_datasets(args, cfg: Config):
 
 
 def main(argv=None):
-    """Runs the training → (final TrainState, BestMetricsTracker)."""
+    """Runs the training → (final TrainState, BestMetricsTracker); on a data
+    group, this rank's."""
     args = parse_args(argv)
     check_ported(args)
-    device = resolve_device(args.device)
+    resolve_device(args.device)
+    world = args.num_devices or args.num_processes or 1
+    if args.num_devices and args.num_processes and \
+            args.num_devices != args.num_processes:
+        raise SystemExit(f"--num_devices {args.num_devices} does not cover "
+                         f"the --num_processes {args.num_processes} ranks "
+                         "(one device per rank)")
+    try:
+        validate(build_config(args), world)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    with ranks_on_this_host(args, "neighborretr_tpu_torch.cli.train", argv):
+        started = init_distributed(args)
+        try:
+            return _run(args)
+        finally:
+            if started:
+                import torch.distributed as dist
+                dist.destroy_process_group()
 
-    from ..core.checkpoint import latest_resumable
+
+def _run(args):
+    from ..core.checkpoint import resolve_resume_auto
     from ..models.neighborretr import resolve_fused_attention
+    from ..parallel.mesh import make_mesh
     from ..train.loop import run_training
     from ..utils.logging import setup_logger
 
+    mesh = make_mesh(args.device)
+    device = resolve_device(str(mesh.device))
     note = None
     if args.resume_checkpoint == "auto":
-        args.resume_checkpoint = latest_resumable(args.output_dir)
+        args.resume_checkpoint = resolve_resume_auto(args.output_dir, mesh)
         note = "--resume auto: " + (
             f"resuming from {args.resume_checkpoint}"
             if args.resume_checkpoint
@@ -269,16 +303,22 @@ def main(argv=None):
             "pass --init_checkpoint <npz>, or --clip_checkpoint random")))
 
     cfg = build_config(args)
-    validate(cfg, 1)
     # an --attention_impl the configuration cannot serve fails here
     resolve_fused_attention(cfg.model, device)
-    logger = setup_logger(output_dir=args.output_dir)
+    logger = setup_logger(output_dir=args.output_dir, is_main=mesh.rank == 0)
     if note:
         logger.info(note)
     logger.info("Device: %s", device)
+    if mesh.collective:
+        import torch.distributed as dist
+        logger.info("Data group: %d rank(s) over %s, %s form", mesh.world,
+                    dist.get_backend(), "explicit row-sharded"
+                    if cfg.train.explicit_spmd and mesh.world > 1
+                    else "gathered")
     logger.info("Config:\n%s", cfg.to_json())
     train_ds, test_ds = build_datasets(args, cfg)
-    return run_training(cfg, train_ds, test_ds, logger=logger, device=device)
+    return run_training(cfg, train_ds, test_ds, logger=logger, device=device,
+                        mesh=mesh)
 
 
 if __name__ == "__main__":

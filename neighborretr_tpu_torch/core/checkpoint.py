@@ -9,19 +9,28 @@ and back), `bank//ind|feat_t|feat_v|mask_t|mask_v`, `opt_step`, `step`; a
 saves resumes in the other.  bf16 leaves are stored as fp32 (npz has no
 portable bf16) and cast back on load.
 
-Single process: the JAX package's per-process sharded saves are not ported.
+A run of several processes (one per device, parallel/mesh.py) saves its
+preemption state as the JAX package's per-process sharded set:
+`{tag}.shard{p}.npz` per process and `{tag}.manifest.json` from process 0.
+The port's state is replicated, so process 0's file holds every leaf (the
+`full//` keys) and the others hold the step; a set the JAX package wrote
+with sharded leaves (`shape//`, `shdata//`, `shidx//`) is reassembled.
+Sets cross both ways.
 """
 
 from __future__ import annotations
 
 import glob
+import json
 import os
-from typing import Any, Dict
+import re
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from ..models import weights_io
+from ..parallel import mesh as pmesh
 from ..train.bertadam import BertAdamState
 from ..train.memory_bank import MemoryBank
 
@@ -39,12 +48,7 @@ def flatten_tree(tree: Tree, prefix: str = "") -> Dict[str, np.ndarray]:
         if isinstance(leaf, dict):
             flat.update(flatten_tree(leaf, name))
             continue
-        if torch.is_tensor(leaf):
-            leaf = leaf.detach().cpu()
-            if leaf.dtype == torch.bfloat16:
-                leaf = leaf.float()      # fp32 holds bf16 exactly
-            leaf = leaf.numpy()
-        flat[name] = np.array(leaf, copy=True)
+        flat[name] = pmesh.fetch_to_host(leaf)
     return flat
 
 
@@ -215,9 +219,10 @@ def load_params(path: str, params_like: Tree, strict: bool = True):
 
 def latest_resumable(output_dir: str):
     """Newest resumable train state in output_dir, or None: scans
-    state_preempt.npz and state_epoch*.npz and returns the path whose saved
-    `step` is highest (ties prefer the preempt file).  Unreadable candidates
-    are skipped.  Powers `--resume auto`."""
+    state_preempt.npz, state_epoch*.npz and a complete sharded preempt set
+    (its manifest) and returns the path whose saved `step` is highest
+    (ties prefer the preempt saves).  Unreadable candidates are skipped.
+    Powers `--resume auto`."""
     candidates = sorted(glob.glob(os.path.join(output_dir, "state_epoch*.npz")))
     candidates.append(os.path.join(output_dir, "state_preempt.npz"))
     best_path, best_step = None, -1
@@ -231,7 +236,25 @@ def latest_resumable(output_dir: str):
             continue
         if step >= best_step:
             best_path, best_step = path, step
+    mpath = os.path.join(output_dir, "state_preempt" + MANIFEST_SUFFIX)
+    if os.path.exists(mpath):
+        got = _read_sharded_set(mpath, materialize=False)
+        if got is not None and got[0] >= best_step:
+            best_path, best_step = mpath, got[0]
     return best_path
+
+
+def resolve_resume_auto(output_dir: str,
+                        mesh: Optional[pmesh.DataGroup] = None):
+    """`--resume auto` on a data group: process 0 resolves
+    `latest_resumable` and every process takes its decision (the file name,
+    joined to its own output_dir), so no rank resumes from another state
+    than the others."""
+    mesh = mesh if mesh is not None else pmesh.DataGroup()
+    path = latest_resumable(output_dir) if mesh.rank == 0 else None
+    name = pmesh.broadcast_object(os.path.basename(path) if path else None,
+                                  mesh)
+    return os.path.join(output_dir, name) if name else None
 
 
 def _moments_tree(moments: Dict[str, torch.Tensor], cfg) -> Tree:
@@ -265,10 +288,14 @@ def load_train_state(path: str, state_like):
     model in place and return the TrainState with the file's optimizer
     state, bank and step, on the model's device and in `state_like`'s
     dtypes."""
-    from ..train.step import TrainState
-
     with np.load(path, allow_pickle=False) as data:
         flat = {k: data[k] for k in data.files}
+    return _train_state_from_flat(flat, state_like)
+
+
+def _train_state_from_flat(flat: Dict[str, np.ndarray], state_like):
+    from ..train.step import TrainState
+
     model = state_like.model
     cfg = model.cfg
 
@@ -294,3 +321,123 @@ def load_train_state(path: str, state_like):
         k: torch.as_tensor(bank_flat[k]).to(device=v.device, dtype=v.dtype)
         for k, v in state_like.bank._asdict().items()})
     return TrainState(model=model, opt=opt, bank=bank, step=int(flat["step"]))
+
+
+# ---------------------------------------------------------------------------
+# Per-process sharded train states (↔ the JAX package's sharded preempt
+# saves): collective-free, so a process can write its file from a
+# signal-initiated stop without waiting for the others.
+# ---------------------------------------------------------------------------
+
+MANIFEST_SUFFIX = ".manifest.json"
+
+
+def save_sharded_train_state(output_dir: str, state,
+                             tag: str = "state_preempt",
+                             mesh: Optional[pmesh.DataGroup] = None) -> str:
+    """Every process of the data group calls this; each writes
+    `{tag}.shard{rank}.npz`, process 0 also `{tag}.manifest.json`.  The
+    state is replicated, so process 0's file holds every leaf under `full//`
+    (the JAX package's key for a replicated leaf) and the others hold the
+    step only.  Shard files of an earlier, larger group are removed.
+    Returns this process's shard path."""
+    mesh = mesh if mesh is not None else pmesh.DataGroup()
+    payload: Dict[str, np.ndarray] = {}
+    if mesh.rank == 0:
+        payload = {(f"full{_SEP}{k}" if _SEP in k else k): v
+                   for k, v in train_state_payload(state).items()}
+    payload["opt_step"] = np.asarray(state.opt.step, np.int32)
+    payload["step"] = np.asarray(state.step, np.int32)
+    payload["process_count"] = np.asarray(mesh.world, np.int64)
+    shard_path = os.path.join(output_dir, f"{tag}.shard{mesh.rank}.npz")
+    _atomic_savez(shard_path, payload)
+    if mesh.rank == 0:
+        mpath = os.path.join(output_dir, tag + MANIFEST_SUFFIX)
+        tmp = mpath + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({"tag": tag, "step": int(state.step),
+                       "process_count": mesh.world}, f)
+        os.replace(tmp, mpath)
+        for fp in glob.glob(os.path.join(output_dir, f"{tag}.shard*.npz")):
+            m = re.fullmatch(re.escape(tag) + r"\.shard(\d+)\.npz",
+                             os.path.basename(fp))
+            if m and int(m.group(1)) >= mesh.world:
+                os.remove(fp)
+    return shard_path
+
+
+def _read_sharded_set(manifest_path: str, materialize: bool = True):
+    """(step, flat dict of the reassembled global arrays) of a sharded set,
+    or None when the set is incomplete or inconsistent (a missing shard
+    file, processes at different steps, shards that do not tile an array
+    exactly once).  materialize=False checks the set without reading any
+    array data (npz members load lazily)."""
+    try:
+        with open(manifest_path) as f:
+            manifest = json.load(f)
+        tag = manifest["tag"]
+        pcount = int(manifest["process_count"])
+    except (OSError, ValueError, KeyError, TypeError):
+        return None
+    out_dir = os.path.dirname(manifest_path)
+    files = [os.path.join(out_dir, f"{tag}.shard{i}.npz")
+             for i in range(pcount)]
+    if pcount < 1 or not all(os.path.exists(fp) for fp in files):
+        return None
+    flat: Dict[str, np.ndarray] = {}
+    shapes: Dict[str, np.ndarray] = {}
+    pieces: Dict[str, list] = {}
+    steps = set()
+    try:
+        for fp in files:
+            with np.load(fp, allow_pickle=False) as data:
+                steps.add(int(data["step"]))
+                if int(data["process_count"]) != pcount:
+                    return None
+                for k in data.files:
+                    kind, _, rest = k.partition(_SEP)
+                    if kind == "full":
+                        if materialize:
+                            flat[rest] = data[k]
+                    elif kind == "shape":
+                        shapes[rest] = data[k]
+                    elif kind == "shdata":
+                        base = rest.rsplit("@", 1)[0]
+                        pieces.setdefault(base, []).append(
+                            (data[f"shidx{_SEP}{rest}"],
+                             data[k] if materialize else None))
+                    elif kind != "shidx" and materialize:
+                        flat[k] = data[k]       # step, opt_step
+    except (OSError, ValueError, KeyError):
+        return None
+    if len(steps) != 1:
+        return None
+    for key, shape in shapes.items():
+        parts = pieces.get(key, [])
+        size = int(np.prod([int(d) for d in shape], dtype=np.int64))
+        covered, buf = 0, None
+        for bounds, arr in parts:
+            covered += int(np.prod([int(b) - int(a) for a, b in bounds],
+                                   dtype=np.int64))
+            if materialize:
+                if buf is None:
+                    buf = np.zeros(tuple(int(d) for d in shape), arr.dtype)
+                buf[tuple(slice(int(a), int(b)) for a, b in bounds)] = arr
+        if not parts or covered != size:
+            return None
+        if materialize:
+            flat[key] = buf
+    flat.pop("process_count", None)
+    return steps.pop(), (flat if materialize else None)
+
+
+def load_sharded_train_state(manifest_path: str, state_like):
+    """Resume from a sharded set (the path of its manifest): the global
+    arrays reassembled from every process's file, then read as
+    `load_train_state` reads one npz."""
+    got = _read_sharded_set(manifest_path)
+    if got is None:
+        raise ValueError(
+            f"sharded checkpoint at {manifest_path} is incomplete or "
+            "inconsistent (missing shard files or skewed steps)")
+    return _train_state_from_flat(got[1], state_like)

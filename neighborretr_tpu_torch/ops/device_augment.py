@@ -424,21 +424,28 @@ def apply_randaugment_draws(video_u8: torch.Tensor, op_idx, fire, level, neg,
 
 
 def apply_randaugment(video_u8: torch.Tensor, generator: torch.Generator,
-                      policy: "DeviceAugmentPolicy | str") -> torch.Tensor:
+                      policy: "DeviceAugmentPolicy | str", rank: int = 0,
+                      world: int = 1) -> torch.Tensor:
     """uint8 [B, F, H, W, 3] → augmented uint8, the draws taken from
-    `generator` (on the video's device)."""
+    `generator` (on the video's device).  With world > 1 the clips are
+    block `rank` of a global batch of world·B: the draws are taken for the
+    global batch and the block's rows applied, so each clip gets the draws
+    it gets in one process over the whole batch."""
     if isinstance(policy, str):
         policy = DeviceAugmentPolicy.parse(policy)
-    draws = sample_policy(generator, video_u8.shape[0], policy)
+    B = video_u8.shape[0]
+    draws = sample_policy(generator, B * world, policy)
+    draws = [d[rank * B:(rank + 1) * B] for d in draws]
     return apply_randaugment_draws(video_u8, *draws, policy)
 
 
 def augment_batch(video_u8: torch.Tensor, video_mask: torch.Tensor,
                   generator: torch.Generator,
-                  policy: "DeviceAugmentPolicy | str") -> torch.Tensor:
+                  policy: "DeviceAugmentPolicy | str", rank: int = 0,
+                  world: int = 1) -> torch.Tensor:
     """Masked batch augment: padding frames (video_mask [B, F] == 0) stay
     exactly zero, as the host pipeline leaves them (Invert would map 0 to
-    255, SolarizeAdd would add)."""
-    out = apply_randaugment(video_u8, generator, policy)
+    255, SolarizeAdd would add).  rank / world: see apply_randaugment."""
+    out = apply_randaugment(video_u8, generator, policy, rank, world)
     keep = (video_mask > 0)[:, :, None, None, None]
     return torch.where(keep, out, torch.zeros_like(out))

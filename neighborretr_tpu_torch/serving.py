@@ -12,13 +12,21 @@ either package loads and verifies in the other:
 
 A `Searcher` keeps the corpus on the model's device across requests;
 `BatchingDispatcher` merges concurrent requests into one device call, and
-`cli/serve.py` puts both behind HTTP with a live `/reload`.  The JAX
-package's mesh branches (a corpus sharded over devices) are not ported.
+`cli/serve.py` puts both behind HTTP with a live `/reload`.
+
+Sharded mode (↔ the JAX package's mesh branches), in one process over a
+list of devices: `build_video_index(devices=)` splits each encode batch's
+rows over the devices, and `Searcher(devices=)` splits the corpus rows
+(padded to a multiple of the device count) into one shard per device, runs
+the similarity per shard on the shard's device and merges the shards'
+top-k.  A device listed twice holds two shards (one model copy serves
+both).
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import hashlib
 import json
 import os
@@ -148,16 +156,37 @@ def index_video_features(index: Dict[str, np.ndarray], device,
     return feat
 
 
+def model_replicas(model: NeighborRetr, devices) -> List[NeighborRetr]:
+    """The model on each of `devices`: the model itself on its own device,
+    one copy per other distinct device."""
+    own = model.clip.logit_scale.device
+    copies = {own: model}
+    out = []
+    for d in devices:
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device())
+        if d not in copies:
+            copies[d] = copy.deepcopy(model).to(d)
+        out.append(copies[d])
+    return out
+
+
 def build_video_index(model: NeighborRetr, cfg: Config, loader,
                       dataset=None, logger=None,
                       feature_dtype: str = "float16", skip_ids=None,
-                      kernels: bool = True) -> Dict[str, np.ndarray]:
+                      kernels: bool = True,
+                      devices: Optional[Sequence] = None
+                      ) -> Dict[str, np.ndarray]:
     """Encode every unique video the loader yields (deduplicated by the
     per-video hash; multi-sentence datasets repeat each video per caption),
-    gathering the unique rows before the ViT forward."""
+    gathering the unique rows before the ViT forward.  devices: split each
+    encode batch's rows over these devices (data-parallel corpus
+    encoding; the loader's batch size must divide over them)."""
     if feature_dtype not in ("float16", "int8"):
         raise ValueError(f"feature_dtype must be float16 or int8, "
                          f"got {feature_dtype!r}")
+    replicas = model_replicas(model, devices) if devices else [model]
     skip_ids = frozenset(skip_ids or ())
     dataset = dataset if dataset is not None else loader.dataset
     pairs = getattr(dataset, "pairs", None)
@@ -179,10 +208,17 @@ def build_video_index(model: NeighborRetr, cfg: Config, loader,
         if not keep:
             continue
         B = batch["video"].shape[0]
+        if B % len(replicas):
+            raise ValueError(f"an encode batch of {B} rows does not split "
+                             f"over {len(replicas)} devices")
         gather = np.asarray(keep + [keep[0]] * (B - len(keep)))
-        vf = encode_video_batch(model, batch["video"][gather],
-                                batch["video_mask"][gather], kernels)
-        feats.append(vf[:len(keep)].cpu().numpy().astype(np.float16))
+        per = B // len(replicas)
+        blocks = [encode_video_batch(m, batch["video"][gather[i:i + per]],
+                                     batch["video_mask"][gather[i:i + per]],
+                                     kernels)
+                  for m, i in zip(replicas, range(0, B, per))]
+        vf = torch.cat([b.cpu() for b in blocks])
+        feats.append(vf[:len(keep)].numpy().astype(np.float16))
         masks.append(np.asarray(batch["video_mask"], np.float32)[keep])
         if logger is not None:
             logger.info("Indexed %d videos", len(ids))
@@ -300,26 +336,51 @@ class Searcher:
     model's device across requests, and query batches pad up to a multiple
     of `query_batch` ("" queries, rows dropped).  staged_upload_rows > 0
     uploads the corpus in row slabs on a side stream (the live reload
-    path, `index_video_features`)."""
+    path, `index_video_features`).
+
+    devices: shard the corpus over these devices (↔ the JAX Searcher's
+    mesh): N rows padded with copies of row 0 up to a multiple of the
+    device count (the pad columns are ranked out), one contiguous shard a
+    device, the similarity run per shard on its device and the shards'
+    top-k merged; queries are encoded once, on the first device.  Each
+    shard's upload is staged under staged_upload_rows > 0 (the JAX mesh
+    branch ignores that argument; the port does not copy that)."""
 
     def __init__(self, model: NeighborRetr, cfg: Config,
                  index: Dict[str, np.ndarray], tokenizer,
                  query_batch: int = 8, kernels: bool = True,
-                 staged_upload_rows: int = 0):
+                 staged_upload_rows: int = 0,
+                 devices: Optional[Sequence] = None):
         if query_batch < 1:
             raise ValueError(f"query_batch must be >= 1, got {query_batch}")
         check_meta(index, cfg, model)
-        self.model, self.cfg, self.tokenizer = model, cfg, tokenizer
+        self.cfg, self.tokenizer = cfg, tokenizer
         self.kernels = kernels
         self.video_ids = [str(v) for v in index["video_ids"]]
         self.query_batch = int(query_batch)
-        self.device = model.clip.logit_scale.device
+        replicas = (model_replicas(model, devices) if devices
+                    else [model])
+        self.model = replicas[0]
+        self.device = self.model.clip.logit_scale.device
         self.calls = 0           # device calls made (text encode + K2)
-        with device_scope(self.device):
-            self._v_feat = index_video_features(
-                index, self.device, staged_rows=staged_upload_rows)
-            self._v_mask = torch.as_tensor(
-                np.asarray(index["v_mask"], np.float32), device=self.device)
+        n, S = len(self.video_ids), len(replicas)
+        pad = (-n) % S
+        rows = {k: index[k] for k in ("v_feat", "v_scale") if k in index}
+        rows["v_mask"] = np.asarray(index["v_mask"], np.float32)
+        if pad:
+            rows = {k: np.concatenate([v, np.repeat(v[:1], pad, 0)])
+                    for k, v in rows.items()}
+        per = (n + pad) // S
+        # (model, features, mask, first corpus row) per shard
+        self._shards = []
+        for i, m in enumerate(replicas):
+            dev = m.clip.logit_scale.device
+            part = {k: v[i * per:(i + 1) * per] for k, v in rows.items()}
+            with device_scope(dev):
+                feat = index_video_features(part, dev,
+                                            staged_rows=staged_upload_rows)
+                mask = torch.as_tensor(part["v_mask"], device=dev)
+            self._shards.append((m, feat, mask, i * per))
 
     def __len__(self) -> int:
         return len(self.video_ids)
@@ -333,15 +394,21 @@ class Searcher:
         self.similarities(["warmup"])
 
     @torch.no_grad()
-    def _similarity(self, queries: Sequence[str]) -> torch.Tensor:
-        """Device [Q_padded, N] similarity for a padded query list."""
+    def _similarity(self, queries: Sequence[str]) -> List[torch.Tensor]:
+        """Per shard, the device [Q_padded, N_shard] similarity for a
+        padded query list."""
         padded = list(queries) + [""] * ((-len(queries)) % self.query_batch)
         self.calls += 1
         t_feat, t_mask = encode_queries(self.model, self.cfg, self.tokenizer,
                                         padded, self.kernels)
-        return similarity_matrix_device(
-            self.model, t_feat, t_mask, self._v_feat, self._v_mask,
-            kernels=similarity_kernels(self.cfg.model, self.kernels))
+        kernels = similarity_kernels(self.cfg.model, self.kernels)
+        sims = []
+        for m, feat, mask, _ in self._shards:
+            dev = feat.device
+            with device_scope(dev):
+                sims.append(similarity_matrix_device(
+                    m, t_feat.to(dev), t_mask, feat, mask, kernels=kernels))
+        return sims
 
     def similarities(self, queries: Sequence[str]) -> np.ndarray:
         """[Q, N] similarity rows for free-text queries."""
@@ -349,7 +416,9 @@ class Searcher:
         if n == 0:
             return np.zeros((0, len(self.video_ids)), np.float32)
         with device_scope(self.device):
-            return self._similarity(queries)[:n].cpu().numpy()
+            sims = self._similarity(queries)
+            return torch.cat([s[:n].cpu() for s in sims],
+                             dim=1)[:, :len(self.video_ids)].numpy()
 
     def search(self, queries: Sequence[str], topk: int = 5,
                ) -> List[List[Tuple[str, float]]]:
@@ -360,15 +429,33 @@ class Searcher:
         if n == 0 or k == 0:
             return [[] for _ in queries]
         with device_scope(self.device):
-            sim = self._similarity(queries)
+            sims = self._similarity(queries)
             # k bucketed to the next power of two, min 8, as the JAX
             # searcher does to reuse its compiled top-k programs
-            kk = min(max(8, 1 << (k - 1).bit_length()), sim.shape[1])
-            vals, idx = masked_topk(sim, kk, len(self.video_ids))
+            if len(sims) == 1:
+                kk = min(max(8, 1 << (k - 1).bit_length()), sims[0].shape[1])
+                vals, idx = masked_topk(sims[0], kk, len(self.video_ids))
+            else:
+                vals, idx = self._merged_topk(sims, k)
             vals = vals[:n, :k].cpu().numpy()
             idx = idx[:n, :k].cpu().numpy()
         return [[(self.video_ids[j], float(v)) for j, v in zip(irow, vrow)]
                 for irow, vrow in zip(idx, vals)]
+
+
+    def _merged_topk(self, sims: List[torch.Tensor], k: int):
+        """Top-k over the shards: each shard's top-k (its pad columns
+        ranked out) with its column offset, merged on the first device."""
+        n_valid = len(self.video_ids)
+        vals, idx = [], []
+        for sim, (_, _, _, first) in zip(sims, self._shards):
+            valid = min(max(n_valid - first, 0), sim.shape[1])
+            v, i = masked_topk(sim, min(k, sim.shape[1]), valid)
+            vals.append(v.to(self.device))
+            idx.append(i.to(self.device) + first)
+        v, j = torch.topk(torch.cat(vals, dim=1), k, dim=1, largest=True,
+                          sorted=True)
+        return v, torch.gather(torch.cat(idx, dim=1), 1, j)
 
 
 def search(model: NeighborRetr, cfg: Config, index: Dict[str, np.ndarray],

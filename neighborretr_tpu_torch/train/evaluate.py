@@ -13,7 +13,11 @@ device (↔ neighborretr_tpu/train/evaluate.py).
      forms with -inf padding per caption group; only rank vectors leave the
      device.
 
-The JAX package's mesh and multi-process branches are not ported.
+On a data group of several processes (parallel/mesh.py) each rank encodes
+its block of every eval batch (the loader cuts it), the features are
+gathered, and the padded rows are dropped and dataset order restored from
+the loader's global plan, so every rank holds the one-process feature
+cache and computes the one-process R@K.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch
 from ..core.config import Config
 from ..models.neighborretr import (NeighborRetr, local_similarity,
                                    similarity_kernels)
+from ..parallel import mesh as pmesh
 from . import metrics as M
 
 
@@ -89,7 +94,8 @@ def similarity_matrix(model: NeighborRetr, t_feat, t_mask, v_feat, v_mask,
 @torch.no_grad()
 def extract_features(model: NeighborRetr, cfg: Config, loader,
                      video_keep: Optional[np.ndarray] = None,
-                     kernels: bool = True):
+                     kernels: bool = True,
+                     mesh: Optional[pmesh.DataGroup] = None):
     """Cache all text/video features → (t_feat, t_mask, v_feat, v_mask):
     features as tensors on the model's device, masks as numpy, padded rows
     dropped and dataset order restored.
@@ -97,10 +103,29 @@ def extract_features(model: NeighborRetr, cfg: Config, loader,
     video_keep: dataset-order row indices whose videos to encode (the
     multi-sentence protocol: one video per caption group).  Only those
     rows' videos run through the vision tower, batched back to the loader's
-    batch size; v_feat / v_mask then follow video_keep's order."""
+    batch size; v_feat / v_mask then follow video_keep's order.
+
+    mesh: a data group whose ranks each load their block of every batch
+    (the loader's process_index / process_count); the blocks' features
+    and masks are gathered, and the loader's `global_idx` / `global_valid`
+    place them.  video_keep is single-process (each rank's kept rows would
+    differ); evaluate() then encodes every row and selects after."""
+    mesh = mesh if mesh is not None else pmesh.DataGroup()
+    multiprocess = mesh.collective
     keep_pos = None
     if video_keep is not None:
+        if multiprocess:
+            raise ValueError(
+                "video_keep dedup is single-process (each process holds "
+                "different kept rows); callers fall back to full encode + "
+                "row select on a multi-process data group")
         keep_pos = {int(r): j for j, r in enumerate(np.asarray(video_keep))}
+
+    def gathered(x):
+        if not multiprocess:
+            return np.asarray(x)
+        return pmesh.all_gather(torch.as_tensor(np.asarray(x)).to(
+            _device(model)), mesh).cpu().numpy()
 
     t_feats, t_masks, v_feats, v_masks, ids, valids = [], [], [], [], [], []
     pend_v, pend_m, kept_chunks, kept_masks = [], [], [], []
@@ -119,13 +144,15 @@ def extract_features(model: NeighborRetr, cfg: Config, loader,
 
     for batch in loader:
         batch_size = len(batch["idx"])
-        t_feats.append(encode_text_batch(model, batch["text_ids"],
-                                         batch["text_mask"], kernels))
-        t_masks.append(np.asarray(batch["text_mask"]))
+        t_feats.append(pmesh.all_gather(
+            encode_text_batch(model, batch["text_ids"], batch["text_mask"],
+                              kernels), mesh))
+        t_masks.append(gathered(batch["text_mask"]))
         if keep_pos is None:
-            v_feats.append(encode_video_batch(model, batch["video"],
-                                              batch["video_mask"], kernels))
-            v_masks.append(np.asarray(batch["video_mask"]))
+            v_feats.append(pmesh.all_gather(
+                encode_video_batch(model, batch["video"], batch["video_mask"],
+                                   kernels), mesh))
+            v_masks.append(gathered(batch["video_mask"]))
         else:
             for i, (gid, ok) in enumerate(zip(batch["idx"], batch["valid"])):
                 j = keep_pos.get(int(gid)) if ok else None
@@ -141,8 +168,9 @@ def extract_features(model: NeighborRetr, cfg: Config, loader,
                 pend_m.append(kept_masks[-1])
                 if len(pend_v) == batch_size:
                     flush_kept()
-        ids.append(np.asarray(batch["idx"]))
-        valids.append(np.asarray(batch["valid"]))
+        # a multi-process loader carries the global plan beside the rows
+        ids.append(np.asarray(batch.get("global_idx", batch["idx"])))
+        valids.append(np.asarray(batch.get("global_valid", batch["valid"])))
 
     ids, valid = np.concatenate(ids), np.concatenate(valids)
     row_index = np.nonzero(valid)[0][np.argsort(ids[valid])]
@@ -177,9 +205,12 @@ def reshape_multi_sentence_device(sim: torch.Tensor,
 
 
 def evaluate(model: NeighborRetr, cfg: Config, loader, dataset=None,
-             logger=None, kernels: bool = True
+             logger=None, kernels: bool = True,
+             mesh: Optional[pmesh.DataGroup] = None
              ) -> Tuple[Dict[str, float], Dict[str, float]]:
-    """Full evaluation → (t2v metrics, v2t metrics)."""
+    """Full evaluation → (t2v metrics, v2t metrics).  On a data group every
+    rank must call it (the feature gathers are collectives); every rank
+    gets the one-process metrics."""
     dataset = dataset if dataset is not None else loader.dataset
     multi = getattr(dataset, "multi_sentence_per_video", False)
     dev = _device(model)
@@ -190,8 +221,14 @@ def evaluate(model: NeighborRetr, cfg: Config, loader, dataset=None,
 
     tic = time.time()
     keep = (np.asarray(dataset.cut_off_points) - 1) if multi else None
+    # several processes encode every row and select the kept ones after
+    multiprocess = mesh is not None and mesh.collective
     t_feat, t_mask, v_feat, v_mask = extract_features(
-        model, cfg, loader, video_keep=keep, kernels=kernels)
+        model, cfg, loader, video_keep=None if multiprocess else keep,
+        kernels=kernels, mesh=mesh)
+    if multi and multiprocess:
+        v_feat = v_feat[torch.as_tensor(keep, device=v_feat.device)]
+        v_mask = v_mask[keep]
     sync()
     feat_time = time.time() - tic
 

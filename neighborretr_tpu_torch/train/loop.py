@@ -1,5 +1,6 @@
-"""Epoch orchestration on one device: bank fill → train epoch → eval → best
-tracking (↔ neighborretr_tpu/train/loop.py).
+"""Epoch orchestration: bank fill → train epoch → eval → best tracking
+(↔ neighborretr_tpu/train/loop.py), on one device or on a data group of
+one process per device (parallel/mesh.py).
 
 Per epoch the memory bank is re-filled from `mb_batch` training batches
 over an empty bank, the train epoch runs with loss logging every `n_display`
@@ -15,8 +16,17 @@ come from generators seeded from (run seed, global step) for a step and
 (run seed, epoch, fill index) for a bank-fill batch, so a resume replays
 them too.
 
-Not ported: meshes and multi-process runs, the device prefetch (batches are
-moved when the step wants them).
+On a data group every rank loads its block of each train, bank and test
+batch (the loader's process_index / process_count), logs only on rank 0,
+and rank 0 alone writes best.npz, state_epochN.npz and the tracker json;
+the tracker of a resumed run is rank 0's, broadcast.  A SIGTERM that any
+rank catches stops every rank at the same step boundary (a MAX all-reduce
+of the stop flag), and each rank then writes its file of the sharded
+preempt set (`state_preempt.shard{p}.npz` + `state_preempt.manifest.json`,
+core/checkpoint.py), which `--resume` takes by its manifest.
+
+Not ported: the device prefetch (batches are moved when the step wants
+them).
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ from ..core import checkpoint as ckpt
 from ..core.config import Config
 from ..data.loader import BatchLoader
 from ..models import weights_io
+from ..parallel import mesh as pmesh
 from ..utils.logging import JsonlMetricsWriter, MetricLogger, setup_logger
 from . import memory_bank as mb
 from .evaluate import evaluate
@@ -110,25 +121,32 @@ def _empty_bank(cfg: Config, device) -> mb.MemoryBank:
 
 def fill_memory_bank(model, cfg: Config, bank_loader: BatchLoader,
                      bank: mb.MemoryBank, device, kernels: bool = True,
-                     epoch: int = 0) -> mb.MemoryBank:
+                     epoch: int = 0, mesh=None) -> mb.MemoryBank:
     """Epoch-start fill: encode min(mb_batch, len(loader)) batches, each
-    augmented on the device under --augment_backend device."""
+    augmented on the device under --augment_backend device; on a data group
+    each rank encodes its rows of every batch."""
     n_fill = min(cfg.train.mb_batch, len(bank_loader))
     on_device = cfg.data.augment_backend == "device"
     for i, batch in enumerate(itertools.islice(iter(bank_loader), n_fill)):
         gen = (augment_generator(device, cfg.train.seed, epoch, i)
                if on_device else None)
         bank = fill_bank_step(model, bank, to_device(batch, device), cfg,
-                              i * cfg.train.batch_size, kernels, gen)
+                              i * cfg.train.batch_size, kernels, gen, mesh)
     return bank
 
 
 def run_training(cfg: Config, train_ds, test_ds, logger=None, device=None,
-                 workers: Optional[int] = None, kernels: bool = True):
-    """Full training run on `device` (default: the CUDA device) → (final
-    TrainState, BestMetricsTracker)."""
-    device = torch.device(device if device is not None else "cuda")
-    logger = logger or setup_logger(output_dir=cfg.train.output_dir)
+                 workers: Optional[int] = None, kernels: bool = True,
+                 mesh: Optional[pmesh.DataGroup] = None):
+    """Full training run on `device` (default: the data group's device, else
+    the CUDA device) → (final TrainState, BestMetricsTracker).  mesh: the
+    data group; every rank calls this with the same arguments."""
+    mesh = mesh if mesh is not None else pmesh.DataGroup(
+        device=torch.device(device if device is not None else "cuda"))
+    device = torch.device(device) if device is not None else mesh.device
+    main = mesh.rank == 0
+    logger = logger or setup_logger(output_dir=cfg.train.output_dir,
+                                    is_main=main)
     workers = workers if workers is not None else cfg.data.workers
     if cfg.train.clip_checkpoint:
         raise NotImplementedError(
@@ -136,7 +154,8 @@ def run_training(cfg: Config, train_ds, test_ds, logger=None, device=None,
             "(train.clip_checkpoint); start from seeded random weights or an "
             "--init_checkpoint npz")
 
-    mode = dict(worker_mode=cfg.data.worker_mode)
+    mode = dict(worker_mode=cfg.data.worker_mode, process_index=mesh.rank,
+                process_count=mesh.world)
     train_loader = BatchLoader(train_ds, cfg.train.batch_size, shuffle=True,
                                drop_last=True, workers=workers,
                                seed=cfg.train.seed, **mode)
@@ -151,6 +170,7 @@ def run_training(cfg: Config, train_ds, test_ds, logger=None, device=None,
     t_total = max(steps_per_epoch * cfg.train.epochs, 1)
 
     model = weights_io.init_model(cfg.model, cfg.train.seed, device)
+    pmesh.place_params(model, mesh, fsdp=cfg.train.fsdp)
     if cfg.train.init_checkpoint:
         # strict=False warm start from either package's npz
         tree, report = ckpt.load_params(cfg.train.init_checkpoint,
@@ -171,7 +191,10 @@ def run_training(cfg: Config, train_ds, test_ds, logger=None, device=None,
     resume_skip = 0       # batches of start_epoch consumed before the resume
 
     if cfg.train.resume_checkpoint:
-        state = ckpt.load_train_state(cfg.train.resume_checkpoint, state)
+        path = cfg.train.resume_checkpoint
+        state = (ckpt.load_sharded_train_state(path, state)
+                 if path.endswith(ckpt.MANIFEST_SUFFIX)
+                 else ckpt.load_train_state(path, state))
         global_step = state.step
         start_epoch = min(global_step // max(steps_per_epoch, 1),
                           cfg.train.epochs)
@@ -180,16 +203,18 @@ def run_training(cfg: Config, train_ds, test_ds, logger=None, device=None,
                     cfg.train.resume_checkpoint, global_step, start_epoch,
                     f", batch {resume_skip}" if resume_skip else "")
         # without the tracker the first eval after the resume would
-        # overwrite best.npz with parameters worse than the earlier best
+        # overwrite best.npz with parameters worse than the earlier best.
+        # Rank 0's view on every rank: tracker.update gates collectives
         tracker_path = os.path.join(cfg.train.output_dir, "best_metrics.json")
-        if os.path.exists(tracker_path):
+        if main and os.path.exists(tracker_path):
             with open(tracker_path) as f:
                 tracker.load_dict(json.load(f))
+        tracker.load_dict(pmesh.broadcast_object(tracker.to_dict(), mesh))
         if tracker.best_mean_r1 > 1e-5:
             logger.info("Restored best-metrics tracker (mean R@1 %.2f)",
                         tracker.best_mean_r1)
 
-    jsonl = JsonlMetricsWriter(cfg.train.output_dir)
+    jsonl = JsonlMetricsWriter(cfg.train.output_dir, enabled=main)
     guard = PreemptionGuard(
         enabled=cfg.train.save_checkpoints and cfg.train.save_on_preempt)
     # npz writes run on a background thread over host copies, so the step
@@ -198,31 +223,32 @@ def run_training(cfg: Config, train_ds, test_ds, logger=None, device=None,
     best_path = os.path.join(cfg.train.output_dir, "best.npz")
     try:
         with guard:
-            state, best_flat = _train_epochs(
+            state, best_flat, preempted = _train_epochs(
                 cfg, state, tracker, guard, train_loader, bank_loader,
                 test_loader, test_ds, logger, device, t_total,
                 steps_per_epoch, start_epoch, global_step, best_path, jsonl,
-                writer, resume_skip, kernels)
-        if guard.requested:
+                writer, resume_skip, kernels, mesh)
+        if preempted:
             return state, tracker
         if writer is not None:
             writer.wait()      # surface write errors; best.npz is readable
 
-        # final test on the best weights: this run's own best, or after a
-        # resume the best.npz that predates it
+        # final test on the best weights: this run's own best (every rank
+        # holds it), or after a one-process resume the best.npz that
+        # predates it (several processes cannot all count on reading it)
         if cfg.train.save_checkpoints:
             like = ckpt.params_tree(model)
             best = None
             if best_flat is not None:
                 best = ckpt.unflatten_into(like, best_flat)
-            elif os.path.exists(best_path):
+            elif mesh.world == 1 and os.path.exists(best_path):
                 best = ckpt.load_params(best_path, like)
             if best is not None:
                 final = {k: v.clone() for k, v in model.state_dict().items()}
                 ckpt.load_tree_into_model(model, best)
                 logger.info("Final test on best checkpoint:")
                 evaluate(model, cfg, test_loader, dataset=test_ds,
-                         logger=logger, kernels=kernels)
+                         logger=logger, kernels=kernels, mesh=mesh)
                 model.load_state_dict(final)
         return state, tracker
     finally:
@@ -236,19 +262,27 @@ def run_training(cfg: Config, train_ds, test_ds, logger=None, device=None,
 def _train_epochs(cfg, state: TrainState, tracker, guard, train_loader,
                   bank_loader, test_loader, test_ds, logger, device, t_total,
                   steps_per_epoch, start_epoch, global_step, best_path, jsonl,
-                  writer, resume_skip, kernels):
+                  writer, resume_skip, kernels, mesh):
     """The epoch loop → (state, flat host copy of the best parameters or
-    None); returns early, with the preempt state saved, when the guard
-    caught SIGTERM."""
+    None, preempted); returns early, with the preempt state saved, when a
+    rank's guard caught SIGTERM."""
     model = state.model
     out_dir = cfg.train.output_dir
     best_flat = None
     cuda = device.type == "cuda"
+    main = mesh.rank == 0
+
+    def stop():
+        """Whether any rank caught SIGTERM: the same answer on every rank,
+        at the same point of the loop."""
+        return pmesh.any_rank(guard.requested, mesh)
 
     def save_best(flat):
         """best.npz, then best_metrics.json, in one submitted closure: the
         json claims a best only once it is on disk.  The tracker's state is
         captured now, so a later update cannot leak into this write."""
+        if not main:
+            return
         tracker_dict = tracker.to_dict()
         best_r1 = tracker.best_mean_r1
 
@@ -265,7 +299,7 @@ def _train_epochs(cfg, state: TrainState, tracker, guard, train_loader,
         behind the mid-epoch and the per-epoch validations."""
         nonlocal best_flat
         t2v, v2t = evaluate(model, cfg, test_loader, dataset=test_ds,
-                            logger=logger, kernels=kernels)
+                            logger=logger, kernels=kernels, mesh=mesh)
         jsonl.write(kind="eval", step=global_step, epoch=epoch,
                     t2v={k: float(v) for k, v in t2v.items()},
                     v2t={k: float(v) for k, v in v2t.items()})
@@ -293,11 +327,17 @@ def _train_epochs(cfg, state: TrainState, tracker, guard, train_loader,
 
     def preempt_exit():
         stop_profiler("stopped on preemption")
-        path = os.path.join(out_dir, "state_preempt.npz")
-        ckpt.save_train_state(path, state)
-        logger.info("Preemption signal caught: saved resumable TrainState to "
-                    "%s (continue with --resume auto)", path)
-        return state, best_flat
+        if mesh.world > 1:
+            path = ckpt.save_sharded_train_state(out_dir, state, mesh=mesh)
+            logger.info("Preemption signal caught: saved this process's "
+                        "part of the sharded state set to %s (continue with "
+                        "--resume auto)", path)
+        else:
+            path = os.path.join(out_dir, "state_preempt.npz")
+            ckpt.save_train_state(path, state)
+            logger.info("Preemption signal caught: saved resumable "
+                        "TrainState to %s (continue with --resume auto)", path)
+        return state, best_flat, True
 
     for epoch in range(start_epoch, cfg.train.epochs):
         train_loader.set_epoch(epoch)
@@ -319,12 +359,12 @@ def _train_epochs(cfg, state: TrainState, tracker, guard, train_loader,
             # clear), and a fill shorter than the capacity would leave them
             state.bank = fill_memory_bank(model, cfg, bank_loader,
                                           _empty_bank(cfg, device), device,
-                                          kernels, epoch)
+                                          kernels, epoch, mesh)
             if cuda:
                 torch.cuda.synchronize(device)
             logger.info("Epoch %d: memory bank filled in %.1fs", epoch,
                         time.time() - tic)
-        if guard.requested:          # SIGTERM during the bank fill
+        if stop():                   # SIGTERM during the bank fill
             return preempt_exit()
 
         meters = MetricLogger()
@@ -347,7 +387,7 @@ def _train_epochs(cfg, state: TrainState, tracker, guard, train_loader,
         # `it` is the absolute in-epoch batch index, so the display and
         # mid-epoch-eval cadence line up with the uninterrupted run
         for it, batch in enumerate(timed(train_loader), start=skip):
-            if (cfg.train.profile_dir and profiler is None
+            if (main and cfg.train.profile_dir and profiler is None
                     and global_step == cfg.train.profile_steps[0]):
                 from torch.profiler import ProfilerActivity, profile
                 acts = [ProfilerActivity.CPU] + (
@@ -359,9 +399,9 @@ def _train_epochs(cfg, state: TrainState, tracker, guard, train_loader,
             aug = (augment_generator(device, cfg.train.seed, global_step)
                    if cfg.data.augment_backend == "device" else None)
             state, metrics = train_step(state, to_device(batch, device), cfg,
-                                        t_total, gen, kernels, aug)
+                                        t_total, gen, kernels, aug, mesh)
             global_step += 1
-            if guard.requested:
+            if stop():
                 return preempt_exit()
             if profiler is not None and \
                     global_step >= cfg.train.profile_steps[1]:
@@ -401,18 +441,18 @@ def _train_epochs(cfg, state: TrainState, tracker, guard, train_loader,
                     global_step % (cfg.train.n_display * 3) == 0
                     or global_step == 1):
                 eval_and_track(epoch)
-                if guard.requested:
+                if stop():
                     return preempt_exit()
 
         eval_and_track(epoch)
-        if cfg.train.save_checkpoints:
+        if cfg.train.save_checkpoints and main:
             payload = ckpt.train_state_payload(state)
             writer.submit(lambda p=payload, e=epoch: ckpt._atomic_savez(
                 os.path.join(out_dir, f"state_epoch{e}.npz"), p))
-        if guard.requested:     # SIGTERM during the eval or the checkpoint
+        if stop():              # SIGTERM during the eval or the checkpoint
             return preempt_exit()
         # epoch-end bank clear: re-filled next epoch
         state.bank = _empty_bank(cfg, device)
 
     stop_profiler("stopped at end of training")
-    return state, best_flat
+    return state, best_flat, False

@@ -18,8 +18,18 @@ micro-batches with exact gradients (see `_microbatched_backward`);
 (models/layers.py, models/neighborretr.py); `model.attention_impl` picks the
 attention route.  `data.augment_backend="device"` runs the RandAugment
 policy on the batch's device at the top of the step (ops/device_augment.py),
-its draws from an explicit generator.  The explicit-SPMD and pipeline forms
-and the host-resident bank are not ported: asking for one raises.
+its draws from an explicit generator.
+
+With a data group (`mesh=`, parallel/mesh.py; one process per device) the
+batch is this rank's block of the global batch.  Without
+`train.explicit_spmd` the step takes the gathered form (↔ the JAX
+package's GSPMD path): each rank encodes its rows, gathers the features
+and masks, and runs the single-device loss code on the global batch.  With
+it, and more than one rank, the explicit form (parallel/spmd.py) computes
+each rank's row block of the similarity matrices.  The gradients are then
+averaged over the ranks, so BertAdam steps identically on every rank, and
+the FIFO refresh takes the gathered rows.  The pipeline form, FSDP and the
+host-resident bank and moments are not ported: asking for one raises.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ from ..core.config import Config
 from ..losses import hubness
 from ..models import neighborretr as M
 from ..ops.device_augment import augment_batch
+from ..parallel import mesh as pmesh
 from . import bertadam
 from .memory_bank import MemoryBank, fifo_update, write_slice
 
@@ -73,7 +84,6 @@ def _check_supported(cfg: Config, model: Optional[M.NeighborRetr] = None
             "its TPU); use sim_dtype='float32'")
     t = cfg.train
     unported = {
-        "train.explicit_spmd": t.explicit_spmd,
         "train.pipeline_parallel > 1": t.pipeline_parallel > 1,
         "train.fsdp": t.fsdp,
         "train.bank_placement='host'": t.bank_placement != "device",
@@ -87,13 +97,16 @@ def _check_supported(cfg: Config, model: Optional[M.NeighborRetr] = None
 
 
 def _maybe_device_augment(cfg: Config, batch: Dict[str, torch.Tensor],
-                          generator: Optional[torch.Generator]
+                          generator: Optional[torch.Generator],
+                          mesh: Optional[pmesh.DataGroup] = None
                           ) -> Dict[str, torch.Tensor]:
     """RandAugment on the batch's device, ahead of the model's frame
     normalisation, under data.augment_backend="device" (↔ the JAX step's
     _maybe_device_augment): the whole batch at once, before any
     micro-batching, the draws from `generator`; padding frames stay zero.
-    Any other backend: the batch as it is (the loader augmented it)."""
+    On a data group the draws are the global batch's and each rank applies
+    its block's.  Any other backend: the batch as it is (the loader
+    augmented it)."""
     d = cfg.data
     if d.augment_backend != "device" or not d.train_augment or not d.augment:
         return batch
@@ -105,8 +118,9 @@ def _maybe_device_augment(cfg: Config, batch: Dict[str, torch.Tensor],
             "--augment_backend device needs uint8 frames from the loader "
             f"(got {batch['video'].dtype}); the host pipeline must not "
             "normalize or augment first")
+    rank, world = (mesh.rank, mesh.world) if mesh is not None else (0, 1)
     video = augment_batch(batch["video"], batch["video_mask"], generator,
-                          d.augment)
+                          d.augment, rank, world)
     return dict(batch, video=video)
 
 
@@ -114,6 +128,18 @@ def to_device(batch: Dict[str, object], device) -> Dict[str, torch.Tensor]:
     """A loader batch (numpy arrays or tensors) on `device`."""
     keys = ("text_ids", "text_mask", "video", "video_mask", "idx")
     return {k: torch.as_tensor(batch[k]).to(device) for k in keys}
+
+
+def global_rows(batch: Dict[str, torch.Tensor],
+                mesh: Optional[pmesh.DataGroup] = None):
+    """(idx int32, text_mask, video_mask fp32) of the global batch: this
+    rank's rows gathered over the data group (the batch's own without
+    one)."""
+    rows = (batch["idx"].to(torch.int32), batch["text_mask"].float(),
+            batch["video_mask"].float())
+    if mesh is None:
+        return rows
+    return tuple(pmesh.all_gather(x, mesh) for x in rows)
 
 
 def _encode_microbatches(model, batch, n: int, kernels: bool):
@@ -129,36 +155,16 @@ def _encode_microbatches(model, batch, n: int, kernels: bool):
             torch.cat([f[1] for f in feats]))
 
 
-def compute_losses(model: M.NeighborRetr, cfg: Config,
-                   batch: Dict[str, torch.Tensor], bank: MemoryBank,
-                   noise=None, kernels: bool = True, features=None
-                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Global-batch loss → (total, aux with every term and the fresh
-    features).  noise: `models.neighborretr.draw_cluster_noise`'s draws, or
-    None for deterministic clustering.  features: the batch's (text, video)
-    features where the caller has encoded them already (micro-batching);
-    otherwise the towers run here, in `train.micro_batches` slices."""
-    mcfg, lcfg = cfg.model, cfg.loss
-    if features is not None:
-        text_feat, video_feat = features
-    elif cfg.train.micro_batches > 1:
-        text_feat, video_feat = _encode_microbatches(
-            model, batch, cfg.train.micro_batches, kernels)
-    else:
-        text_feat, video_feat = model.get_text_video_feat(
-            batch["text_ids"], batch["text_mask"], batch["video"],
-            batch["video_mask"], kernels)
-    t_mask = batch["text_mask"].float()
-    v_mask = batch["video_mask"].float()
-
-    # in-batch local similarity: the plain form at the short shapes; the
-    # long-token shapes (T·V >= 2048) run the blocked kernel
-    # use_pallas="off": the plain forms of the similarity family throughout
-    sim_kernels = M.similarity_kernels(mcfg, kernels)
-    long_tokens = text_feat.shape[1] * video_feat.shape[1] >= 2048
-    s_local = M.local_similarity(model, text_feat, video_feat, t_mask, v_mask,
-                                 kernels=sim_kernels and long_tokens)
-
+def composed_losses(model: M.NeighborRetr, cfg: Config, text_feat, video_feat,
+                    t_mask, v_mask, s_local, noise, neighbor_loss_fn
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The four losses over the global batch's features and its local
+    similarity S → (total, aux); `neighbor_loss_fn()` gives the
+    neighbor-adjusting loss (from the bank centralities or the bank
+    matrices), called after the global level as in the reference, so the
+    discrete decisions (DPC-KNN clusters, then the top-k masks) keep their
+    order."""
+    lcfg = cfg.loss
     g_t, g_v = M.merge_global_features(model, text_feat, video_feat, t_mask,
                                        v_mask, noise)
     s_global = M.global_level(model, g_t, g_v)
@@ -177,34 +183,7 @@ def compute_losses(model: M.NeighborRetr, cfg: Config,
     centrality_loss = 0.5 * (
         hubness.centrality_weighting_loss(s_local * scale, t_w)
         + hubness.centrality_weighting_loss(s_local.T * scale, v_w))
-
-    # neighbor adjusting against the memory bank: the bank matrices feed the
-    # loss only through a mean over the bank axis, which the centrality
-    # kernel computes without building them
-    if M.bank_fusion_supported(mcfg):
-        cent_t = M.bank_centrality(model, text_feat, bank.feat_v, t_mask,
-                                   bank.mask_v, axis=1,
-                                   sim_dtype=mcfg.sim_dtype,
-                                   kernels=sim_kernels)
-        cent_v = M.bank_centrality(model, bank.feat_t, video_feat, bank.mask_t,
-                                   v_mask, axis=0,
-                                   sim_dtype=mcfg.sim_dtype,
-                                   kernels=sim_kernels)
-        neighbor_loss = 0.5 * (
-            hubness.neighbor_adjusting_loss_from_centrality(
-                s_local, cent_v, lcfg.num_neighbors, lcfg.temperature)
-            + hubness.neighbor_adjusting_loss_from_centrality(
-                s_local.T, cent_t, lcfg.num_neighbors, lcfg.temperature))
-    else:
-        bank_t2v = M.local_similarity(model, text_feat, bank.feat_v, t_mask,
-                                      bank.mask_v, sim_kernels)
-        bank_v2t = M.local_similarity(model, bank.feat_t, video_feat,
-                                      bank.mask_t, v_mask, sim_kernels).T
-        neighbor_loss = 0.5 * (
-            hubness.neighbor_adjusting_loss(
-                s_local, bank_v2t, lcfg.num_neighbors, lcfg.temperature)
-            + hubness.neighbor_adjusting_loss(
-                s_local.T, bank_t2v, lcfg.num_neighbors, lcfg.temperature))
+    neighbor_loss = neighbor_loss_fn()
 
     total = (centrality_loss + uniform_loss * lcfg.uniform_weight
              + neighbor_loss * lcfg.neighbor_weight
@@ -219,8 +198,79 @@ def compute_losses(model: M.NeighborRetr, cfg: Config,
     return total, aux
 
 
+def compute_losses(model: M.NeighborRetr, cfg: Config,
+                   batch: Dict[str, torch.Tensor], bank: MemoryBank,
+                   noise=None, kernels: bool = True, features=None,
+                   mesh: Optional[pmesh.DataGroup] = None
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Global-batch loss → (total, aux with every term and the fresh
+    features).  noise: `models.neighborretr.draw_cluster_noise`'s draws, or
+    None for deterministic clustering.  features: the batch's (text, video)
+    features where the caller has encoded them already (micro-batching);
+    otherwise the towers run here, in `train.micro_batches` slices.  With a
+    data group, `batch` and `features` are this rank's rows and are
+    gathered (differentiably) before the loss: the gathered form."""
+    mcfg, lcfg = cfg.model, cfg.loss
+    if features is not None:
+        text_feat, video_feat = features
+    elif cfg.train.micro_batches > 1:
+        text_feat, video_feat = _encode_microbatches(
+            model, batch, cfg.train.micro_batches, kernels)
+    else:
+        text_feat, video_feat = model.get_text_video_feat(
+            batch["text_ids"], batch["text_mask"], batch["video"],
+            batch["video_mask"], kernels)
+    t_mask = batch["text_mask"].float()
+    v_mask = batch["video_mask"].float()
+    if mesh is not None:
+        text_feat, video_feat, t_mask, v_mask = (
+            pmesh.all_gather(x, mesh)
+            for x in (text_feat, video_feat, t_mask, v_mask))
+
+    # in-batch local similarity: the plain form at the short shapes; the
+    # long-token shapes (T·V >= 2048) run the blocked kernel
+    # use_pallas="off": the plain forms of the similarity family throughout
+    sim_kernels = M.similarity_kernels(mcfg, kernels)
+    long_tokens = text_feat.shape[1] * video_feat.shape[1] >= 2048
+    s_local = M.local_similarity(model, text_feat, video_feat, t_mask, v_mask,
+                                 kernels=sim_kernels and long_tokens)
+
+    # neighbor adjusting against the memory bank: the bank matrices feed the
+    # loss only through a mean over the bank axis, which the centrality
+    # kernel computes without building them
+    def neighbor_loss():
+        if M.bank_fusion_supported(mcfg):
+            cent_t = M.bank_centrality(model, text_feat, bank.feat_v, t_mask,
+                                       bank.mask_v, axis=1,
+                                       sim_dtype=mcfg.sim_dtype,
+                                       kernels=sim_kernels)
+            cent_v = M.bank_centrality(model, bank.feat_t, video_feat,
+                                       bank.mask_t, v_mask, axis=0,
+                                       sim_dtype=mcfg.sim_dtype,
+                                       kernels=sim_kernels)
+            return 0.5 * (
+                hubness.neighbor_adjusting_loss_from_centrality(
+                    s_local, cent_v, lcfg.num_neighbors, lcfg.temperature)
+                + hubness.neighbor_adjusting_loss_from_centrality(
+                    s_local.T, cent_t, lcfg.num_neighbors, lcfg.temperature))
+        bank_t2v = M.local_similarity(model, text_feat, bank.feat_v, t_mask,
+                                      bank.mask_v, sim_kernels)
+        bank_v2t = M.local_similarity(model, bank.feat_t, video_feat,
+                                      bank.mask_t, v_mask, sim_kernels).T
+        return 0.5 * (
+            hubness.neighbor_adjusting_loss(
+                s_local, bank_v2t, lcfg.num_neighbors, lcfg.temperature)
+            + hubness.neighbor_adjusting_loss(
+                s_local.T, bank_t2v, lcfg.num_neighbors, lcfg.temperature))
+
+    return composed_losses(model, cfg, text_feat, video_feat, t_mask, v_mask,
+                           s_local, noise, neighbor_loss)
+
+
 def _microbatched_backward(model, cfg: Config, batch, bank: MemoryBank, noise,
-                           kernels: bool) -> Dict[str, torch.Tensor]:
+                           kernels: bool,
+                           mesh: Optional[pmesh.DataGroup] = None
+                           ) -> Dict[str, torch.Tensor]:
     """Exact large-batch gradients with the towers' activations of one
     micro-batch at a time (GradCache, Gao et al. 2021; ↔ the JAX package's
     `_microbatched_features`, there a map over checkpointed encodes).  The
@@ -230,13 +280,17 @@ def _microbatched_backward(model, cfg: Config, batch, bank: MemoryBank, noise,
     gradients of everything behind the towers); pass 2 encodes each
     micro-batch again with a graph and backpropagates its slice of the
     cotangents.  Gradients accumulate in `.grad` and equal the monolithic
-    ones; the price is one extra forward of the towers.  Returns aux."""
+    ones; the price is one extra forward of the towers.  On a data group
+    the micro-batches cut this rank's rows and the leaves are gathered in
+    the loss, so their cotangents come back through the gather's backward
+    (summed over ranks), as in the form without micro-batches.  Returns
+    aux."""
     n = cfg.train.micro_batches
     with torch.no_grad():
         feats = _encode_microbatches(model, batch, n, kernels)
     leaves = tuple(f.requires_grad_(True) for f in feats)
     total, aux = compute_losses(model, cfg, batch, bank, noise, kernels,
-                                features=leaves)
+                                features=leaves, mesh=mesh)
     total.backward()
     B = leaves[0].shape[0]
     keys = ("text_ids", "text_mask", "video", "video_mask")
@@ -251,47 +305,60 @@ def _microbatched_backward(model, cfg: Config, batch, bank: MemoryBank, noise,
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor], cfg: Config,
                t_total: int, generator: Optional[torch.Generator] = None,
                kernels: bool = True,
-               augment_generator: Optional[torch.Generator] = None
+               augment_generator: Optional[torch.Generator] = None,
+               mesh: Optional[pmesh.DataGroup] = None
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One optimizer step on `batch` (tensors on the model's device, see
     `to_device`).  `generator` draws the DPC-KNN tie-break noise when
     cfg.model.cluster_noise is set; `augment_generator` the RandAugment
-    draws under data.augment_backend="device" (required there).  Updates
-    the model in place and returns the state with the new optimizer state,
-    bank and step count, and the metrics (every loss term, grad_norm,
-    logit_scale)."""
+    draws under data.augment_backend="device" (required there); on a data
+    group both draw for the global batch, the same on every rank.  `mesh`:
+    the data group (parallel/mesh.py), `batch` then being this rank's rows.
+    Updates the model in place and returns the state with the new optimizer
+    state, bank and step count, and the metrics (every loss term,
+    grad_norm, logit_scale)."""
     model = state.model
     _check_supported(cfg, model)
-    batch = _maybe_device_augment(cfg, batch, augment_generator)
+    if mesh is not None and not mesh.collective:
+        mesh = None          # one process without torch.distributed
+    batch = _maybe_device_augment(cfg, batch, augment_generator, mesh)
     noise = None
     if cfg.model.cluster_noise:
         if generator is None:
             raise ValueError("cfg.model.cluster_noise needs a torch.Generator "
                              "for the DPC-KNN tie-break draws")
-        noise = M.draw_cluster_noise(cfg.model, batch["text_ids"].shape[0],
+        world = mesh.world if mesh is not None else 1
+        noise = M.draw_cluster_noise(cfg.model,
+                                     batch["text_ids"].shape[0] * world,
                                      generator, batch["text_ids"].device)
 
     model.zero_grad(set_to_none=True)
-    if cfg.train.micro_batches > 1:
+    if mesh is not None and mesh.world > 1 and cfg.train.explicit_spmd:
+        from ..parallel.spmd import compute_losses_spmd
+        total, aux = compute_losses_spmd(model, cfg, batch, state.bank, noise,
+                                         mesh, kernels, cfg.train.data_axis)
+        total.backward()
+    elif cfg.train.micro_batches > 1:
         aux = _microbatched_backward(model, cfg, batch, state.bank, noise,
-                                     kernels)
+                                     kernels, mesh)
     else:
         total, aux = compute_losses(model, cfg, batch, state.bank, noise,
-                                    kernels)
+                                    kernels, mesh=mesh)
         total.backward()
 
     params = dict(model.named_parameters())
     # a parameter the loss does not reach (the `*_fc1` nets at one merged
-    # token) has a zero gradient, and is still weight-decayed
-    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
-             for n, p in params.items() if not bertadam.is_frozen(n)}
+    # token) has a zero gradient, and is still weight-decayed; on a data
+    # group every rank gets the mean over the ranks
+    live = {n: p for n, p in params.items() if not bertadam.is_frozen(n)}
+    grads = pmesh.all_reduce_grads(live, mesh or pmesh.DataGroup())
     opt = bertadam.bert_adam_update(grads, state.opt, params, cfg.optim,
                                     t_total)
     M.clamp_logit_scale(model, cfg.loss.max_logit_scale)
 
-    bank = fifo_update(state.bank, batch["idx"].to(torch.int32),
-                       aux.pop("text_feat"), aux.pop("video_feat"),
-                       batch["text_mask"].float(), batch["video_mask"].float())
+    idx, t_mask, v_mask = global_rows(batch, mesh)
+    bank = fifo_update(state.bank, idx, aux.pop("text_feat"),
+                       aux.pop("video_feat"), t_mask, v_mask)
     metrics = dict(aux)
     metrics["grad_norm"] = bertadam.clip_effective_norm(grads)
     metrics["logit_scale"] = M.logit_scale(model).detach()
@@ -304,17 +371,24 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], cfg: Config,
 def fill_bank_step(model: M.NeighborRetr, bank: MemoryBank,
                    batch: Dict[str, torch.Tensor], cfg: Config, offset: int,
                    kernels: bool = True,
-                   augment_generator: Optional[torch.Generator] = None
-                   ) -> MemoryBank:
+                   augment_generator: Optional[torch.Generator] = None,
+                   mesh: Optional[pmesh.DataGroup] = None) -> MemoryBank:
     """Epoch-start bank fill: encode one batch and write it at `offset`.
     With `augment_generator` the batch is augmented first under
-    data.augment_backend="device" (the bank loader is a train loader)."""
+    data.augment_backend="device" (the bank loader is a train loader).  On
+    a data group each rank encodes its rows and the gathered global batch
+    is written, the same on every rank."""
     _check_supported(cfg, model)
+    if mesh is not None and not mesh.collective:
+        mesh = None
     if augment_generator is not None:
-        batch = _maybe_device_augment(cfg, batch, augment_generator)
+        batch = _maybe_device_augment(cfg, batch, augment_generator, mesh)
     text_feat, video_feat = model.get_text_video_feat(
         batch["text_ids"], batch["text_mask"], batch["video"],
         batch["video_mask"], kernels)
-    return write_slice(bank, offset, batch["idx"].to(torch.int32), text_feat,
-                       video_feat, batch["text_mask"].float(),
-                       batch["video_mask"].float())
+    if mesh is not None:
+        text_feat, video_feat = (pmesh.all_gather(x, mesh)
+                                 for x in (text_feat, video_feat))
+    idx, t_mask, v_mask = global_rows(batch, mesh)
+    return write_slice(bank, offset, idx, text_feat, video_feat, t_mask,
+                       v_mask)

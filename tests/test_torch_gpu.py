@@ -1313,7 +1313,7 @@ def test_staged_upload_on_card_equals_one_copy(cuda, rows):
         one = serving.Searcher(model, cfg, idx, _Tok(), query_batch=4)
         staged = serving.Searcher(model, cfg, idx, _Tok(), query_batch=4,
                                   staged_upload_rows=rows)
-        assert torch.equal(one._v_feat, staged._v_feat)
+        assert torch.equal(one._shards[0][1], staged._shards[0][1])
         np.testing.assert_array_equal(one.similarities(SERVE_QUERIES),
                                       staged.similarities(SERVE_QUERIES))
 
@@ -1384,3 +1384,52 @@ def test_bundle_exported_on_card_matches_plain_searcher(cuda, tmp_path):
                 [vid for vid, _ in hits]
             np.testing.assert_allclose(vals[q], [sc for _, sc in hits],
                                        rtol=0, atol=1e-5)
+
+
+def test_all_gather_and_grads_at_world_one_over_nccl(cuda):
+    """The data group's collectives over NCCL at world size 1 (the process
+    group a one-card `--num_devices 1` run starts): the gather is the
+    identity forward and its backward (all-reduce, slice) returns the
+    cotangent; the gradient mean and the stop flag pass through."""
+    import socket
+
+    import torch.distributed as dist
+
+    from neighborretr_tpu_torch.parallel import mesh as pmesh
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = pmesh.make_mesh("cuda")
+        assert mesh.collective and mesh.world == 1 and mesh.device.index == 0
+        x = torch.randn(5, 3, 7, device=cuda, requires_grad=True)
+        c = torch.randn(5, 3, 7, device=cuda)
+        y = pmesh.all_gather(x, mesh)
+        assert torch.equal(y, x) and y.data_ptr() != x.data_ptr()
+        (y * c).sum().backward()
+        assert torch.equal(x.grad, c)
+        p = torch.nn.Parameter(torch.ones(4, device=cuda))
+        p.grad = torch.arange(4.0, device=cuda)
+        g = pmesh.all_reduce_grads({"p": p}, mesh)["p"]
+        assert torch.equal(g, torch.arange(4.0, device=cuda))
+        assert pmesh.any_rank(True, mesh) and not pmesh.any_rank(False, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_searcher_on_card_equals_one_shard(cuda):
+    """301 videos in two shards on the one card (one pad row): scores
+    bit-equal to one shard's, the same top-5, K2 once per shard a call."""
+    from neighborretr_tpu_torch import serving
+    cfg, model, index = _serving_setup(cuda, n_videos=301)
+    one = serving.Searcher(model, cfg, index, _Tok(), query_batch=4)
+    two = serving.Searcher(model, cfg, index, _Tok(), query_batch=4,
+                           devices=[cuda, cuda])
+    before = S.fused_interaction_similarity.launches
+    hits = two.search(SERVE_QUERIES, topk=5)
+    assert S.fused_interaction_similarity.launches - before == 2
+    np.testing.assert_array_equal(two.similarities(SERVE_QUERIES),
+                                  one.similarities(SERVE_QUERIES))
+    assert hits == one.search(SERVE_QUERIES, topk=5)

@@ -524,20 +524,22 @@ def test_index_cli_append(tmp_path):
 
 
 def test_serve_cli(tmp_path):
-    """cli.serve --port 0 on the CPU: the bound address in the log, healthz
-    and a search, POST /reload after an --append, SIGINT exits 0; more than
-    one device exits with the reason."""
+    """cli.serve --port 0 on the CPU, the corpus sharded over two devices
+    (the CPU twice): the bound address in the log, healthz and a search,
+    POST /reload after an --append, SIGINT exits 0; --num_devices 0 exits
+    with the reason."""
     out = str(tmp_path / "idx.npz")
     common = ["--datatype", "synthetic", "--out", out, "--batch_size", "8",
               "--max_frames", "4", "--workers", "0", *TINY]
     assert _cli("index", "--synthetic_size", "6", *common).returncode == 0
-    r = _cli("serve", "--index", out, "--num_devices", "2", *TINY)
-    assert r.returncode != 0 and "one device" in r.stderr
+    r = _cli("serve", "--index", out, "--num_devices", "0", *TINY)
+    assert r.returncode != 0 and "at least one device" in r.stderr
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.Popen(
         [sys.executable, "-m", "neighborretr_tpu_torch.cli.serve", "--index",
          out, "--port", "0", "--query_batch", "2", "--reload_stage_rows",
-         "2", *TINY], cwd=ROOT, env=env, stderr=subprocess.PIPE, text=True)
+         "2", "--num_devices", "2", *TINY], cwd=ROOT, env=env,
+        stderr=subprocess.PIPE, text=True)
     try:
         port = None
         lines = []

@@ -214,8 +214,9 @@ def test_unported_options_raise():
         cfg.model, remat=True, video_chunk_frames=8)))   # ported: checkpoints
     tstep._check_supported(dc.replace(cfg, data=dc.replace(
         cfg.data, augment_backend="device")))    # ported: device RandAugment
-    for section, change in (("train", dict(explicit_spmd=True)),
-                            ("train", dict(pipeline_parallel=2)),
+    tstep._check_supported(dc.replace(cfg, train=dc.replace(
+        cfg.train, explicit_spmd=True)))   # ported: parallel/spmd.py
+    for section, change in (("train", dict(pipeline_parallel=2)),
                             ("train", dict(bank_placement="host")),
                             ("optim", dict(moments_placement="host")),
                             ("train", dict(fsdp=True))):

@@ -6,14 +6,18 @@ steps at 24 words x 12 frames), the long-token trainer (the train CLI at
 serving and the train step again on the `attention_impl="fused"` route, the
 index/search CLIs and rematerialised train steps at ViT-L/14@336px, the
 kernel check of the sublayer without LayerNorm (`fused_attention_sublayer`),
-the flagship trainer under `--augment_backend device`, and the serving
+the flagship trainer under `--augment_backend device`, the serving
 daemon (the index, serve, export and export_checkpoint CLIs, HTTP load
-behind the batching dispatcher, a live reload, the deployment bundle).
+behind the batching dispatcher, a live reload, the deployment bundle),
+data parallelism over torch.distributed, and the input side (an
+OpenAI-layout CLIP archive and encoded clips through the pack, train,
+eval, index and search CLIs).
 
     python3 chip_smoke.py [--profile]
     python3 chip_smoke.py --alone 9 [--seeds S ...]   # phase 9 per seed
     python3 chip_smoke.py --alone 16                  # phase 16
     python3 chip_smoke.py --alone 17                  # phase 17
+    python3 chip_smoke.py --alone 18                  # phase 18
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. device  — requires CUDA; prints the card's name and power limit;
@@ -164,6 +168,21 @@ Phases (each prints its own lines; any failure exits non-zero):
                10,000 videos in two shards on [cuda:0, cuda:0] against one
                shard: top-5 ids and scores, K2 once a shard.  Two ranks on
                one card measure no scale-out.
+ 18. real inputs — the input side at ViT-B/32 width (bf16, depth not cut):
+               a seeded random ViT-B/32 in OpenAI's layout (TorchScript,
+               fp16) as --clip_checkpoint; 64 train videos x 2 captions and
+               16 test videos in MSR-VTT's layout, clips of 12 s at 320 x 240
+               written with cv2; cli.pack_dataset; cli.train (1 epoch, batch
+               32, bank 2 x 32, 12 frames x 24 words, the native host
+               augment) on the packs: model.clip at step 1 equal to the
+               archive, the temporal tower seeded from its text tower,
+               launch counts, finite losses and R@K, step 1 against the
+               plain versions from the same state (cluster ids and
+               neighbour masks replayed); the same epoch decoding the clips
+               (loader wait and ms/step against the packs); cli.eval from
+               best.npz and from the best.pth cli.export_checkpoint writes
+               of it (equal R@K); cli.index of the test split and a
+               cli.search query, with launch counts.
 The line before the last is a JSON object with, for each kernel, its
 launches on each main path (all eleven counts are set to 0 before each path
 and read after it; phase 16's path is its in-process load, (b)), error, times and roofline bound; the last line is the
@@ -3255,13 +3274,403 @@ def phase_data_parallel(card: str, train_ms=None, train_peak=None):
     return paths
 
 
+# phase 18: real inputs.  MSR-VTT's layout at the recipe's widths: 64 train
+# videos x 2 captions (4 steps at batch 32), 16 test videos, clips of 12 s
+# at 320 x 240 written with cv2 (mp4v); a seeded random ViT-B/32 in OpenAI's
+# layout (TorchScript, fp16) as the CLIP checkpoint
+REAL_TRAIN, REAL_TEST, REAL_SECONDS, REAL_FPS = 64, 16, 12, 10
+REAL_SIZE = (320, 240)
+REAL_ARCHIVE_SEED = 18
+REAL_ARGV = [
+    "--datatype", "msrvtt", "--epochs", "1", "--batch_size", "32",
+    "--batch_size_val", "16", "--mb_batch", "2", "--max_frames", "12",
+    "--max_words", "24", "--augment_backend", "native", "--n_display", "1",
+    "--mid_epoch_eval", "0", "--workers", "8", "--seed", "42"]
+REAL_QUERY = "a clip showing scene 70"
+
+
+def _write_real_clip(path: str, seed: int):
+    """An encoded clip of REAL_SECONDS at REAL_SIZE: a per-video gradient
+    and a square of its own colour moving across it."""
+    import cv2
+    w, h = REAL_SIZE
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"),
+                             REAL_FPS, (w, h))
+    if not writer.isOpened():
+        raise SystemExit("cv2 cannot write mp4v here")
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    tint = rng.integers(0, 256, 3).astype(np.float32)
+    base = (0.5 * tint + 0.5 * np.stack(
+        [xx * 255 / w, yy * 255 / h, (xx + yy) * 127 / (w + h)], -1)
+            ).astype(np.uint8)
+    side = int(rng.integers(32, 96))
+    color = rng.integers(0, 256, 3).astype(np.uint8)
+    pos, vel = rng.uniform(0, 1, 2), rng.uniform(-0.03, 0.03, 2)
+    for i in range(REAL_SECONDS * REAL_FPS):
+        x, y = np.abs((pos + vel * i + 1) % 2 - 1)      # bounce in [0, 1]
+        x, y = int(x * (w - side)), int(y * (h - side))
+        frame = base.copy()
+        frame[y:y + side, x:x + side] = color
+        writer.write(frame)
+    writer.release()
+
+
+def _write_msrvtt_tree(root: str):
+    """MSR-VTT's annotation files (train csv, caption json, JSFUSION test
+    csv) and the clips → (anno_path, video_path)."""
+    import concurrent.futures as cf
+    import csv
+    anno, videos = os.path.join(root, "anns"), os.path.join(root, "videos")
+    os.makedirs(anno)
+    os.makedirs(videos)
+    n = REAL_TRAIN + REAL_TEST
+    with cf.ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda i: _write_real_clip(
+            os.path.join(videos, f"video{i}.mp4"), i), range(n)))
+    with open(os.path.join(anno, "MSRVTT_train.9k.csv"), "w",
+              newline="") as f:
+        w = csv.DictWriter(f, fieldnames=["video_id"])
+        w.writeheader()
+        for i in range(REAL_TRAIN):
+            w.writerow({"video_id": f"video{i}"})
+    sentences = []
+    for i in range(REAL_TRAIN):
+        sentences += [{"video_id": f"video{i}",
+                       "caption": f"a square moves across scene {i}"},
+                      {"video_id": f"video{i}",
+                       "caption": f"someone films a coloured block {i}"}]
+    with open(os.path.join(anno, "MSRVTT_data.json"), "w") as f:
+        json.dump({"sentences": sentences}, f)
+    with open(os.path.join(anno, "MSRVTT_JSFUSION_test.csv"), "w",
+              newline="") as f:
+        w = csv.DictWriter(f, fieldnames=["video_id", "sentence"])
+        w.writeheader()
+        for i in range(REAL_TRAIN, n):
+            w.writerow({"video_id": f"video{i}",
+                        "sentence": f"a clip showing scene {i}"})
+    return anno, videos
+
+
+def phase_real_inputs(card: str):
+    """The port's input side at ViT-B/32 width: an OpenAI-layout CLIP
+    archive, encoded clips in MSR-VTT's layout, cli.pack_dataset,
+    cli.train from the archive on the packs, cli.eval from best.npz and
+    from the best.pth cli.export_checkpoint writes of it, cli.index and
+    cli.search → launch counts by path."""
+    print("== phase 18: real inputs (ViT-B/32 width, bf16, an OpenAI-layout "
+          "CLIP archive, encoded MSR-VTT-layout clips)")
+    import io
+    import shutil
+    import tempfile
+
+    from neighborretr_tpu_torch.cli import eval as cli_eval
+    from neighborretr_tpu_torch.cli import export_checkpoint as cli_export
+    from neighborretr_tpu_torch.cli import index as cli_index
+    from neighborretr_tpu_torch.cli import pack_dataset as cli_pack
+    from neighborretr_tpu_torch.cli import search as cli_search
+    from neighborretr_tpu_torch.cli import train as cli
+    from neighborretr_tpu_torch.core.config import ClipConfig
+    from neighborretr_tpu_torch.models.weights_io import NON_PARAMETER_KEYS
+    from neighborretr_tpu_torch.tools import clip_archive as CA
+    from neighborretr_tpu_torch.train import loop as LOOP
+    from neighborretr_tpu_torch.train import memory_bank as MB
+    from neighborretr_tpu_torch.train import step as TS
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_real_")
+    paths = {}
+    try:
+        # 1. the CLIP archive
+        t0 = time.perf_counter()
+        clip = ClipConfig()
+        archive = os.path.join(root, "ViT-B-32-random.pt")
+        CA.save_openai_archive(CA.random_openai_state_dict(
+            clip, REAL_ARCHIVE_SEED), clip, archive)
+        print(f"  ViT-B/32 archive (TorchScript, fp16, seed "
+              f"{REAL_ARCHIVE_SEED}): {os.path.getsize(archive) / 1e6:.1f} "
+              f"MB in {time.perf_counter() - t0:.1f} s")
+        # 2. the clips and annotations
+        t0 = time.perf_counter()
+        anno, videos = _write_msrvtt_tree(root)
+        n_videos = REAL_TRAIN + REAL_TEST
+        mb = sum(os.path.getsize(os.path.join(videos, f))
+                 for f in os.listdir(videos)) / 1e6
+        print(f"  {n_videos} clips of {REAL_SECONDS} s at {REAL_SIZE[0]} x "
+              f"{REAL_SIZE[1]}, {REAL_FPS} fps ({mb:.1f} MB, mp4v) and "
+              f"MSR-VTT's annotation files written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        data = ["--anno_path", anno, "--video_path", videos]
+        # 3. the packs
+        packed = os.path.join(root, "packed")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_pack.main(["--datatype", "msrvtt", *data,
+                                "--output_dir", packed, "--max_frames", "12",
+                                "--resolution", str(clip.image_resolution),
+                                "--workers", "8"])
+        summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+        print(f"  cli.pack_dataset: {summary}")
+        if rc != 0 or summary["packed_clips"] != n_videos or \
+                summary["empty_clips"]:
+            raise SystemExit("pack_dataset did not pack every clip")
+        pack_ms = summary["decode_ms_per_clip_wall"]
+
+        # 4. the train CLI from the archive on the packs
+        argv = REAL_ARGV + data + ["--clip_checkpoint", archive]
+        args = cli.parse_args(argv + ["--output_dir", root])
+        cfg = cli.build_config(args)
+        m, B = cfg.model, cfg.train.batch_size
+        layers = (m.clip.vision_layers + m.clip.transformer_layers
+                  + m.temporal_layers)
+        n_steps = 2 * REAL_TRAIN // B
+        n_fill = min(cfg.train.mb_batch, n_steps)
+        real_step = LOOP.train_step
+
+        def instrumented(rec, first=False):
+            def step(state, batch, *a):
+                log = None
+                if first and state.step == 0:
+                    rec["first"] = dict(
+                        weights={k: v.clone() for k, v
+                                 in state.model.state_dict().items()},
+                        bank=tuple(t.clone() for t in state.bank),
+                        batch={k: v.clone() for k, v in batch.items()},
+                        args=a)
+                    log = rec["first"]["decisions"] = []
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with (decisions(log) if log is not None
+                      else contextlib.nullcontext()):
+                    state, met = real_step(state, batch, *a)
+                torch.cuda.synchronize()
+                rec.setdefault("ms", []).append(
+                    1e3 * (time.perf_counter() - t0))
+                rec.setdefault("metrics", []).append(
+                    {k: v.item() for k, v in met.items()})
+                return state, met
+            return step
+
+        def train(out, rec, first, extra=()):
+            LOOP.train_step = instrumented(rec, first)
+            try:
+                t0 = time.perf_counter()
+                result = cli.main(argv + list(extra) + ["--output_dir", out])
+                rec["s"] = time.perf_counter() - t0
+            finally:
+                LOOP.train_step = real_step
+            with open(os.path.join(out, "metrics.jsonl")) as f:
+                rows = list(map(json.loads, f))
+            rec["waits"] = [r["data_wait_s"] for r in rows
+                            if r["kind"] == "train"]
+            rec["evals"] = [r for r in rows if r["kind"] == "eval"]
+            return result
+
+        run_dir = os.path.join(root, "run")
+        print(f"  cli.train {' '.join(REAL_ARGV)} --clip_checkpoint <archive>"
+              f" --packed_dir <packs>: {n_steps} steps, fill of {n_fill} "
+              f"batches, {layers} attention sublayers per pass")
+        k = {}
+        (state, tracker), counts = counted(lambda: train(
+            run_dir, k, True, ["--packed_dir", packed]))
+        ev = k["evals"]
+        if len(ev) != 1:
+            raise SystemExit("no evaluation row in metrics.jsonl")
+        has_best = os.path.exists(os.path.join(run_dir, "best.npz"))
+        if has_best != (ev[0]["t2v"]["R1"] + ev[0]["v2t"]["R1"] > 0):
+            raise SystemExit("best.npz and the eval's R@1 disagree")
+        n_evals = 1 + has_best
+        want = dict.fromkeys(kernel_wrappers(), 0)
+        want.update({"K1": (n_fill + n_steps + n_evals) * layers,
+                     "K3": n_steps * layers, "K4": 2 * n_steps,
+                     "K5": 2 * n_steps, "K2": n_evals})
+        print(f"  launches in the train run: {counts} (expected {want}: per "
+              f"step K1 = K3 = {layers}, K4 = K5 = 2; per fill or eval batch "
+              f"K1 = {layers}; per evaluation K2 = 1)")
+        if counts != want:
+            raise SystemExit("launch counts do not match the real-input "
+                             "train path")
+        paths["real_inputs_train"] = counts
+        for i, met in enumerate(k["metrics"]):
+            print(f"  step {i + 1}: " + " ".join(f"{n} {v:.5f}"
+                                                  for n, v in met.items()))
+            if not all(np.isfinite(v) for v in met.values()):
+                raise SystemExit(f"non-finite metric at step {i + 1}")
+        if len(k["metrics"]) != n_steps:
+            raise SystemExit(f"the run took {len(k['metrics'])} steps")
+        t2v = ev[0]["t2v"]
+        print(f"  eval: t2v R@1 {t2v['R1']:.2f} R@5 {t2v['R5']:.2f} R@10 "
+              f"{t2v['R10']:.2f}, v2t R@1 {ev[0]['v2t']['R1']:.2f} (random "
+              f"weights, {REAL_TEST} test videos)")
+        if not all(np.isfinite(v) for d in ("t2v", "v2t")
+                   for v in ev[0][d].values()):
+            raise SystemExit("non-finite R@K")
+
+        # the weights the first step started from: the archive's CLIP, the
+        # temporal tower seeded from its text tower
+        first = k["first"]
+        w = first["weights"]
+        arch = torch.jit.load(archive, map_location="cpu").state_dict()
+        worst, n_clip = 0.0, 0
+        for name, t in arch.items():
+            if name in NON_PARAMETER_KEYS:
+                continue
+            got = w["clip." + name].cpu()
+            worst = max(worst, (got - t.float().reshape(got.shape)).abs()
+                        .max().item())
+            n_clip += 1
+        own = sum(1 for n in w if n.startswith("clip."))
+        print(f"  model.clip at step 1 vs the archive read by torch.jit.load"
+              f" (fp16 -> fp32): {n_clip} of {own} tensors, max |diff| "
+              f"{worst:g} (must be 0)")
+        if worst != 0.0 or n_clip != own:
+            raise SystemExit("model.clip is not the archive's CLIP")
+        seeded = all(torch.equal(
+            w[f"transformerClip.resblocks.{i}.{rest}"],
+            w[f"clip.transformer.resblocks.{i}.{rest}"])
+            for i in range(m.temporal_layers)
+            for rest in ("ln_1.weight", "attn.in_proj_weight",
+                         "attn.out_proj.weight", "mlp.c_fc.weight",
+                         "mlp.c_proj.bias", "ln_2.bias"))
+        seeded &= torch.equal(w["frame_position_embeddings.weight"],
+                              w["clip.positional_embedding"])
+        print(f"  temporal tower = the text tower's first "
+              f"{m.temporal_layers} blocks, frame positions = its positional "
+              f"embedding: {seeded}")
+        if not seeded:
+            raise SystemExit("the temporal tower was not seeded from CLIP")
+
+        # step 1 again through the plain versions from the same state, with
+        # the kernel run's cluster ids and neighbour masks (as phase 8)
+        model = state.model
+        model.load_state_dict(first["weights"])
+        st = TS.create_train_state(model, MB.MemoryBank(*first["bank"]))
+        a = list(first["args"])
+        a[2] = (LOOP.step_generator(cfg.train.seed, 0, "cuda")
+                if cfg.model.cluster_noise else None)
+        a[3] = False
+        with decisions([], first["decisions"]):
+            _, met = TS.train_step(st, first["batch"], *a)
+        failed = []
+        for n in LOSS_TERMS + ("grad_norm",):
+            got, ref = k["metrics"][0][n], met[n].item()
+            tol = TRAIN_GRAD_NORM_RTOL[0] if n == "grad_norm" \
+                else TRAIN_LOSS_RTOL
+            rel = abs(got - ref) / max(abs(ref), 1e-6)
+            ok = np.isfinite(ref) and rel <= tol
+            print(f"  step 1 {n}: kernels {got:.6f} plain {ref:.6f} rel "
+                  f"{rel:.3g} (tolerance {tol:g}) {'ok' if ok else 'FAILED'}")
+            if not ok:
+                failed.append(n)
+        if failed:
+            raise SystemExit("step 1 through the kernels disagrees with the "
+                             "plain versions: " + ", ".join(failed))
+        del state, st, model, first, w, k["first"]
+        torch.cuda.empty_cache()
+
+        # the same epoch decoding the clips instead of reading the packs
+        d = {}
+        train(os.path.join(root, "decoded"), d, False)
+        for tag, rec in (("packed", k), ("decoding", d)):
+            print(f"  {tag}: steps "
+                  f"{' / '.join(f'{t:.1f}' for t in rec['ms'])} ms (median "
+                  f"{statistics.median(rec['ms']):.1f}), loader wait before "
+                  f"each step {' / '.join(f'{t:.3f}' for t in rec['waits'])} "
+                  f"s (sum {sum(rec['waits']):.3f}), run {rec['s']:.1f} s on "
+                  f"{card}")
+
+        # 5. eval from best.npz (the epoch's weights: state_epoch0.npz where
+        # the eval found no hit), then from the best.pth exported from it
+        npz = os.path.join(run_dir, "best.npz" if has_best
+                           else "state_epoch0.npz")
+        pth = os.path.join(root, "best.pth")
+        flags = ["--max_words", "24", "--device", "cuda"]
+        common = flags + ["--max_frames", "12"]
+        eval_argv = (["--datatype", "msrvtt", *data, "--packed_dir", packed,
+                      "--batch_size_val", str(REAL_TEST), "--workers", "8"]
+                     + common)
+        t0 = time.perf_counter()
+        from_npz = cli_eval.main(eval_argv + ["--checkpoint", npz])
+        t_eval = time.perf_counter() - t0
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli_export.main(["--checkpoint", npz, "--out", pth] + common)
+        from_pth = cli_eval.main(eval_argv + ["--checkpoint", pth])
+        same = all({n: float(v) for n, v in a_.items()}
+                   == {n: float(v) for n, v in b_.items()}
+                   for a_, b_ in zip(from_npz, from_pth))
+        print(f"  cli.eval from {os.path.basename(npz)}: t2v R@1 "
+              f"{from_npz[0]['R1']:.2f}, v2t R@1 {from_npz[1]['R1']:.2f} "
+              f"({t_eval:.1f} s); from best.pth (cli.export_checkpoint): "
+              f"R@K equal {same}")
+        if not same:
+            raise SystemExit("R@K from best.pth differs from best.npz")
+
+        # 6. the index of the test split and one query
+        idx = os.path.join(root, "index.npz")
+
+        def index_then_search():
+            got = []
+            _, c = counted(lambda: cli_index.main(
+                ["--datatype", "msrvtt", *data,
+                 "--checkpoint", npz, "--out", idx, "--batch_size",
+                 str(REAL_TEST), "--workers", "8"] + common))
+            got.append(c)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                _, c = counted(lambda: cli_search.main(
+                    ["--index", idx, "--checkpoint", npz, "--query",
+                     REAL_QUERY, "--topk", "5"] + flags))
+            got.append(c)
+            return buf.getvalue(), got
+
+        hits, (c_index, c_search) = index_then_search()
+        small = m.clip.vision_layers + m.temporal_layers
+        want_i = dict.fromkeys(kernel_wrappers(), 0)
+        want_i["K1"] = small
+        want_s = dict.fromkeys(kernel_wrappers(), 0)
+        want_s.update({"K1": m.clip.transformer_layers, "K2": 1})
+        print(f"  cli.index ({REAL_TEST} test videos, one batch): {c_index} "
+              f"(expected K1 = {small}); cli.search: {c_search} (expected "
+              f"K1 = {m.clip.transformer_layers}, K2 = 1)")
+        if c_index != want_i or c_search != want_s:
+            raise SystemExit("launch counts do not match cli.index / "
+                             "cli.search")
+        paths["real_inputs_index_search"] = {
+            n: c_index[n] + c_search[n] for n in c_index}
+        scores = [float(ln.rsplit("(", 1)[1].rstrip(")"))
+                  for ln in hits.splitlines() if ln.strip()[:1].isdigit()]
+        print("  " + hits.strip().replace("\n", "\n  "))
+        if len(scores) != 5 or not all(np.isfinite(scores)):
+            raise SystemExit("cli.search did not print 5 finite hits")
+        with np.load(idx) as f:
+            v = f["v_feat"].astype(np.float32)
+            ids = sorted(map(str, f["video_ids"]))
+        if v.shape != (REAL_TEST, 12, m.clip.embed_dim) or \
+                not np.isfinite(v).all() or ids != sorted(
+                    f"video{i}" for i in range(REAL_TRAIN, n_videos)):
+            raise SystemExit("the index does not hold the test split")
+
+        print(f"  pack_dataset {pack_ms:.2f} ms/clip of wall time over 8 "
+              f"decode threads ({8 * pack_ms:.1f} thread-ms/clip); "
+              f"loader wait packed {sum(k['waits']):.3f} s vs decoding "
+              f"{sum(d['waits']):.3f} s per epoch; median step "
+              f"{statistics.median(k['ms']):.1f} ms (packed) / "
+              f"{statistics.median(d['ms']):.1f} ms (decoding) from the .pt "
+              f"start on {card}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"  phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def alone(argv):
     """`--alone 9 [--seeds S ...]`: phase 9 by itself once per generator
-    seed; `--alone 16` / `--alone 17`: phase 16 / 17 by itself.  Prints no
-    JSON lines."""
+    seed; `--alone 16` / `17` / `18`: that phase by itself.  Prints no JSON
+    lines."""
     import argparse
     ap = argparse.ArgumentParser()
-    ap.add_argument("--alone", choices=("9", "16", "17"), required=True)
+    ap.add_argument("--alone", choices=("9", "16", "17", "18"),
+                    required=True)
     ap.add_argument("--seeds", type=int, nargs="+", default=[0])
     args = ap.parse_args(argv)
     card = phase_device()
@@ -3271,6 +3680,9 @@ def alone(argv):
         return
     if args.alone == "17":
         phase_data_parallel(card)
+        return
+    if args.alone == "18":
+        phase_real_inputs(card)
         return
     for seed in args.seeds:
         print(f"-- phase 9 alone, generator seed {seed}")
@@ -3307,6 +3719,7 @@ def main():
     augment_counts, _, _ = phase_augment(card, block_ms)
     daemon_counts = phase_serving_daemon(card)
     dp_counts = phase_data_parallel(card, block_ms, train_peak)
+    real_counts = phase_real_inputs(card)
 
     def kernel(name, source, replaces, launches, row, timed_at, **extra):
         err, ms, plain_ms, bound_ms, bound_by, *library_ms = row
@@ -3329,7 +3742,8 @@ def main():
                 "sublayer_kernel_check": check_counts[k],
                 "augment_trainer": augment_counts[k],
                 "serving_daemon": daemon_counts[k],
-                **{path: c[k] for path, c in dp_counts.items()}}
+                **{path: c[k] for path, c in dp_counts.items()},
+                **{path: c[k] for path, c in real_counts.items()}}
 
     def by_shape(rows):
         return {str(k): list(r[1:]) for k, r in rows.items()}

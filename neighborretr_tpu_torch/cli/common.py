@@ -2,9 +2,13 @@
 (`init_distributed`, `--num_devices` on one host), device, config with the
 --tiny switch, dataset, and weights.
 
-Without --checkpoint the weights are seeded random (weights_io.init_model,
-seed 0, so an index built that way verifies in a search that way); nothing
-is downloaded.
+Weights: seeded random (weights_io.init_model, seed 0, so an index built
+that way verifies in a search that way), then an OpenAI CLIP checkpoint
+(`--clip_checkpoint`), then a trained checkpoint (`--checkpoint`: either
+package's npz or a reference-trained torch file).  Only a CLI that reads a
+file-based dataset fetches the published CLIP weights for
+`--base_encoder`, and only when nothing else supplies the weights
+(`resolve_clip_checkpoint`); `--clip_checkpoint random` opts out.
 """
 
 from __future__ import annotations
@@ -153,7 +157,15 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--base_encoder", default="ViT-B/32",
                    choices=list(ClipConfig.backbone_names()))
     p.add_argument("--checkpoint", default=None,
-                   help="the JAX package's best.npz / state_epochN.npz")
+                   help="trained weights: either package's best.npz / "
+                        "state_epochN.npz, or a reference-trained torch "
+                        "checkpoint (best.pth)")
+    p.add_argument("--clip_checkpoint", default=None,
+                   help="an OpenAI CLIP .pt loaded before --checkpoint; "
+                        "'random' = seeded random weights.  Omitted on a "
+                        "file-based dataset without --checkpoint or --tiny: "
+                        "the published weights of --base_encoder, fetched "
+                        "once into the cache")
     p.add_argument("--max_words", type=int, default=24)
     p.add_argument("--num_hidden_layers", type=int, default=4,
                    help="temporal transformer depth (must match the "
@@ -164,6 +176,39 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--video_chunk_frames", type=int, default=0,
                    help="run the vision tower on N frames at a time; 0 = "
                         "off")
+
+
+def resolve_clip_checkpoint(args, weights_already_supplied: bool) -> None:
+    """--clip_checkpoint resolution for every CLI (↔ cli/common.py::
+    resolve_clip_checkpoint).  'random' → None (seeded random weights).
+    Omitted → the published OpenAI checkpoint of --base_encoder
+    (models/fetch.py) when the CLI reads a file-based dataset, is not
+    --tiny, and no other file supplies every weight (a --resume state or a
+    trained --checkpoint).  The index-driven CLIs (search, serve, export)
+    name no dataset and keep the seeded random weights, which an index
+    built without a checkpoint was encoded with."""
+    if args.clip_checkpoint == "random":
+        # the explicit choice: tiny_requested must not take it for an
+        # omitted flag (a full-size model with random weights stays
+        # reachable)
+        args._explicit_random_clip = True
+        args.clip_checkpoint = None
+        return
+    if (args.clip_checkpoint is None and not weights_already_supplied
+            and getattr(args, "datatype", "synthetic") != "synthetic"
+            and not getattr(args, "tiny", False)):
+        from ..models.fetch import ensure_clip_checkpoint
+        args.clip_checkpoint = ensure_clip_checkpoint(args.base_encoder)
+
+
+def tiny_requested(args) -> bool:
+    """--tiny, or implied by synthetic data with --clip_checkpoint omitted
+    (↔ cli/common.py::tiny_requested): `--clip_checkpoint random` asks for
+    the full-size model with random weights, not for a smoke run."""
+    return bool(getattr(args, "tiny", False) or (
+        getattr(args, "datatype", None) == "synthetic"
+        and args.clip_checkpoint is None
+        and not getattr(args, "_explicit_random_clip", False)))
 
 
 def resolve_device(name: str) -> torch.device:
@@ -209,26 +254,41 @@ def build_dataset(args, cfg: Config):
                          args.anno_path, args.video_path, ClipTokenizer(),
                          max_words=m.max_words, max_frames=m.max_frames,
                          resolution=m.clip.image_resolution,
-                         video_framerate=args.video_framerate)
+                         video_framerate=args.video_framerate,
+                         packed_dir=getattr(args, "packed_dir", ""))
 
 
 def load_model(args, cfg: Config, device: torch.device, logger):
+    """init → the OpenAI CLIP weights, if any → the trained --checkpoint,
+    if any (↔ cli/common.py::load_eval_params)."""
     from ..models import weights_io
     from ..models.neighborretr import resolve_fused_attention
     # an --attention_impl the configuration cannot serve fails here
     resolve_fused_attention(cfg.model, device)
+    resolve_clip_checkpoint(args,
+                            weights_already_supplied=bool(args.checkpoint))
+    model = weights_io.init_model(cfg.model, RANDOM_WEIGHTS_SEED, device)
+    if args.clip_checkpoint:
+        weights_io.load_openai_clip_into(model, args.clip_checkpoint)
+        logger.info("Loaded CLIP weights from %s", args.clip_checkpoint)
     if args.checkpoint:
-        model = weights_io.load_checkpoint(args.checkpoint, cfg.model, device)
+        weights_io.load_model_checkpoint(model, args.checkpoint)
         logger.info("Loaded checkpoint %s", args.checkpoint)
-    else:
-        model = weights_io.init_model(cfg.model, RANDOM_WEIGHTS_SEED, device)
+    elif not args.clip_checkpoint:
         logger.info("No --checkpoint: using seeded random weights (seed %d)",
                     RANDOM_WEIGHTS_SEED)
     return model
 
 
 def checkpoint_vocab(path: str) -> int:
-    """Token-table size of a JAX package checkpoint (both npz layouts)."""
+    """Token-table size of a checkpoint: either package's npz (both
+    layouts) or a reference-trained torch file."""
+    if not path.endswith(".npz"):
+        from ..models.weights_io import read_torch_state_dict
+        sd = read_torch_state_dict(path)
+        if "clip.token_embedding.weight" not in sd:
+            raise SystemExit(f"{path}: no clip.token_embedding.weight entry")
+        return int(sd["clip.token_embedding.weight"].shape[0])
     with np.load(path, allow_pickle=False) as ckpt:
         for key in ("clip//text//token_embedding",
                     "params//clip//text//token_embedding"):

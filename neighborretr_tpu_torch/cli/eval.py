@@ -32,6 +32,9 @@ def main(argv=None):
                         "max(32, batch_size_val))")
     p.add_argument("--max_frames", type=int, default=12)
     p.add_argument("--video_framerate", type=int, default=1)
+    p.add_argument("--packed_dir", default="",
+                   help="read clips packed by cli.pack_dataset (decode "
+                        "the videos when empty)")
     p.add_argument("--workers", type=int, default=8)
     p.add_argument("--worker_mode", choices=["thread", "process"],
                    default="thread")

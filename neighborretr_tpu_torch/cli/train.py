@@ -1,14 +1,20 @@
 """Training CLI of the port (↔ cli/train.py).
 
     python -m neighborretr_tpu_torch.cli.train --datatype msrvtt \\
-        --anno_path ... --video_path ... --init_checkpoint clip.npz \\
+        --anno_path ... --video_path ... --clip_checkpoint ViT-B-32.pt \\
         --output_dir outputs/msrvtt
 
 The flags are the JAX CLI's, for everything the port supports, plus
 `--device` (cuda by default; the plain versions run under `--device cpu`).
-`--datatype synthetic` trains on generated data: tiny towers unless
-`--clip_checkpoint random` asks for the full-size model with seeded random
-weights.  A flag for an option that is not ported exits with the reason.
+The towers start from an OpenAI CLIP checkpoint (`--clip_checkpoint`; left
+out on a file-based dataset, the published one of `--base_encoder` is
+fetched into the cache unless `--resume` supplies the weights), then
+`--init_checkpoint` warm-starts from either package's npz or a
+reference-trained `best.pth` (strict=False).  `--datatype synthetic`
+trains on generated data: tiny towers unless `--clip_checkpoint random`
+asks for the full-size model with seeded random weights.  `--packed_dir`
+reads clips packed by `neighborretr_tpu_torch.cli.pack_dataset`.  A flag
+for an option that is not ported exits with the reason.
 Checkpoints (`best.npz`, `state_epochN.npz`, `state_preempt.npz`, and the
 sharded preempt set of a multi-process run) are in the JAX package's npz
 layout and resume in either package.
@@ -25,11 +31,13 @@ from __future__ import annotations
 
 import argparse
 import dataclasses as dc
+import os
 
 from ..core.config import (ClipConfig, Config, DataConfig, LossConfig,
                            ModelConfig, OptimizerConfig, TrainConfig, validate)
 from .common import (add_attention_impl_arg, add_distributed_args,
-                     init_distributed, ranks_on_this_host, resolve_device)
+                     init_distributed, ranks_on_this_host,
+                     resolve_clip_checkpoint, resolve_device, tiny_requested)
 
 # flags the JAX CLI has and the port does not honour yet: asking for one
 # (a value other than the default shown) exits
@@ -53,15 +61,18 @@ def parse_args(argv=None):
     p.add_argument("--base_encoder", default="ViT-B/32",
                    choices=list(ClipConfig.backbone_names()))
     p.add_argument("--clip_checkpoint", default=None,
-                   help="'random' = the full-size model with seeded random "
-                        "weights; loading an OpenAI .pt is not ported (start "
-                        "from an --init_checkpoint npz instead)")
+                   help="OpenAI CLIP .pt (TorchScript or state dict) to "
+                        "start the towers from; 'random' = the full-size "
+                        "model with seeded random weights; omitted on a "
+                        "file-based dataset: the published weights of "
+                        "--base_encoder, fetched once into the cache")
     p.add_argument("--tiny", action="store_true",
                    help="tiny towers for smoke runs (also implied by "
                         "--datatype synthetic without --clip_checkpoint)")
     p.add_argument("--init_checkpoint", default=None,
-                   help="npz of either package to warm-start from "
-                        "(strict=False)")
+                   help="warm start after the CLIP weights (strict=False): "
+                        "either package's npz, or a reference-trained "
+                        "torch checkpoint (best.pth)")
     p.add_argument("--resume", "--resume_checkpoint", default=None,
                    dest="resume_checkpoint",
                    help="state_epochN.npz / state_preempt.npz to resume from, "
@@ -157,8 +168,6 @@ def parse_args(argv=None):
 def check_ported(args) -> None:
     asked = [f"--{k}" for k, default in UNPORTED.items()
              if getattr(args, k) != default]
-    if args.clip_checkpoint not in (None, "random"):
-        asked.append("--clip_checkpoint <file>")
     if asked:
         raise SystemExit(str(NotImplementedError(
             "not ported to PyTorch yet: " + ", ".join(asked))))
@@ -167,9 +176,7 @@ def check_ported(args) -> None:
 def build_config(args) -> Config:
     """Config from the flags; tiny towers (fp32) under --tiny, or when the
     data is synthetic and --clip_checkpoint was left out."""
-    tiny = args.tiny or (args.datatype == "synthetic"
-                         and args.clip_checkpoint is None)
-    if tiny:
+    if tiny_requested(args):
         model = ModelConfig.tiny(max_words=args.max_words,
                                  max_frames=args.max_frames,
                                  temporal_layers=args.num_hidden_layers)
@@ -216,6 +223,9 @@ def build_config(args) -> Config:
                           n_display=args.n_display,
                           output_dir=args.output_dir,
                           init_checkpoint=args.init_checkpoint,
+                          clip_checkpoint=(None if args.clip_checkpoint
+                                           == "random"
+                                           else args.clip_checkpoint),
                           resume_checkpoint=args.resume_checkpoint,
                           profile_dir=args.profile_dir,
                           micro_batches=args.micro_batches,
@@ -258,6 +268,11 @@ def main(argv=None):
     group, this rank's."""
     args = parse_args(argv)
     check_ported(args)
+    # a missing CLIP file fails before the output directory is written
+    if args.clip_checkpoint not in (None, "random") and \
+            not os.path.isfile(args.clip_checkpoint):
+        raise SystemExit(f"--clip_checkpoint {args.clip_checkpoint}: no such "
+                         "file")
     resolve_device(args.device)
     world = args.num_devices or args.num_processes or 1
     if args.num_devices and args.num_processes and \
@@ -295,12 +310,11 @@ def _run(args):
             f"resuming from {args.resume_checkpoint}"
             if args.resume_checkpoint
             else "no resumable state in output_dir, starting fresh")
-    if (args.clip_checkpoint is None and args.datatype != "synthetic"
-            and not args.tiny and not args.init_checkpoint
-            and not args.resume_checkpoint):
-        raise SystemExit(str(NotImplementedError(
-            "not ported to PyTorch yet: fetching the published CLIP weights; "
-            "pass --init_checkpoint <npz>, or --clip_checkpoint random")))
+    # a --resume state restores every weight, so it suppresses the fetch;
+    # an --init_checkpoint does not (the reference's --init_model is a
+    # partial load over CLIP-initialised towers, main.py:60-66)
+    resolve_clip_checkpoint(
+        args, weights_already_supplied=bool(args.resume_checkpoint))
 
     cfg = build_config(args)
     # an --attention_impl the configuration cannot serve fails here

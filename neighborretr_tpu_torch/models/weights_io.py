@@ -11,22 +11,34 @@ back: the port's state dict as the JAX package's pytree (numpy leaves), so
 a test can compare every tensor after training steps in both packages.
 `save_reference_checkpoint` writes the port's weights as the reference's
 torch state dict (↔ weights_io.save_reference_checkpoint).
+
+The readers take the published formats: an OpenAI CLIP archive (a
+TorchScript `.pt` or a plain `torch.save` dict, fp16 or fp32) through
+`load_openai_clip_into`, whose architecture is sniffed from the tensors'
+shapes (the reference's modeling.py:88-101), and a reference-trained
+`best.pth` through `load_reference_checkpoint_into`; `load_model_checkpoint`
+dispatches a `--checkpoint` / `--init_checkpoint` by its file: `.npz` is
+the JAX package's layout, anything else the reference's.
 """
 
 from __future__ import annotations
 
+import os
 import zlib
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
-from ..core.config import ModelConfig
+from ..core.config import ClipConfig, ModelConfig
 
 from .neighborretr import NeighborRetr, seed_temporal_from_clip
 
 Tree = Dict[str, Any]
 _SEP = "//"   # the JAX package's flat npz key separator
+# entries of an OpenAI archive that are not parameters (OpenAI's own loader,
+# clip.py::build_model, deletes them before load_state_dict)
+NON_PARAMETER_KEYS = ("input_resolution", "context_length", "vocab_size")
 WEIGHT_NETS = ("text_weight_fc", "video_weight_fc", "text_weight_fc1",
                "video_weight_fc1")
 
@@ -351,3 +363,118 @@ def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> NeighborRetr:
                 lin.bias.zero_()
     seed_temporal_from_clip(model)
     return model.eval().requires_grad_(False)
+
+
+def read_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A torch checkpoint's tensors as fp32 on the CPU: a TorchScript
+    archive (OpenAI's published `.pt`) or a `torch.save` dict (a reference
+    `best.pth`, the JAX exporter's file).  OpenAI's archives hold fp16; the
+    entries that are not parameters are dropped."""
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no checkpoint file {path!r}")
+    try:
+        sd = torch.jit.load(path, map_location="cpu").state_dict()
+    except RuntimeError:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {k: v.detach().to("cpu", torch.float32) for k, v in sd.items()
+            if k not in NON_PARAMETER_KEYS}
+
+
+def sniff_clip_config(sd) -> ClipConfig:
+    """Architecture dims from a CLIP state dict's shapes (modeling.py:88-101;
+    ↔ weights_io.sniff_clip_config)."""
+    vision_patch_size = sd["visual.conv1.weight"].shape[-1]
+    grid_size = round((sd["visual.positional_embedding"].shape[0] - 1) ** 0.5)
+    return ClipConfig(
+        embed_dim=sd["text_projection"].shape[1],
+        image_resolution=vision_patch_size * grid_size,
+        vision_layers=len([k for k in sd if k.startswith("visual.")
+                           and k.endswith(".attn.in_proj_weight")]),
+        vision_width=sd["visual.conv1.weight"].shape[0],
+        vision_patch_size=vision_patch_size,
+        context_length=sd["positional_embedding"].shape[0],
+        vocab_size=sd["token_embedding.weight"].shape[0],
+        transformer_width=sd["ln_final.weight"].shape[0],
+        transformer_layers=len({k.split(".")[2] for k in sd
+                                if k.startswith("transformer.resblocks")}),
+    )
+
+
+def _load_exactly(module: torch.nn.Module, sd) -> None:
+    """Copy `sd` into every tensor of `module`'s state dict; a key of the
+    module missing from `sd` raises, keys of `sd` the module lacks are
+    ignored.  A tensor of the same size in another shape (logit_scale, 0-d
+    here and [1] in an exported file) is reshaped."""
+    own = module.state_dict()
+    missing = [k for k in own if k not in sd]
+    if missing:
+        raise KeyError(f"checkpoint lacks {len(missing)} tensor(s) of the "
+                       f"model: {', '.join(missing[:8])}"
+                       + (" ..." if len(missing) > 8 else ""))
+    module.load_state_dict({k: sd[k].reshape(v.shape) for k, v in own.items()},
+                           strict=True)
+
+
+def load_openai_clip_into(model: NeighborRetr, path: str) -> NeighborRetr:
+    """An OpenAI CLIP checkpoint into `model.clip`, in place, then the
+    temporal tower and frame positions re-seeded from the loaded text tower
+    (↔ weights_io.load_openai_clip_into)."""
+    sd = read_torch_state_dict(path)
+    sniffed = sniff_clip_config(sd)
+    if sniffed != model.cfg.clip:
+        raise ValueError(f"checkpoint architecture {sniffed} != configured "
+                         f"{model.cfg.clip}")
+    _load_exactly(model.clip, sd)
+    return seed_temporal_from_clip(model)
+
+
+def load_reference_checkpoint_into(model: NeighborRetr,
+                                   path: str) -> NeighborRetr:
+    """A reference-trained full-model checkpoint (`best.pth` /
+    `pytorch_model.bin.*`, main.py:161-187) into `model`, in place
+    (↔ weights_io.load_reference_checkpoint_into): CLIP, the temporal
+    tower, the four weighting nets and the merge stacks.  The reference's
+    dead weighting nets (*_fc0 / *_intra) and its mb_* buffers are
+    ignored."""
+    sd = read_torch_state_dict(path)
+    clip_sd = {k[len("clip."):]: v for k, v in sd.items()
+               if k.startswith("clip.")}
+    if not clip_sd:
+        raise ValueError(
+            f"{path!r} is not a reference NeighborRetr checkpoint (no "
+            f"'clip.'-prefixed keys).  A bare OpenAI CLIP backbone (.pt) "
+            f"goes through --clip_checkpoint, not the model-checkpoint flag.")
+    sniffed = sniff_clip_config(clip_sd)
+    if sniffed != model.cfg.clip:
+        raise ValueError(
+            f"reference checkpoint {path!r} is a different architecture "
+            f"than --base_encoder: checkpoint {sniffed} != configured "
+            f"{model.cfg.clip}")
+    _load_exactly(model, sd)
+    return model
+
+
+def load_model_checkpoint(model: NeighborRetr, path: str, strict: bool = True,
+                          logger=None) -> NeighborRetr:
+    """One dispatch for model checkpoints across the CLIs, in place
+    (↔ weights_io.load_model_checkpoint_into): an `.npz` of either package
+    (best.npz, or a train-state file whose params are taken), else a
+    reference-trained torch checkpoint.  strict=False is the warm start
+    (the reference's --init_model): an npz loads what matches and the diff
+    is logged."""
+    if not path.endswith(".npz"):
+        return load_reference_checkpoint_into(model, path)
+    from ..core import checkpoint as ckpt
+    if strict:
+        ckpt.load_tree_into_model(model, read_npz_params(path))
+        return model
+    tree, report = ckpt.load_params(path, ckpt.params_tree(model),
+                                    strict=False)
+    ckpt.load_tree_into_model(model, tree)
+    if logger is not None:
+        for kind, names in report.items():
+            if names:
+                logger.info("  warm-start %s leaves (%d): %s", kind,
+                            len(names), ", ".join(names[:8])
+                            + (" ..." if len(names) > 8 else ""))
+    return model

@@ -2,6 +2,11 @@
 (↔ neighborretr_tpu/train/loop.py), on one device or on a data group of
 one process per device (parallel/mesh.py).
 
+The weights start seeded random, then take the OpenAI CLIP checkpoint of
+`train.clip_checkpoint` (the temporal tower re-seeded from its text tower),
+then the `train.init_checkpoint` warm start (strict=False: either package's
+npz, or a reference-trained torch checkpoint), as in the JAX loop.
+
 Per epoch the memory bank is re-filled from `mb_batch` training batches
 over an empty bank, the train epoch runs with loss logging every `n_display`
 steps and a mid-epoch validation every `n_display*3` steps (and after the
@@ -148,11 +153,6 @@ def run_training(cfg: Config, train_ds, test_ds, logger=None, device=None,
     logger = logger or setup_logger(output_dir=cfg.train.output_dir,
                                     is_main=main)
     workers = workers if workers is not None else cfg.data.workers
-    if cfg.train.clip_checkpoint:
-        raise NotImplementedError(
-            "not ported to PyTorch yet: loading an OpenAI CLIP checkpoint "
-            "(train.clip_checkpoint); start from seeded random weights or an "
-            "--init_checkpoint npz")
 
     mode = dict(worker_mode=cfg.data.worker_mode, process_index=mesh.rank,
                 process_count=mesh.world)
@@ -171,16 +171,15 @@ def run_training(cfg: Config, train_ds, test_ds, logger=None, device=None,
 
     model = weights_io.init_model(cfg.model, cfg.train.seed, device)
     pmesh.place_params(model, mesh, fsdp=cfg.train.fsdp)
+    if cfg.train.clip_checkpoint:
+        weights_io.load_openai_clip_into(model, cfg.train.clip_checkpoint)
+        logger.info("Loaded CLIP weights from %s", cfg.train.clip_checkpoint)
     if cfg.train.init_checkpoint:
-        # strict=False warm start from either package's npz
-        tree, report = ckpt.load_params(cfg.train.init_checkpoint,
-                                        ckpt.params_tree(model), strict=False)
-        ckpt.load_tree_into_model(model, tree)
-        for kind, names in report.items():
-            if names:
-                logger.info("init_checkpoint %s leaves (%d): %s", kind,
-                            len(names), ", ".join(names[:8])
-                            + (" ..." if len(names) > 8 else ""))
+        # strict=False warm start (the reference's --init_model,
+        # main.py:60-66): an npz loads partially with the diff logged, a
+        # torch checkpoint takes the reference path
+        weights_io.load_model_checkpoint(model, cfg.train.init_checkpoint,
+                                         strict=False, logger=logger)
         logger.info("Warm-started from %s", cfg.train.init_checkpoint)
 
     state = create_train_state(model, _empty_bank(cfg, device),

@@ -1433,3 +1433,27 @@ def test_sharded_searcher_on_card_equals_one_shard(cuda):
     np.testing.assert_array_equal(two.similarities(SERVE_QUERIES),
                                   one.similarities(SERVE_QUERIES))
     assert hits == one.search(SERVE_QUERIES, topk=5)
+
+
+@pytest.mark.parametrize("torchscript", [True, False])
+def test_openai_archive_loads_on_the_card(cuda, tmp_path, torchscript):
+    """An fp16 OpenAI-layout archive read onto a model on the card: the
+    CLIP and the temporal tower it seeds equal the load on the CPU."""
+    from neighborretr_tpu_torch.core.config import ClipConfig, ModelConfig
+    from neighborretr_tpu_torch.models import weights_io as W
+    from neighborretr_tpu_torch.tools import clip_archive as CA
+    c = ClipConfig.tiny()
+    path = str(tmp_path / "clip.pt")
+    CA.save_openai_archive(CA.random_openai_state_dict(c, seed=3), c, path,
+                           torchscript=torchscript)
+    cfg = ModelConfig.tiny()
+    on_card = W.load_openai_clip_into(W.init_model(cfg, device=cuda), path)
+    on_cpu = W.load_openai_clip_into(W.init_model(cfg), path)
+    want = on_cpu.state_dict()
+    loaded = [n for n in want if n.startswith(
+        ("clip.", "transformerClip.", "frame_position_embeddings."))]
+    assert len(loaded) > len(on_cpu.clip.state_dict())
+    for name in loaded:
+        got = on_card.state_dict()[name]
+        assert got.device.type == "cuda" and got.dtype == torch.float32
+        assert torch.equal(got.cpu(), want[name]), name

@@ -201,7 +201,7 @@ def test_preemption_during_the_first_epoch_and_unported_checkpoint(
         tmp_path, monkeypatch):
     """SIGTERM after step 1: a resumable state_preempt.npz, no final test;
     the resumed run takes the remaining steps.  A CLIP checkpoint in the
-    config raises."""
+    config is read: a missing file raises."""
     data = datasets(TSyntheticDataset)
     out = out_dir(tmp_path, "preempt")
     real = interrupt_after(monkeypatch, 1)
@@ -219,7 +219,7 @@ def test_preemption_during_the_first_epoch_and_unported_checkpoint(
     log = open(os.path.join(out, "log.txt")).read()
     assert "exact mid-epoch resume at batch 1/2" in log
     assert "Final test on best checkpoint" in log
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(FileNotFoundError, match="ViT-B-32.pt"):
         tloop.run_training(make_config(tc, out, clip_checkpoint="ViT-B-32.pt"),
                            *data, device="cpu")
 
@@ -273,11 +273,14 @@ def test_train_cli_refuses_unported_options_and_missing_gpu(tmp_path):
     out = str(tmp_path / "refused")
     for flags, word in ((["--fsdp"], "--fsdp"),
                         (["--tensor_parallel", "2"], "--tensor_parallel"),
-                        (["--bank_placement", "host"], "bank_placement"),
-                        (["--clip_checkpoint", "ViT-B-32.pt"], "clip_checkpoint")):
+                        (["--bank_placement", "host"], "bank_placement")):
         done = run_cli("--output_dir", out, *flags)
         assert done.returncode != 0
         assert "not ported to PyTorch yet" in done.stderr and word in done.stderr
+    # a CLIP checkpoint is read now; a missing one fails before any output
+    done = run_cli("--output_dir", out, "--clip_checkpoint", "ViT-B-32.pt")
+    assert done.returncode != 0
+    assert "--clip_checkpoint ViT-B-32.pt: no such file" in done.stderr
     assert not os.path.exists(out)
     if not torch.cuda.is_available():
         no_gpu = subprocess.run(

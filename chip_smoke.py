@@ -9,15 +9,18 @@ kernel check of the sublayer without LayerNorm (`fused_attention_sublayer`),
 the flagship trainer under `--augment_backend device`, the serving
 daemon (the index, serve, export and export_checkpoint CLIs, HTTP load
 behind the batching dispatcher, a live reload, the deployment bundle),
-data parallelism over torch.distributed, and the input side (an
+data parallelism over torch.distributed, the input side (an
 OpenAI-layout CLIP archive and encoded clips through the pack, train,
-eval, index and search CLIs).
+eval, index and search CLIs), and the model-sharded strategies (tensor
+parallelism, FSDP2, the pipeline, pipeline x tensor, the eval under tensor
+parallelism).
 
     python3 chip_smoke.py [--profile]
     python3 chip_smoke.py --alone 9 [--seeds S ...]   # phase 9 per seed
     python3 chip_smoke.py --alone 16                  # phase 16
     python3 chip_smoke.py --alone 17                  # phase 17
     python3 chip_smoke.py --alone 18                  # phase 18
+    python3 chip_smoke.py --alone 19                  # phase 19
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. device  — requires CUDA; prints the card's name and power limit;
@@ -123,7 +126,10 @@ Phases (each prints its own lines; any failure exits non-zero):
                text and temporal shapes with their biases, K11 twice;
                `nn.MultiheadAttention` timed beside them as the library's
                yardstick (the port never calls it), each shape's share of
-               the bound and kernel / library;
+               the bound and kernel / library; then at phase 19's tensor-
+               parallel shapes, a rank's half of the heads (its rows of q,
+               k and v, its columns of W_o), where no library call computes
+               the function;
  15. augment — the device RandAugment: (a) on the card against the CPU on
                one structured batch of 8 x 12 x 224² with draws fixed so
                that each of the 16 ops fires; (b) its time and peak memory
@@ -183,6 +189,26 @@ Phases (each prints its own lines; any failure exits non-zero):
                best.npz and from the best.pth cli.export_checkpoint writes
                of it (equal R@K); cli.index of the test split and a
                cli.search query, with launch counts.
+ 19. sharded — the model-sharded strategies at ViT-B/32 width (bf16,
+               depth not cut, seeded random weights) at the MSR-VTT
+               recipe's widths (24 words x 12 frames), only the data cut
+               (global batch 32, bank 2 x 32, 2 steps a strategy), as gloo
+               ranks sharing the one card: (a) tensor parallelism, data 1 x
+               model 2, on the block route (K10/K11 on each rank's heads),
+               then one step on the fused route (K8/K9 on H/2 heads) from
+               the same initial state; (b)
+               FSDP2 over 2 ranks; (c) the pipeline, stage 2 x 4
+               microbatches (K1/K3 per stage); (d) pipeline x tensor, 1 x 2
+               x 2 (four processes); each against one process over the same
+               global batches with its DPC-KNN clusters and top-k masks
+               replayed (phase 17's comparison, at phase 17's bars for (b)
+               and (c) and at bars from the bf16 rounding of the partial
+               sums for (a) and (d)), the replicated parameters bit-equal
+               across the ranks; ms/step (ranks sharing one card, not
+               scale-out), peak memory and parameter + moment bytes a rank
+               beside one process's (FSDP at most 0.55 x), launches; (e)
+               cli.eval --tensor_parallel 2 on 16 videos against one
+               process's similarity matrix.
 The line before the last is a JSON object with, for each kernel, its
 launches on each main path (all eleven counts are set to 0 before each path
 and read after it; phase 16's path is its in-process load, (b)), error, times and roofline bound; the last line is the
@@ -195,6 +221,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import re
 import statistics
@@ -1031,7 +1058,8 @@ def phase_train(profile: bool, card: str, attention_impl="auto"):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             log = []
-            with decisions(log, replay[i] if replay else None):
+            with decisions(log, replay[i] if replay and i < len(replay)
+                           else None):
                 state, met = TS.train_step(state, batch, cfg, t_total, gen,
                                            kernels)
             torch.cuda.synchronize()
@@ -1742,7 +1770,8 @@ K10_CHECK_REL = 0.05
 
 def phase_k10_k11(g):
     print("== phase 14: K10 attention_sublayer, K11 its backward: the kernel "
-          "check, then against their plain versions")
+          "check, then against their plain versions (whole heads, then a "
+          "tensor-parallel rank's half)")
     import torch.nn as nn
 
     from neighborretr_tpu_torch.ops import block_attention as BA
@@ -1782,14 +1811,25 @@ def phase_k10_k11(g):
             raise SystemExit(f"K10/K11 kernel check: {name} off by {rel:.4g}")
     del grads, ref
 
-    shapes = [("vision check", 768, 50, 768, 12, None),
-              ("vision train", 1536, 50, 768, 12, None),
-              ("text", 128, 24, 512, 8, "causal"),
-              ("temporal", 128, 12, 512, 8, "keypad")]
+    # then the shapes of phase 19's tensor-parallel path (a): a rank's half
+    # of the heads (H/2, E = D/2: its rows of q, k and v of W_qkv, its
+    # columns of W_o) at global batch 32 x 12 frames
+    shapes = [("vision check", 768, 50, 768, 12, None, 1),
+              ("vision train", 1536, 50, 768, 12, None, 1),
+              ("text", 128, 24, 512, 8, "causal", 1),
+              ("temporal", 128, 12, 512, 8, "keypad", 1),
+              ("vision tp/2", 384, 50, 768, 12, None, 2),
+              ("text tp/2", 32, 24, 512, 8, "causal", 2),
+              ("temporal tp/2", 32, 12, 512, 8, "keypad", 2)]
     names = ("dw_qkv", "db_qkv", "dw_out", "db_out")
     k10, k11 = {}, {}
-    for name, N, L, D, H, kind in shapes:
+    for name, N, L, D, H, kind, tp in shapes:
         (h, _, _, *w), bias = _attn_inputs(g, N, L, D, kind)
+        H, E = H // tp, D // tp
+        if tp > 1:                 # rank 0's part of the split sublayer
+            w = [w[0].view(3, D, D)[:, :E].reshape(3 * E, D).contiguous(),
+                 w[1].view(3, D)[:, :E].reshape(3 * E).contiguous(),
+                 w[2][:, :E].contiguous(), w[3]]
         dy = torch.randn(N, L, D, generator=g, device=dev).bfloat16()
         tag = f"{name} N={N} L={L} D={D} H={H}"
         y = BA.attention_sublayer(h, *w, H, bias)
@@ -1817,6 +1857,30 @@ def phase_k10_k11(g):
         print(f"  K11 {tag}: two runs bit-equal in all 5 outputs")
         del plain, again
 
+        M = N * L
+        if tp > 1:      # no PyTorch call computes a part of the heads
+            ms = time_ms(lambda: BA.attention_sublayer(h, *w, H, bias), 20)
+            plain_ms = time_ms(
+                lambda: BA.attention_sublayer_plain(h, *w, H, bias), 10)
+            b_ms, b_by = bound(8 * M * D * E + 4 * N * L * L * E, PEAK_BF16,
+                               nbytes(h, *w, bias, y))
+            print(f"  K10 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                  f"ms, bound {b_ms:.4f} ms ({b_by}), "
+                  f"{100 * b_ms / ms:.1f}% of the bound")
+            k10[name] = (err10, ms, plain_ms, b_ms, b_by, None)
+            ms = time_ms(lambda: BA.attention_sublayer_bwd(h, *w, H, dy,
+                                                           bias), 10)
+            plain_ms = time_ms(lambda: BA.attention_sublayer_bwd_plain(
+                h, *w, H, dy, bias), 3)
+            b_ms, b_by = bound(22 * M * D * E + 12 * N * L * L * E,
+                               PEAK_BF16, nbytes(h, *w, bias, dy, *got))
+            print(f"  K11 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                  f"ms, bound {b_ms:.4f} ms ({b_by}), "
+                  f"{100 * b_ms / ms:.1f}% of the bound")
+            k11[name] = (err11, ms, plain_ms, b_ms, b_by, None)
+            del got, y
+            continue
+
         # the library's call for the same function, as a yardstick only:
         # nn.MultiheadAttention with the same bf16 weights, the bias as a
         # float mask per (sequence, head)
@@ -1836,7 +1900,6 @@ def phase_k10_k11(g):
         lib_out = lib(hl, hl, hl, need_weights=False, attn_mask=mask)[0]
         lib_leaves = [hl] + list(lib.parameters())
 
-        M = N * L
         ms = time_ms(lambda: BA.attention_sublayer(h, *w, H, bias), 20)
         plain_ms = time_ms(lambda: BA.attention_sublayer_plain(h, *w, H, bias),
                            10)
@@ -2112,7 +2175,8 @@ def phase_trainer(profile: bool, card: str):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             log = []
-            with decisions(log, replay[i] if replay else None):
+            with decisions(log, replay[i] if replay and i < len(replay)
+                           else None):
                 state, met = real_step(state, batch, *a, **kw)
             torch.cuda.synchronize()
             record[i] = dict(ms=1e3 * (time.perf_counter() - t0),
@@ -2911,7 +2975,8 @@ def dp_run(cfg, n_steps: int, mesh=None, replay=None, seed0: int = 100):
             # every rank (and in the one process) at each step
             gen = torch.Generator(device="cuda").manual_seed(1000 + i)
             log = []
-            with decisions(log, replay[i] if replay else None):
+            with decisions(log, replay[i] if replay and i < len(replay)
+                           else None):
                 state, met = TS.train_step(state, batch, cfg, 30, gen,
                                            mesh=mesh)
             torch.cuda.synchronize()
@@ -2974,66 +3039,119 @@ def _rel_l2(a, b) -> float:
     return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
 
 
-def dp_held(label, got, want, start):
-    """Two ranks' record against one process's: loss terms, gradient norms,
-    compared moments, every parameter's update, the bank."""
-    failed = []
+DP_BARS = (DP_LOSS_RTOL, DP_GRAD_NORM_RTOL, DP_MOMENT_REL_L2,
+           DP_UPDATE_REL_L2, DP_BANK_REL_L2)
+
+
+def held_readings(got, want, start):
+    """got's differences from want, two records of the same steps from the
+    parameters `start` → ({(kind, name): reading}, the counts of updates
+    left out).  kind "loss" (name "step i term") and "grad_norm" ("step
+    i"): relative; "moment": rel L2 of a compared parameter's first moment;
+    "update": rel L2 of a parameter's update, leaving out those within 4
+    ulps of their values and the biases with an analytically zero gradient;
+    "bank": rel L2 of the bank's text or video features."""
+    out = {}
     for i, (a, b) in enumerate(zip(got["metrics"], want["metrics"])):
         for n in LOSS_TERMS + ("grad_norm",):
-            tol = DP_GRAD_NORM_RTOL if n == "grad_norm" else DP_LOSS_RTOL
             rel = abs(a[n] - b[n]) / max(abs(b[n]), 1e-6)
-            ok = np.isfinite(a[n]) and rel <= tol
-            print(f"  {label} step {i + 1} {n}: two ranks {a[n]:.6f} one "
-                  f"process {b[n]:.6f} rel {rel:.3g} (tolerance {tol:g}) "
-                  f"{'ok' if ok else 'FAILED'}")
-            if not ok:
-                failed.append(f"step {i + 1} {n}")
-    worst_m = max((_rel_l2(got["moments"][n], want["moments"][n]), n)
-                  for n in TRAIN_COMPARED)
-    print(f"  {label} Adam first moments of the {len(TRAIN_COMPARED)} "
-          f"compared parameters: worst rel L2 {worst_m[0]:.3g} "
-          f"({worst_m[1]}; tolerance {DP_MOMENT_REL_L2:g})")
-    if worst_m[0] > DP_MOMENT_REL_L2:
-        failed.append(f"moment of {worst_m[1]}")
-    rows, below, invariant = [], 0, 0
+            kind = "grad_norm" if n == "grad_norm" else "loss"
+            out[kind, f"step {i + 1} {n}"] = (rel if np.isfinite(a[n])
+                                              else math.inf)
+    for n in TRAIN_COMPARED:
+        out["moment", n] = _rel_l2(got["moments"][n], want["moments"][n])
+    below = invariant = 0
     for n, p0 in start.items():
         if n.endswith(("_weight_fc.2.bias", "_weight_fc1.2.bias",
                        ".score.bias")):
             invariant += 1
             continue
         dw = want["params"][n] - p0
-        dg = got["params"][n] - p0
         ulp = torch.finfo(torch.float32).eps * p0.abs().max().clamp_min(
             1e-30)
         if dw.abs().max() <= 4 * ulp:
             below += 1
             continue
-        rows.append((_rel_l2(dg, dw), n))
-    rows.sort(reverse=True)
-    if rows:
-        print(f"  {label} updates: {len(rows)} parameters held, {below} "
-              f"within 4 ulps of their values and {invariant} biases with "
-              f"an analytically zero gradient not held; worst rel L2 "
-              + ", ".join(f"{n} {r:.3g}" for r, n in rows[:3])
-              + f" (tolerance {DP_UPDATE_REL_L2:g})")
-        bad = [n for r, n in rows if r > DP_UPDATE_REL_L2]
-        if bad:
-            failed.append(f"updates of {len(bad)} parameters ({bad[0]}...)")
+        out["update", n] = _rel_l2(got["params"][n] - p0, dw)
+    for name, i in (("text", 1), ("video", 2)):
+        out["bank", name] = _rel_l2(got["bank"][i], want["bank"][i])
+    return out, (below, invariant)
+
+
+# a witness's reading times this is a quantity's bar (never below the
+# strategy's own); a loss term's bar never above phase 8's ceiling
+FLOOR_FOLD = 4
+LOSS_CEIL = 1e-2
+
+
+def dp_held(label, got, want, start, bars=DP_BARS, phase=17, floor=None,
+            verbose=True):
+    """Two ranks' record against one process's: loss terms, gradient norms,
+    compared moments, every parameter's update, the bank; `bars`: (loss
+    terms, gradient norms, moments, updates, bank), phase 17's by default.
+    floor: held_readings of a witness, two correct one-process records
+    that round otherwise; each quantity's bar is then the larger of its
+    `bars` entry and FLOOR_FOLD times the witness's reading for it (a loss
+    term's at most LOSS_CEIL).  verbose=False prints nothing but the
+    failure it raises."""
+    base = dict(zip(("loss", "grad_norm", "moment", "update", "bank"), bars))
+    got_r, (below, invariant) = held_readings(got, want, start)
+    wit = floor[0] if floor is not None else {}
+
+    def bar(q):
+        b = base[q[0]]
+        if q in wit:
+            b = max(b, FLOOR_FOLD * wit[q])
+            if q[0] == "loss":
+                b = min(b, LOSS_CEIL)
+        return b
+
+    def witness(q):
+        return f", witness {wit[q]:.3g}" if q in wit else ""
+
+    failed = [q[1] if q[0] in ("loss", "grad_norm") else f"{q[0]} of {q[1]}"
+              for q, r in got_r.items() if not r <= bar(q)]
     ind, ft, fv, mt, mv = got["bank"]
     if not (torch.equal(ind, want["bank"][0]) and torch.equal(
             mt, want["bank"][3]) and torch.equal(mv, want["bank"][4])):
         failed.append("bank ids or masks")
+    if not verbose:
+        if failed:
+            raise SystemExit(f"phase {phase} {label}: " + ", ".join(failed))
+        return
+    for i, (a, b) in enumerate(zip(got["metrics"], want["metrics"])):
+        for n in LOSS_TERMS + ("grad_norm",):
+            q = ("grad_norm" if n == "grad_norm" else "loss",
+                 f"step {i + 1} {n}")
+            print(f"  {label} step {i + 1} {n}: two ranks {a[n]:.6f} one "
+                  f"process {b[n]:.6f} rel {got_r[q]:.3g} (tolerance "
+                  f"{bar(q):.3g}{witness(q)}) "
+                  f"{'ok' if got_r[q] <= bar(q) else 'FAILED'}")
+
+    def worst(kind, k=1):
+        qs = sorted((q for q in got_r if q[0] == kind),
+                    key=lambda q: got_r[q] / bar(q), reverse=True)
+        return ", ".join(f"{q[1]} {got_r[q]:.3g} (tolerance {bar(q):.3g}"
+                         f"{witness(q)})" for q in qs[:k])
+
+    print(f"  {label} Adam first moments of the {len(TRAIN_COMPARED)} "
+          f"compared parameters, nearest their tolerance: "
+          f"{worst('moment', 2)}")
+    n_upd = sum(q[0] == "update" for q in got_r)
+    print(f"  {label} updates: {n_upd} parameters held, {below} within 4 "
+          f"ulps of their values and {invariant} biases with an "
+          f"analytically zero gradient not held; nearest their tolerance: "
+          f"{worst('update', 3)}")
     for name, a, b in (("text", ft, want["bank"][1]),
                        ("video", fv, want["bank"][2])):
-        rel = _rel_l2(a, b)
-        print(f"  {label} bank {name} features: rel L2 {rel:.3g}, max abs "
-              f"{(a - b).abs().max().item():.3g} (tolerance "
-              f"{DP_BANK_REL_L2:g}); ids and masks equal")
-        if rel > DP_BANK_REL_L2:
-            failed.append(f"bank {name} features")
+        q = ("bank", name)
+        print(f"  {label} bank {name} features: rel L2 {got_r[q]:.3g}, max "
+              f"abs {(a - b).abs().max().item():.3g} (tolerance "
+              f"{bar(q):.3g}{witness(q)}); ids and masks "
+              f"{'equal' if 'bank ids or masks' not in failed else 'DIFFER'}")
     if failed:
-        raise SystemExit(f"phase 17 {label}: two ranks disagree with one "
-                         "process: " + ", ".join(failed))
+        raise SystemExit(f"phase {phase} {label}: the ranks disagree with "
+                         "one process: " + ", ".join(failed))
 
 
 def phase_data_parallel(card: str, train_ms=None, train_peak=None):
@@ -3663,13 +3781,434 @@ def phase_real_inputs(card: str):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the model-sharded strategies over torch.distributed
+# ---------------------------------------------------------------------------
+
+# ViT-B/32 at full width and depth (bf16) at the MSR-VTT recipe's widths
+# (24 words x 12 frames); only the data is cut: global batch 32, a bank of
+# 2 x 32, 2 steps a strategy.  Each strategy runs as gloo ranks on the one
+# card (NCCL refuses two ranks on one device), held to one process over the
+# same global batches with its DPC-KNN clusters and top-k masks replayed.
+SH_B, SH_FILL, SH_STEPS, SH_M = 32, 2, 2, 4
+SH_TIMEOUT = 600
+SH_EVAL_N = 16
+# (b) FSDP and (c) the pipeline compute what one process computes, in
+# another order: phase 17's bars (DP_*).  (a) tensor parallelism and (d)
+# pipeline x tensor round each rank's partial sums to bf16 (K10's output,
+# the MLP's row-parallel product) before their fp32 sum, where one process
+# rounds the attention sublayer's whole sum once (K1).  With random weights
+# a sublayer's output is as large as the residual stream, so that is ~2^-9
+# of the stream a block, and a leaf whose gradient is a small difference
+# (the token-weight nets' first layer, through the softmax over tokens)
+# moves by tens of percent while the rest move by a few.  One scalar bar a
+# kind cannot sit between that and a fault, so each quantity is held to
+# its own floor: a witness, one process on the fused route (K8/K9) against
+# one process on the block route (K1/K3), the same computation rounded at
+# other points, from the same start with the same decisions; each
+# quantity's bar is FLOOR_FOLD x the witness's reading for it, never below
+# the bars below (loss terms 5e-3 and norms 2e-2 as stated before the
+# first run; moments, updates and the bank phase 17's), a loss term's never
+# above phase 8's 1e-2.  A planted fault, one process with the gradient of
+# one TP-split leaf halved (SH_FAULT_LEAF), must fail at these bars.
+TP_LOSS_RTOL = 5e-3
+TP_GRAD_NORM_RTOL = 2e-2
+SH_FAULT_LEAF = "clip.visual.transformer.resblocks.5.mlp.c_fc.weight"
+# (e) the eval's [16, 16] similarity under tensor parallelism against one
+# process, in standard deviations of the one-process matrix: at most
+# FLOOR_FOLD x the witness's (one process's eval on the fused route
+# against the block route)
+SH_STRATEGIES = {     # world → [(name, mesh shape, axes, fsdp, pipeline)]
+    2: [("tp", (1, 2), ("data", "model"), False, False),
+        ("fsdp", (2,), ("data",), True, False),
+        ("pipeline", (1, 2), ("data", "stage"), False, True)],
+    4: [("pipeline_tensor", (1, 2, 2), ("data", "stage", "model"), False,
+         True)],
+}
+
+
+def sharded_config(fsdp=False, pipeline=False, fused=False):
+    import dataclasses as dc
+
+    from neighborretr_tpu_torch.core.config import Config
+    cfg = Config()
+    return dc.replace(
+        cfg, model=dc.replace(cfg.model, attention_impl="fused" if fused
+                              else "fused_block"),
+        train=dc.replace(cfg.train, batch_size=SH_B, mb_batch=SH_FILL,
+                         fsdp=fsdp,
+                         pipeline_parallel=2 if pipeline else 1,
+                         pipeline_microbatches=SH_M))
+
+
+def sharded_run(cfg, mesh=None, replay=None, n_steps: int = SH_STEPS,
+                seed0: int = 300, halve=None):
+    """Bank fill (SH_FILL batches) and n_steps steps from init_model(seed=0)
+    placed on `mesh` (one process when None), on this rank's block of each
+    global batch; `halve`: a parameter whose gradient is halved (a planted
+    fault) → record: per step the metrics, ms and decisions; launch
+    counts; after the last step the full parameters, the compared moments
+    and the bank on the host (a collective: every rank gathers) and a hash
+    of the replicated parameters; this rank's parameter + moment bytes and
+    peak memory."""
+    import hashlib
+
+    from neighborretr_tpu_torch.models.weights_io import init_model
+    from neighborretr_tpu_torch.parallel import mesh as pmesh
+    from neighborretr_tpu_torch.train import memory_bank as MB
+    from neighborretr_tpu_torch.train import step as TS
+
+    m = cfg.model
+    torch.cuda.reset_peak_memory_stats()
+    model = init_model(m, seed=0, device="cuda")
+    if mesh is not None:
+        pmesh.place_params(model, mesh, fsdp=cfg.train.fsdp)
+
+    def block(b):
+        return pmesh.batch_block(b, mesh) if mesh is not None else b
+
+    rec = dict(metrics=[], ms=[], decisions=[])
+
+    def run():
+        bank = MB.create(cfg.train.memory_bank_capacity, m.max_words,
+                         m.max_frames, m.width, device="cuda")
+        for i in range(SH_FILL):
+            bank = TS.fill_bank_step(model, bank, block(device_batch(
+                m, SH_B, seed0 + i)), cfg, i * SH_B, mesh=mesh)
+        state = TS.create_train_state(model, bank)
+        if halve is not None:            # trainable from here on
+            model.get_parameter(halve).register_hook(lambda g: 0.5 * g)
+        for i in range(n_steps):
+            batch = block(device_batch(m, SH_B, seed0 + SH_FILL + i))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gen = torch.Generator(device="cuda").manual_seed(1000 + i)
+            log = []
+            with decisions(log, replay[i] if replay else None):
+                state, met = TS.train_step(state, batch, cfg, 30, gen,
+                                           mesh=mesh)
+            torch.cuda.synchronize()
+            rec["ms"].append(1e3 * (time.perf_counter() - t0))
+            rec["decisions"].append(log)
+            rec["metrics"].append({k: v.item() for k, v in met.items()})
+        return state
+
+    state, rec["counts"] = counted(run)
+    rec["bytes"] = sum(
+        t.numel() * t.element_size() for t in
+        [pmesh.local(p) for p in model.parameters()]
+        + list(state.opt.m.values()) + list(state.opt.v.values()))
+    params = pmesh.full_state_dict(model)
+    pl = pmesh.placement_of(model)
+    mom = pmesh.gather_full(state.opt.m, pl) if pl is not None else state.opt.m
+
+    def replicated(n):
+        p = pl.params[n] if pl is not None else None
+        return p is None or not (p.tp or p.fsdp or p.stage is not None)
+
+    rec.update(
+        params={n: t.float().cpu() for n, t in params.items()},
+        moments={n: mom[n].float().cpu() for n in TRAIN_COMPARED},
+        bank=[t.cpu() for t in state.bank],
+        replicated_hash=hashlib.sha256(b"".join(
+            pmesh.local(p).detach().float().cpu().numpy().tobytes()
+            for n, p in model.named_parameters()
+            if replicated(n))).hexdigest(),
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del model, state, params, mom
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sharded_rank_worker(world: int, rank: int, port: int, work: str
+                        ) -> None:
+    """One rank of phase 19: gloo over localhost with the tensors on the
+    card, its world's strategies in turn, then (two ranks) the eval CLI's
+    run under --tensor_parallel 2 in the same group (NCCL, the CLI's own
+    backend on the card, refuses two ranks on one card); results to
+    work/w{world}rank{r}.pt."""
+    import torch.distributed as dist
+
+    from neighborretr_tpu_torch.ops import _build
+    from neighborretr_tpu_torch.parallel import mesh as pmesh
+    _build.load(*LIBS)                 # built by the parent: loads only
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    plan = torch.load(os.path.join(work, "plan.pt"), map_location="cuda:0",
+                      weights_only=False)
+    out = {}
+    runs = [(name, sharded_config(fsdp, pipeline), pmesh.make_mesh(
+        "cuda:0", shape, axes), SH_STEPS)
+        for name, shape, axes, fsdp, pipeline in SH_STRATEGIES[world]]
+    if world == 2:              # (a) on the fused route
+        runs.append(("tp_fused", sharded_config(fused=True),
+                     pmesh.make_mesh("cuda:0", (1, 2), ("data", "model")),
+                     SH_STEPS))
+    for name, cfg, mesh, n_steps in runs:
+        rec = sharded_run(cfg, mesh, plan, n_steps)
+        rec.pop("decisions")
+        if rank:
+            rec.pop("params")
+            rec.pop("moments")
+        out[name] = rec
+    if world == 2:
+        out["tp_eval"] = sharded_eval(["--tensor_parallel", "2"],
+                                      rank=rank, world=world)
+    dist.destroy_process_group()
+    torch.save(out, os.path.join(work, f"w{world}rank{rank}.pt"))
+
+
+def sharded_eval(extra, rank=None, world=None):
+    """cli.eval at ViT-B/32 width on SH_EVAL_N synthetic videos, seeded
+    random weights → (R@K, the similarity matrix on the host, launches).
+    With `rank`: the CLI's run as that rank of the started `world`-rank
+    process group."""
+    from neighborretr_tpu_torch.cli import eval as cli_eval
+    from neighborretr_tpu_torch.cli.common import setup_logger
+    from neighborretr_tpu_torch.train import evaluate as EV
+    sims = []
+    real = EV.similarity_matrix_device
+
+    def keep(*a, **kw):
+        s = real(*a, **kw)
+        sims.append(s.float().cpu())
+        return s
+
+    argv = ["--datatype", "synthetic", "--clip_checkpoint", "random",
+            "--synthetic_size", str(SH_EVAL_N), "--batch_size_val",
+            str(SH_EVAL_N), "--max_frames", "12", "--workers", "0", *extra]
+    EV.similarity_matrix_device = keep
+
+    def drive():
+        if rank is None:
+            return cli_eval.main(argv)
+        args = cli_eval.parse_args(argv)
+        args.num_processes, args.process_id = world, rank
+        return cli_eval.run(args, setup_logger())
+
+    try:
+        (t2v, v2t), counts = counted(drive)
+    finally:
+        EV.similarity_matrix_device = real
+    return dict(t2v=t2v, v2t=v2t, sim=sims[-1], counts=counts)
+
+
+TP_BARS = (TP_LOSS_RTOL, TP_GRAD_NORM_RTOL, DP_MOMENT_REL_L2,
+           DP_UPDATE_REL_L2, DP_BANK_REL_L2)
+
+
+def phase_sharded(card: str):
+    """(a) tensor parallelism, data 1 x model 2, on the block and on the
+    fused route; (b) FSDP2 over 2 ranks; (c) the pipeline, stage 2 x M 4;
+    (d) pipeline x tensor, 1 x 2 x 2 (four processes); (e) cli.eval
+    --tensor_parallel 2 on 16 videos; each against one process, (a), (d)
+    and (e) at bars from a witness that a planted fault must fail → launch
+    counts by path, summed over the ranks."""
+    print("== phase 19: model-sharded strategies (torch.distributed over "
+          "gloo, ranks sharing one card; ViT-B/32 width, bf16, depth not "
+          "cut, 24 words x 12 frames, global batch 32, bank 2 x 32)")
+    import shutil
+    import socket
+    import tempfile
+
+    from neighborretr_tpu_torch.models.weights_io import init_model
+    t_phase = time.perf_counter()
+    cfg = sharded_config()
+    m = cfg.model
+    layers = (m.clip.vision_layers + m.clip.transformer_layers
+              + m.temporal_layers)
+    start = {n: p.detach().cpu() for n, p in init_model(
+        m, 0, "cuda").named_parameters()}
+    torch.cuda.empty_cache()
+    ref = {"block": sharded_run(cfg)}
+    plan = ref["block"]["decisions"]
+    ref["fused"] = sharded_run(sharded_config(fused=True), replay=plan)
+    one_bytes, one_peak = ref["block"]["bytes"], ref["block"]["peak_gib"]
+    for route, r in ref.items():
+        print(f"  one process, {route} route: steps "
+              f"{' / '.join(f'{t:.1f}' for t in r['ms'])} ms, peak "
+              f"{r['peak_gib']:.2f} GiB, parameters + moments "
+              f"{r['bytes'] / 2 ** 30:.3f} GiB, launches {r['counts']}")
+    # the witness: the same computation rounded at other points
+    floor = held_readings(ref["fused"], ref["block"], start)
+    for kind in ("loss", "grad_norm", "moment", "update", "bank"):
+        q = max((q for q in floor[0] if q[0] == kind), key=floor[0].get)
+        print(f"  witness, one process's fused route against its block "
+              f"route: {kind} at most {floor[0][q]:.3g} ({q[1]})")
+    fault = sharded_run(cfg, replay=plan, halve=SH_FAULT_LEAF)
+    fault_r = held_readings(fault, ref["block"], start)[0]
+    try:
+        dp_held("planted fault", fault, ref["block"], start, TP_BARS, 19,
+                floor, verbose=False)
+        caught = None
+    except SystemExit as e:
+        caught = str(e)[:300]
+    q = ("moment", SH_FAULT_LEAF)
+    print(f"  planted fault, the gradient of {SH_FAULT_LEAF} halved in one "
+          f"process: its moment {fault_r[q]:.3g} rel L2 (witness "
+          f"{floor[0][q]:.3g}); at the TP bars "
+          f"{'caught: ' + caught if caught else 'NOT caught'}")
+    del fault
+    one_eval = sharded_eval(["--device", "cuda"])
+    eval_floor = sharded_eval(["--device", "cuda", "--attention_impl",
+                               "fused"])["sim"]
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            return s.getsockname()[1]
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    ranks = {}
+    try:
+        torch.save(plan, os.path.join(work, "plan.pt"))
+        for world in (2, 4):
+            port = free_port()
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--sharded-rank",
+                 str(world), str(r), str(port), work],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for r in range(world)]
+            try:
+                logs = []
+                for p in procs:
+                    try:
+                        logs.append(p.communicate(timeout=SH_TIMEOUT)[0])
+                    except subprocess.TimeoutExpired:
+                        raise SystemExit(f"phase 19: a rank of {world} did "
+                                         f"not finish in {SH_TIMEOUT} s")
+                for r, (p, log) in enumerate(zip(procs, logs)):
+                    if p.returncode != 0:
+                        raise SystemExit(f"phase 19: rank {r} of {world} "
+                                         f"failed:\n{log[-4000:]}")
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            print(f"  {world} ranks (processes on {card}, gloo with the "
+                  f"tensors on the card) ran "
+                  f"{', '.join(s[0] for s in SH_STRATEGIES[world])}"
+                  f"{', the fused step and the eval' if world == 2 else ''} "
+                  f"in {time.perf_counter() - t0:.1f} s, processes included")
+            ranks[world] = [torch.load(os.path.join(
+                work, f"w{world}rank{r}.pt"), weights_only=False)
+                for r in range(world)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    zero = dict.fromkeys(kernel_wrappers(), 0)
+    per_stage = layers // 2      # every tower's depth divides by 2 stages
+    want = {
+        "tp": dict(zero, K10=(SH_FILL + SH_STEPS) * layers,
+                   K11=SH_STEPS * layers, K4=2 * SH_STEPS, K5=2 * SH_STEPS),
+        "tp_fused": dict(zero, K8=(SH_FILL + SH_STEPS) * layers,
+                         K9=SH_STEPS * layers, K4=2 * SH_STEPS,
+                         K5=2 * SH_STEPS),
+        "fsdp": dict(zero, K1=(SH_FILL + SH_STEPS) * layers,
+                     K3=SH_STEPS * layers, K4=2 * SH_STEPS,
+                     K5=2 * SH_STEPS),
+        "pipeline": dict(zero, K1=(SH_FILL + SH_M * SH_STEPS) * per_stage,
+                         K3=SH_M * SH_STEPS * per_stage, K4=2 * SH_STEPS,
+                         K5=2 * SH_STEPS),
+        "pipeline_tensor": dict(
+            zero, K10=(SH_FILL + SH_M * SH_STEPS) * per_stage,
+            K11=SH_M * SH_STEPS * per_stage, K4=2 * SH_STEPS,
+            K5=2 * SH_STEPS)}
+    paths = {}
+    failed = [] if caught else [
+        f"phase 19: the TP bars do not catch a halved gradient of "
+        f"{SH_FAULT_LEAF}"]
+
+    def held_or_note(label, got, want, bars, floor=None):
+        """dp_held at `bars` (and `floor`); a failure is noted, and fails
+        the phase once every strategy has been read."""
+        try:
+            dp_held(label, got, want, start, bars, phase=19, floor=floor)
+        except SystemExit as e:
+            failed.append(str(e))
+
+    labels = {"tp": "(a) tensor parallel, block route",
+              "tp_fused": "(a) tensor parallel, fused route",
+              "fsdp": "(b) FSDP2", "pipeline": "(c) pipeline",
+              "pipeline_tensor": "(d) pipeline x tensor"}
+    for world, strategies in SH_STRATEGIES.items():
+        for name in [s[0] for s in strategies] + (
+                ["tp_fused"] if world == 2 else []):
+            recs = [r[name] for r in ranks[world]]
+            label = labels[name]
+            r0 = recs[0]
+            counts = [r["counts"] for r in recs]
+            print(f"  {label}: launches per rank {counts} (expected "
+                  f"{want[name]} each); steps "
+                  f"{' / '.join(f'{t:.1f}' for t in r0['ms'])} ms"
+                  f" on rank 0 of {world} ranks sharing one card (not a "
+                  f"scale-out number); peak "
+                  f"{max(r['peak_gib'] for r in recs):.2f} GiB a rank "
+                  f"against {one_peak:.2f} in one process; parameters + "
+                  f"moments {r0['bytes'] / 2 ** 30:.3f} GiB on rank 0 = "
+                  f"{r0['bytes'] / one_bytes:.3f} x one process's")
+            if any(c != want[name] for c in counts):
+                failed.append(f"phase 19 {label}: launch counts")
+            if name == "fsdp" and max(r["bytes"] for r in recs) > \
+                    0.55 * one_bytes:
+                failed.append("phase 19 (b): FSDP's parameter + moment "
+                              "bytes a rank above 0.55 x one process's")
+            same = len({r["replicated_hash"] for r in recs}) == 1
+            gap = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6)
+                      for r in recs[1:]
+                      for a, b in zip(r["metrics"], r0["metrics"]) for k in a)
+            print(f"  {label}: replicated parameters bit-equal across the "
+                  f"ranks: {same}; the ranks' metrics differ by at most "
+                  f"{gap:.3g} relative")
+            if not same:
+                failed.append(f"phase 19 {label}: the ranks' replicated "
+                              "parameters differ")
+            if name in ("tp", "tp_fused", "pipeline_tensor"):
+                held_or_note(label, r0, ref["fused" if name == "tp_fused"
+                                             else "block"], TP_BARS, floor)
+            else:
+                held_or_note(label, r0, ref["block"], DP_BARS)
+            paths[f"sharded_{name}"] = {
+                k: sum(c[k] for c in counts) for k in zero}
+    # (e)
+    ev = [r["tp_eval"] for r in ranks[2]]
+    want_eval = dict(zero, K10=layers, K2=1)
+    one_sim = one_eval["sim"]
+    sd = one_sim.std().item()
+    wit = (eval_floor - one_sim).abs().max().item() / sd
+    gap = max((e["sim"] - one_sim).abs().max().item() for e in ev)
+    print(f"  (e) cli.eval --tensor_parallel 2 on {SH_EVAL_N} videos: "
+          f"launches per rank {[e['counts'] for e in ev]} (expected "
+          f"{want_eval} each: the text and video batches through K10, K2 "
+          f"once); similarity within {gap / sd:.3g} standard deviations of "
+          f"one process's matrix (tolerance {FLOOR_FOLD * wit:.3g}, "
+          f"witness {wit:.3g}: its eval on the fused route), "
+          f"{gap / one_sim.abs().max().item():.3g} of its largest "
+          f"magnitude; t2v R@1 {ev[0]['t2v']['R1']:.2f} / one process "
+          f"{one_eval['t2v']['R1']:.2f}, v2t R@1 {ev[0]['v2t']['R1']:.2f} / "
+          f"{one_eval['v2t']['R1']:.2f}")
+    if any(e["counts"] != want_eval for e in ev) or \
+            gap / sd > FLOOR_FOLD * wit:
+        failed.append("phase 19 (e): the eval under tensor parallelism")
+    paths["sharded_tp_eval"] = {k: sum(e["counts"][k] for e in ev)
+                                for k in zero}
+    print(f"  phase 19 took {time.perf_counter() - t_phase:.1f} s")
+    if failed:
+        raise SystemExit("\n".join(failed))
+    return paths
+
+
 def alone(argv):
     """`--alone 9 [--seeds S ...]`: phase 9 by itself once per generator
-    seed; `--alone 16` / `17` / `18`: that phase by itself.  Prints no JSON
-    lines."""
+    seed; `--alone 16` / `17` / `18` / `19`: that phase by itself.  Prints
+    no JSON lines."""
     import argparse
     ap = argparse.ArgumentParser()
-    ap.add_argument("--alone", choices=("9", "16", "17", "18"),
+    ap.add_argument("--alone", choices=("9", "16", "17", "18", "19"),
                     required=True)
     ap.add_argument("--seeds", type=int, nargs="+", default=[0])
     args = ap.parse_args(argv)
@@ -3684,6 +4223,9 @@ def alone(argv):
     if args.alone == "18":
         phase_real_inputs(card)
         return
+    if args.alone == "19":
+        phase_sharded(card)
+        return
     for seed in args.seeds:
         print(f"-- phase 9 alone, generator seed {seed}")
         phase_k6_k7(torch.Generator(device="cuda").manual_seed(seed))
@@ -3694,6 +4236,10 @@ def main():
         i = sys.argv.index("--dp-rank")
         return dp_rank_worker(int(sys.argv[i + 1]), int(sys.argv[i + 2]),
                               sys.argv[i + 3])
+    if "--sharded-rank" in sys.argv[1:]:     # a rank of phase 19
+        i = sys.argv.index("--sharded-rank")
+        return sharded_rank_worker(*map(int, sys.argv[i + 1:i + 4]),
+                                   sys.argv[i + 4])
     if "--alone" in sys.argv[1:]:
         return alone(sys.argv[1:])
     profile = "--profile" in sys.argv[1:]
@@ -3720,6 +4266,7 @@ def main():
     daemon_counts = phase_serving_daemon(card)
     dp_counts = phase_data_parallel(card, block_ms, train_peak)
     real_counts = phase_real_inputs(card)
+    sharded_counts = phase_sharded(card)
 
     def kernel(name, source, replaces, launches, row, timed_at, **extra):
         err, ms, plain_ms, bound_ms, bound_by, *library_ms = row
@@ -3743,7 +4290,8 @@ def main():
                 "augment_trainer": augment_counts[k],
                 "serving_daemon": daemon_counts[k],
                 **{path: c[k] for path, c in dp_counts.items()},
-                **{path: c[k] for path, c in real_counts.items()}}
+                **{path: c[k] for path, c in real_counts.items()},
+                **{path: c[k] for path, c in sharded_counts.items()}}
 
     def by_shape(rows):
         return {str(k): list(r[1:]) for k, r in rows.items()}

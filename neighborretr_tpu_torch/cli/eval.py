@@ -9,7 +9,9 @@ package, run the retrieval evaluation on a dataset split, print R@K.
 over N data-parallel ranks on this host (one process and one device each;
 `--coordinator/--num_processes/--process_id` start one rank by hand): each
 rank encodes its block of every batch and every rank computes the R@K of
-the gathered features.
+the gathered features.  `--tensor_parallel T` makes the ranks a data ×
+model mesh (N/T, T) and encodes with the towers' matrices split over
+`model` (parallel/tensor.py), with the JAX CLI's exits.
 """
 
 from __future__ import annotations
@@ -17,8 +19,7 @@ from __future__ import annotations
 import argparse
 
 
-def main(argv=None):
-    """Runs the evaluation → (t2v metrics, v2t metrics)."""
+def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(
         description="NeighborRetr evaluation (PyTorch/CUDA port)")
     p.add_argument("--datatype", default="msrvtt",
@@ -39,23 +40,37 @@ def main(argv=None):
     p.add_argument("--worker_mode", choices=["thread", "process"],
                    default="thread")
     p.add_argument("--tensor_parallel", type=int, default=1,
-                   help="the JAX CLI's sharded tower weights: not ported")
+                   help="split the towers' matrices over a `model` mesh "
+                        "axis of this size (see cli/train.py)")
     from .common import add_distributed_args, add_model_args
     add_model_args(p)
     add_distributed_args(p)
     args = p.parse_args(argv)
     args.batch_size = args.batch_size_val       # build_dataset's default size
-    if args.tensor_parallel != 1:
-        raise SystemExit(str(NotImplementedError(
-            "not ported to PyTorch yet: --tensor_parallel")))
+    return args
 
+
+def main(argv=None):
+    """Runs the evaluation → (t2v metrics, v2t metrics)."""
+    args = parse_args(argv)
     from .common import (init_distributed, ranks_on_this_host, resolve_device,
                          setup_logger)
 
     logger = setup_logger()
     resolve_device(args.device)
     world = args.num_processes or args.num_devices or 1
-    if args.batch_size_val % world:
+    tp = args.tensor_parallel
+    if tp > 1:
+        # an explicit TP request cannot degrade to a single-device eval
+        if world % tp:
+            raise SystemExit(f"--tensor_parallel {tp} must divide the "
+                             f"device count {world}")
+        if args.batch_size_val % (world // tp):
+            raise SystemExit(
+                f"--batch_size_val {args.batch_size_val} must be divisible "
+                f"by the data-mesh size {world // tp} (devices / "
+                "tensor_parallel) to use --tensor_parallel")
+    elif args.batch_size_val % world:
         if args.coordinator is not None:
             raise SystemExit(f"--batch_size_val {args.batch_size_val} must "
                              f"be divisible by the {world} ranks")
@@ -66,21 +81,25 @@ def main(argv=None):
     with ranks_on_this_host(args, "neighborretr_tpu_torch.cli.eval", argv):
         started = init_distributed(args)
         try:
-            return _run(args, logger)
+            return run(args, logger)
         finally:
             if started:
                 import torch.distributed as dist
                 dist.destroy_process_group()
 
 
-def _run(args, logger):
+def run(args, logger):
+    """The evaluation of parsed `args` in this process: under a started
+    process group, as rank `args.process_id` of `args.num_processes`."""
     from ..core.config import ClipConfig
     from ..data.loader import BatchLoader
-    from ..parallel.mesh import make_mesh
+    from ..parallel.mesh import make_mesh, place_params
     from ..train.evaluate import evaluate
     from .common import build_dataset, load_model, model_config, resolve_device
 
-    mesh = make_mesh(args.device)
+    n, tp = args.num_processes or 1, args.tensor_parallel
+    mesh = (make_mesh(args.device, (n // tp, tp), ("data", "model"))
+            if tp > 1 else make_mesh(args.device))
     device = resolve_device(str(mesh.device))
     if mesh.rank:
         logger.setLevel("ERROR")           # one rank logs
@@ -91,8 +110,9 @@ def _run(args, logger):
     loader = BatchLoader(ds, args.batch_size_val, shuffle=False,
                          drop_last=False, workers=args.workers,
                          worker_mode=args.worker_mode, pad_to_batch=True,
-                         process_index=mesh.rank, process_count=mesh.world)
-    model = load_model(args, cfg, device, logger)
+                         process_index=mesh.dp_rank,
+                         process_count=mesh.dp_size)
+    model = place_params(load_model(args, cfg, device, logger), mesh)
     return evaluate(model, cfg, loader, dataset=ds, logger=logger,
                     mesh=mesh)
 

@@ -22,9 +22,14 @@ layout and resume in either package.
 Data parallelism: `--num_devices N` runs N ranks on this host, one process
 and one device each (this process is rank 0, the others are started with
 the same arguments); `--coordinator host:port --num_processes N
---process_id I` starts one rank of a group launched by hand.  Each rank
-takes its block of every global batch; `--explicit_spmd` takes the
-row-sharded loss form (parallel/spmd.py).
+--process_id I` starts one rank of a group launched by hand.  Each data
+rank takes its block of every global batch; `--explicit_spmd` takes the
+row-sharded loss form (parallel/spmd.py).  The model-sharded strategies
+build the JAX CLI's meshes over the N ranks: `--tensor_parallel T` data ×
+model (N/T, T), `--pipeline_parallel S [--pipeline_microbatches M]` data ×
+stage (N/S, S), both data × stage × model (N/(S·T), S, T), and `--fsdp`
+FSDP2 over the data ranks (parallel/mesh.py, tensor.py, pipeline.py), with
+the JAX CLI's exits for the combinations it refuses.
 """
 
 from __future__ import annotations
@@ -42,9 +47,7 @@ from .common import (add_attention_impl_arg, add_distributed_args,
 # flags the JAX CLI has and the port does not honour yet: asking for one
 # (a value other than the default shown) exits
 UNPORTED = {
-    "bank_placement": "device",
-    "opt_moments_placement": "device", "tensor_parallel": 1,
-    "pipeline_parallel": 1, "pipeline_microbatches": 0, "fsdp": False,
+    "bank_placement": "device", "opt_moments_placement": "device",
     "debug_nans": False,
 }
 
@@ -152,15 +155,26 @@ def parse_args(argv=None):
                         "rank: each rank computes its rows of the similarity "
                         "matrices (parallel/spmd.py) instead of all of them "
                         "on the gathered features")
+    p.add_argument("--tensor_parallel", type=int, default=1,
+                   help="split each block's matrices (Megatron layout) over "
+                        "a `model` mesh axis of this size; the remaining "
+                        "ranks form the data axis")
+    p.add_argument("--pipeline_parallel", type=int, default=1,
+                   help="split the towers depth-wise over a `stage` mesh "
+                        "axis of this size (GPipe); the remaining ranks "
+                        "form the data axis")
+    p.add_argument("--pipeline_microbatches", type=int, default=0,
+                   help="microbatches streamed through the pipeline per "
+                        "step (0 → 4×stages)")
+    p.add_argument("--fsdp", action="store_true",
+                   help="FSDP2: shard every parameter and its moments over "
+                        "the data ranks (gathered just in time for each "
+                        "block, gradients reduce-scattered)")
     # the JAX CLI's flags for options that are not ported
     p.add_argument("--bank_placement", default="device",
                    choices=["device", "host"])
     p.add_argument("--opt_moments_placement", default="device",
                    choices=["device", "host"])
-    p.add_argument("--tensor_parallel", type=int, default=1)
-    p.add_argument("--pipeline_parallel", type=int, default=1)
-    p.add_argument("--pipeline_microbatches", type=int, default=0)
-    p.add_argument("--fsdp", action="store_true")
     p.add_argument("--debug_nans", action="store_true")
     return p.parse_args(argv)
 
@@ -231,7 +245,41 @@ def build_config(args) -> Config:
                           micro_batches=args.micro_batches,
                           num_devices=args.num_devices,
                           explicit_spmd=args.explicit_spmd,
+                          pipeline_parallel=args.pipeline_parallel,
+                          pipeline_microbatches=args.pipeline_microbatches,
+                          fsdp=args.fsdp,
                           mid_epoch_eval=bool(args.mid_epoch_eval)))
+
+
+def mesh_layout(args, n: int):
+    """(shape, axis names) of the training mesh over n ranks, with the JAX
+    CLI's exits for what it refuses (cli/train.py:273-326)."""
+    tp, pp = args.tensor_parallel, args.pipeline_parallel
+    if args.fsdp and (tp > 1 or pp > 1):
+        raise SystemExit("--fsdp applies to pure data-parallel meshes; drop "
+                         "--tensor_parallel/--pipeline_parallel")
+    if tp > 1 and pp > 1:
+        if args.explicit_spmd:
+            raise SystemExit("--tensor_parallel/--pipeline_parallel require "
+                             "the GSPMD path (drop --explicit_spmd)")
+        if n % (tp * pp):
+            raise SystemExit(f"--tensor_parallel×--pipeline_parallel = "
+                             f"{tp * pp} must divide the device count {n}")
+        return (n // (tp * pp), pp, tp), ("data", "stage", "model")
+    if tp > 1:
+        if args.explicit_spmd:
+            raise SystemExit("--tensor_parallel requires the GSPMD path "
+                             "(drop --explicit_spmd)")
+        if n % tp:
+            raise SystemExit(f"--tensor_parallel {tp} must divide the "
+                             f"device count {n}")
+        return (n // tp, tp), ("data", "model")
+    if pp > 1:
+        if n % pp:
+            raise SystemExit(f"--pipeline_parallel {pp} must divide the "
+                             f"device count {n}")
+        return (n // pp, pp), ("data", "stage")
+    return (n,), ("data",)
 
 
 def build_datasets(args, cfg: Config):
@@ -280,8 +328,9 @@ def main(argv=None):
         raise SystemExit(f"--num_devices {args.num_devices} does not cover "
                          f"the --num_processes {args.num_processes} ranks "
                          "(one device per rank)")
+    shape, _ = mesh_layout(args, world)
     try:
-        validate(build_config(args), world)
+        validate(build_config(args), shape[0])
     except ValueError as e:
         raise SystemExit(str(e))
     with ranks_on_this_host(args, "neighborretr_tpu_torch.cli.train", argv):
@@ -301,7 +350,7 @@ def _run(args):
     from ..train.loop import run_training
     from ..utils.logging import setup_logger
 
-    mesh = make_mesh(args.device)
+    mesh = make_mesh(args.device, *mesh_layout(args, args.num_processes or 1))
     device = resolve_device(str(mesh.device))
     note = None
     if args.resume_checkpoint == "auto":
@@ -329,6 +378,14 @@ def _run(args):
                     dist.get_backend(), "explicit row-sharded"
                     if cfg.train.explicit_spmd and mesh.world > 1
                     else "gathered")
+        logger.info("Mesh: %s%s", mesh.sizes,
+                    ", FSDP2 over the data ranks" if cfg.train.fsdp else "")
+    if args.pipeline_parallel > 1 and (args.unroll_layers
+                                       or args.remat_skip_last):
+        logger.warning(
+            "--unroll_layers/--remat_skip_last shape the plain scan path; "
+            "pipelined towers use their own per-microbatch schedule and "
+            "ignore them (--remat and --remat_policy do carry over)")
     logger.info("Config:\n%s", cfg.to_json())
     train_ds, test_ds = build_datasets(args, cfg)
     return run_training(cfg, train_ds, test_ds, logger=logger, device=device,

@@ -9,13 +9,22 @@ and back), `bank//ind|feat_t|feat_v|mask_t|mask_v`, `opt_step`, `step`; a
 saves resumes in the other.  bf16 leaves are stored as fp32 (npz has no
 portable bf16) and cast back on load.
 
+On a model-sharded placement (parallel/mesh.py::place_params: FSDP2, the
+Megatron split, the stage slices) every file holds full leaves in the JAX
+layout: the parameters and moments are gathered first (`gather_full`, a
+collective every rank calls), and a load takes each rank's part of them
+(`local_piece`), so a state resumes under any placement, in either
+package.  FSDP2's dim-0 chunk of a [3D, D] matrix is no box of the JAX
+[D, 3, D] layout, so no shard is written as it lies.
+
 A run of several processes (one per device, parallel/mesh.py) saves its
 preemption state as the JAX package's per-process sharded set:
 `{tag}.shard{p}.npz` per process and `{tag}.manifest.json` from process 0.
-The port's state is replicated, so process 0's file holds every leaf (the
-`full//` keys) and the others hold the step; a set the JAX package wrote
-with sharded leaves (`shape//`, `shdata//`, `shidx//`) is reassembled.
-Sets cross both ways.
+Process 0 writes every leaf under the `full//` keys and the others the
+step; a sharded state is gathered first (the ranks stop together at a step
+boundary, so the gathers can run).  A set the JAX package wrote with
+sharded leaves (`shape//`, `shdata//`, `shidx//`) is reassembled.  Sets
+cross both ways.
 """
 
 from __future__ import annotations
@@ -186,16 +195,16 @@ class AsyncWriter:
 
 
 def params_tree(model) -> Tree:
-    """The model's parameters as the JAX package's pytree (numpy fp32)."""
-    return weights_io.to_jax_params(model.state_dict(), model.cfg)
+    """The model's full parameters as the JAX package's pytree (numpy
+    fp32); gathered on a sharded placement (every rank calls it then)."""
+    return weights_io.to_jax_params(pmesh.full_state_dict(model), model.cfg)
 
 
 def load_tree_into_model(model, tree: Tree) -> None:
-    """Copy a JAX-layout parameter pytree into the model, in place."""
-    sd = weights_io.state_dict_from_jax_params(tree, model.cfg)
-    with torch.no_grad():
-        for name, p in model.state_dict().items():
-            p.copy_(torch.as_tensor(sd[name]))
+    """Copy a JAX-layout parameter pytree into the model, in place (each
+    rank's part on a sharded placement)."""
+    pmesh.load_full_state_dict(
+        model, weights_io.state_dict_from_jax_params(tree, model.cfg))
 
 
 def save_params(path: str, params) -> None:
@@ -257,21 +266,24 @@ def resolve_resume_auto(output_dir: str,
     return os.path.join(output_dir, name) if name else None
 
 
-def _moments_tree(moments: Dict[str, torch.Tensor], cfg) -> Tree:
-    """Adam moments (keyed like the state dict) in the JAX layout: the map
-    is a permutation of entries, so it holds for m and for v."""
-    return weights_io.to_jax_params(moments, cfg)
+def _moments_tree(moments: Dict[str, torch.Tensor], model) -> Tree:
+    """Adam moments (keyed like the state dict) in the JAX layout, gathered
+    on a sharded placement: the map is a permutation of entries, so it
+    holds for m and for v."""
+    placement = pmesh.placement_of(model)
+    if placement is not None:
+        moments = pmesh.gather_full(moments, placement)
+    return weights_io.to_jax_params(moments, model.cfg)
 
 
 def train_state_payload(state) -> Dict[str, np.ndarray]:
     """Host copy of a train/step.py::TrainState in the npz key layout.
     Taken synchronously (parameters change in place at the next step); the
     write itself may then run in the background (`_atomic_savez`)."""
-    cfg = state.model.cfg
     payload: Dict[str, np.ndarray] = {}
     for name, tree in (("params", params_tree(state.model)),
-                       ("opt_m", _moments_tree(state.opt.m, cfg)),
-                       ("opt_v", _moments_tree(state.opt.v, cfg)),
+                       ("opt_m", _moments_tree(state.opt.m, state.model)),
+                       ("opt_v", _moments_tree(state.opt.v, state.model)),
                        ("bank", state.bank._asdict())):
         payload.update(flatten_tree(tree, name))
     payload["opt_step"] = np.asarray(state.opt.step, np.int32)
@@ -310,8 +322,7 @@ def _train_state_from_flat(flat: Dict[str, np.ndarray], state_like):
     def moments(prefix: str, old: Dict[str, torch.Tensor]):
         sd = weights_io.state_dict_from_jax_params(
             unflatten_into(like, sub(prefix)), cfg)
-        return {n: torch.as_tensor(sd[n]).to(device=t.device, dtype=t.dtype)
-                for n, t in old.items()}
+        return pmesh.local_like(sd, old, pmesh.placement_of(model))
 
     opt = BertAdamState(step=int(flat["opt_step"]),
                         m=moments("opt_m", state_like.opt.m),
@@ -335,17 +346,20 @@ MANIFEST_SUFFIX = ".manifest.json"
 def save_sharded_train_state(output_dir: str, state,
                              tag: str = "state_preempt",
                              mesh: Optional[pmesh.DataGroup] = None) -> str:
-    """Every process of the data group calls this; each writes
-    `{tag}.shard{rank}.npz`, process 0 also `{tag}.manifest.json`.  The
-    state is replicated, so process 0's file holds every leaf under `full//`
-    (the JAX package's key for a replicated leaf) and the others hold the
-    step only.  Shard files of an earlier, larger group are removed.
-    Returns this process's shard path."""
+    """Every process of the mesh calls this; each writes
+    `{tag}.shard{rank}.npz`, process 0 also `{tag}.manifest.json`.  Process
+    0's file holds every leaf under `full//` (the JAX package's key for a
+    replicated leaf) and the others hold the step only; a sharded state is
+    first gathered, a collective every process joins.  Shard files of an
+    earlier, larger group are removed.  Returns this process's shard
+    path."""
     mesh = mesh if mesh is not None else pmesh.DataGroup()
     payload: Dict[str, np.ndarray] = {}
-    if mesh.rank == 0:
-        payload = {(f"full{_SEP}{k}" if _SEP in k else k): v
-                   for k, v in train_state_payload(state).items()}
+    if mesh.rank == 0 or pmesh.placement_of(state.model) is not None:
+        full = train_state_payload(state)
+        if mesh.rank == 0:
+            payload = {f"full{_SEP}{k}": v for k, v in full.items()
+                       if _SEP in k}
     payload["opt_step"] = np.asarray(state.opt.step, np.int32)
     payload["step"] = np.asarray(state.step, np.int32)
     payload["process_count"] = np.asarray(mesh.world, np.int64)

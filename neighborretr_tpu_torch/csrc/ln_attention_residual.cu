@@ -49,7 +49,7 @@ int sublayer_fwd(const void* x, const float* bias, const float* ln_w,
                  const float* ln_b, const void* w_qkv, const float* b_qkv,
                  const void* w_out, const float* b_out, void* work, void* y,
                  int N, int L, int D, int H, float eps, void* stream) {
-  if (bad_sublayer(N, L, D, H)) return (int)cudaErrorInvalidValue;
+  if (bad_sublayer(N, L, D, H, LN)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const bf16* xb = static_cast<const bf16*>(x);
   Work w;
@@ -60,7 +60,7 @@ int sublayer_fwd(const void* x, const float* bias, const float* ln_w,
     return err;
   return gemm<false, false, true, LN, bf16>(
       w.attn, static_cast<const bf16*>(w_out), static_cast<bf16*>(y), b_out,
-      xb, N * L, D, D, nullptr, s);
+      xb, N * L, D, HD * H, nullptr, s);
 }
 
 }  // namespace
@@ -90,7 +90,10 @@ extern "C" int ln_attention_residual_fwd(
 // K10: the same without LayerNorm and residual, on a pre-normalised h
 // [N, L, D] bf16 (neighborretr_tpu/ops/pallas_block_attention.py::
 // _block_attention_core and _block_attention_biased_core); work of
-// ln_attention_residual_workspace(N, L, D, H, 0) bytes.
+// ln_attention_residual_workspace(N, L, D, H, 0) bytes.  The H heads may be
+// a part of the model's (tensor parallelism): with E = 64·H, w_qkv is
+// [3E, D] (this part's rows of q, k and v), b_qkv [3E], w_out [D, E] (its
+// columns); D a multiple of 64.
 extern "C" int attention_sublayer_fwd(
     const void* h, const float* bias, const void* w_qkv, const float* b_qkv,
     const void* w_out, const float* b_out, void* work, void* y, int N, int L,

@@ -142,8 +142,9 @@ int sublayer_bwd(const void* x, const float* bias, const float* ln_w,
                  const void* w_out, const void* g, void* work, void* dx,
                  float* dln, float* dw_qkv, float* db_qkv, float* dw_out,
                  int N, int L, int D, int H, float eps, void* stream) {
-  if (bad_sublayer(N, L, D, H)) return (int)cudaErrorInvalidValue;
+  if (bad_sublayer(N, L, D, H, LN)) return (int)cudaErrorInvalidValue;
   const int M = N * L;
+  const int E = HD * H;     // the attention's width: D, or a TP part of it
   cudaStream_t s = (cudaStream_t)stream;
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* gb = static_cast<const bf16*>(g);
@@ -160,18 +161,18 @@ int sublayer_bwd(const void* x, const float* bias, const float* ln_w,
   // 4. dattn = g · W_o
   if (int err = gemm<false, true, false, false, bf16>(
           gb, static_cast<const bf16*>(w_out), w.dattn, nullptr, nullptr, M,
-          D, D, nullptr, s))
+          E, D, nullptr, s))
     return err;
   // 5. the attention backward: dqkv (bf16) and its fp32 column sums
   if (int err = attention_bwd(w.qkv, bias, w.dattn, w.attn, w.lse, w.stats,
-                              w.dqkv, w.part_db, N, L, D, H, s))
+                              w.dqkv, w.part_db, N, L, E, H, s))
     return err;
   // 6. dh = dqkv16 · W_qkv
   int err = LN ? gemm<false, true, false, false, float>(
-                     w.dqkv, wq, w.dh, nullptr, nullptr, M, D, 3 * D,
+                     w.dqkv, wq, w.dh, nullptr, nullptr, M, D, 3 * E,
                      nullptr, s)
                : gemm<false, true, false, false, bf16>(
-                     w.dqkv, wq, dxb, nullptr, nullptr, M, D, 3 * D, nullptr,
+                     w.dqkv, wq, dxb, nullptr, nullptr, M, D, 3 * E, nullptr,
                      s);
   if (err) return err;
   // 7. LN backward + residual (or db_o alone): dx, partials of dLN and db_o
@@ -185,13 +186,13 @@ int sublayer_bwd(const void* x, const float* bias, const float* ln_w,
   if (cudaError_t e = cudaGetLastError()) return (int)e;
   // 8. dW_qkv = dqkv16ᵀ · h16, dW_o = g16ᵀ · attn_out16
   if ((err = gemm<true, true, false, false, float>(
-           w.dqkv, h, dw_qkv, nullptr, nullptr, 3 * D, D, M, w.part_w, s)))
+           w.dqkv, h, dw_qkv, nullptr, nullptr, 3 * E, D, M, w.part_w, s)))
     return err;
   if ((err = gemm<true, true, false, false, float>(
-           gb, w.attn, dw_out, nullptr, nullptr, D, D, M, w.part_w, s)))
+           gb, w.attn, dw_out, nullptr, nullptr, D, E, M, w.part_w, s)))
     return err;
   // 9. ordered sums of the row partials
-  if (cudaError_t e = reduce_rows8(w.part_db, db_qkv, N, 3 * D, s))
+  if (cudaError_t e = reduce_rows8(w.part_db, db_qkv, N, 3 * E, s))
     return (int)e;
   return (int)reduce_rows8(w.part_ln, dln, nblk, 3 * D, s);
 }
@@ -228,7 +229,10 @@ extern "C" int ln_attention_residual_bwd(
 // pallas_block_attention.py::_block_attention_bwd and
 // _block_attention_biased_bwd): h in place of x, dh in place of dx, rows 0
 // and 1 of dln zero; work of ln_attention_residual_bwd_workspace(N, L, D,
-// H, 0) bytes; shapes and requirements as above.
+// H, 0) bytes; shapes and requirements as above, but that the H heads may
+// be a part of the model's (tensor parallelism): with E = 64·H, w_qkv,
+// dw_qkv [3E, D], b_qkv, db_qkv [3E], w_out, dw_out [D, E]; D a multiple
+// of 64.
 extern "C" int attention_sublayer_bwd(
     const void* h, const float* bias, const void* w_qkv, const float* b_qkv,
     const void* w_out, const void* g, void* work, void* dh, float* dln,
@@ -248,7 +252,7 @@ extern "C" int sublayer_core_bwd(const void* qkv, const float* bias,
                                  const float* lse, float* stats, void* dqkv,
                                  float* part_db, int N, int L, int D, int H,
                                  void* stream) {
-  if (bad_sublayer(N, L, D, H)) return (int)cudaErrorInvalidValue;
+  if (bad_sublayer(N, L, D, H, true)) return (int)cudaErrorInvalidValue;
   return attention_bwd(static_cast<const bf16*>(qkv), bias,
                        static_cast<const bf16*>(g),
                        static_cast<const bf16*>(out), lse, stats,

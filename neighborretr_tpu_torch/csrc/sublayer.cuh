@@ -312,6 +312,7 @@ constexpr int LN_ROWS = 64;   // rows of a LayerNorm-backward block
 inline size_t carve(void* base, int N, int L, int D, int H, bool ln, bool bwd,
                     Work& w) {
   const size_t M = (size_t)N * L;
+  const size_t E = (size_t)HD * H;   // the attention's width (D unless split)
   size_t off = 0;
   auto take = [&](size_t bytes) {
     void* p = base ? static_cast<uint8_t*>(base) + off : nullptr;
@@ -320,26 +321,31 @@ inline size_t carve(void* base, int N, int L, int D, int H, bool ln, bool bwd,
   };
   w = Work{};
   if (ln) w.h16 = static_cast<bf16*>(take(M * D * 2));
-  w.qkv = static_cast<bf16*>(take(M * 3 * D * 2));
-  w.attn = static_cast<bf16*>(take(M * D * 2));
+  w.qkv = static_cast<bf16*>(take(M * 3 * E * 2));
+  w.attn = static_cast<bf16*>(take(M * E * 2));
   w.lse = static_cast<float*>(take((size_t)N * H * L * 4));
   if (bwd) {
     w.stats = static_cast<float*>(take((size_t)N * H * 3 * L * 4));
-    w.dattn = static_cast<bf16*>(take(M * D * 2));
-    w.dqkv = static_cast<bf16*>(take(M * 3 * D * 2));
+    w.dattn = static_cast<bf16*>(take(M * E * 2));
+    w.dqkv = static_cast<bf16*>(take(M * 3 * E * 2));
     if (ln) w.dh = static_cast<float*>(take(M * D * 4));
-    w.part_db = static_cast<float*>(take((size_t)N * 3 * D * 4));
+    w.part_db = static_cast<float*>(take((size_t)N * 3 * E * 4));
     w.part_ln = static_cast<float*>(
         take((M + LN_ROWS - 1) / LN_ROWS * 3 * D * 4));
-    w.part_w = static_cast<float*>(take((size_t)MAX_SPLITS * 3 * D * D * 4));
+    w.part_w = static_cast<float*>(take((size_t)MAX_SPLITS * 3 * E * D * 4));
   }
   return off;
 }
 
 // what these kernels take: 1 <= L <= 64 (one key tile: K8/K9 keep the TPU's
-// rounding there), head dim 64, at most 65535 row tiles
-inline bool bad_sublayer(int N, int L, int D, int H) {
-  return N < 1 || L < 1 || L > TILE || H < 1 || D != HD * H ||
+// rounding there), head dim 64, at most 65535 row tiles.  `ln`: the model
+// width D is the attention's, 64·H (K1/K3, whose residual and LayerNorm
+// need it); else (K10/K11) the H heads may be a part of the model's, as
+// under tensor parallelism (W_qkv [3·64H, D], W_o [D, 64H]), D a multiple
+// of 64
+inline bool bad_sublayer(int N, int L, int D, int H, bool ln) {
+  return N < 1 || L < 1 || L > TILE || H < 1 ||
+         (ln ? D != HD * H : D % HD != 0) ||
          (long long)N * L > 65535ll * GBM;
 }
 
@@ -358,10 +364,11 @@ int forward_stages(const bf16* x, const float* bias, const float* ln_w,
     if (cudaError_t e = cudaGetLastError()) return (int)e;
     h = w.h16;
   }
+  const int E = HD * H;
   if (int err = gemm<false, false, true, false, bf16>(
-          h, w_qkv, w.qkv, b_qkv, nullptr, M, 3 * D, D, nullptr, s))
+          h, w_qkv, w.qkv, b_qkv, nullptr, M, 3 * E, D, nullptr, s))
     return err;
-  return attention_fwd(w.qkv, bias, w.attn, w.lse, N, L, D, H, s);
+  return attention_fwd(w.qkv, bias, w.attn, w.lse, N, L, E, H, s);
 }
 
 }  // namespace

@@ -24,6 +24,11 @@ any device — the reference the kernels are held to on the card.
 checkpoint, non-reentrant), by the JAX package's three policies; see
 `ResidualAttentionBlock.forward`.  Parameters are created uninitialised; see
 weights_io.init_model and weights_io.from_jax_params.
+
+Model-sharded placements (parallel/mesh.py::place_params) hook in here: a
+block given `tp` (a `model` axis) runs the Megatron split of its sublayers
+(parallel/tensor.py), and a tower given `stages` (a `stage` axis) runs as a
+GPipe pipeline (parallel/pipeline.py).
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import fused_frame_attention
 from ..ops.block_attention import layer_norm, ln_attention_sublayer, mha
+from ..parallel import pipeline, tensor
 
 __all__ = ["NEG_INF", "quick_gelu", "layer_norm", "mha", "LayerNorm",
            "MultiheadAttention", "ResidualAttentionBlock", "Transformer",
@@ -112,6 +118,7 @@ class ResidualAttentionBlock(nn.Module):
     def __init__(self, d_model: int, n_head: int, device=None):
         super().__init__()
         self.n_head = n_head
+        self.tp: Optional[tensor.ModelGroup] = None   # set by the TP split
         self.ln_1 = LayerNorm(d_model, device=device)
         self.attn = MultiheadAttention(d_model, device=device)
         self.ln_2 = LayerNorm(d_model, device=device)
@@ -127,6 +134,8 @@ class ResidualAttentionBlock(nn.Module):
         output) and compute the rest again there."""
         a = self.attn
         route = attention_route(fused_attention, x.shape[1], x.is_cuda)
+        if self.tp is not None:     # this rank's heads; lean changes nothing
+            return tensor.attention(self, x, bias, dtype, route, kernels)
         x = x.to(dtype)
         if route == "block":        # saves its inputs only, as it is
             return ln_attention_sublayer(
@@ -168,8 +177,18 @@ class ResidualAttentionBlock(nn.Module):
             return self.attention(x, bias, dtype, kernels, fused_attention,
                                   lean)
 
+        def mlp_hidden(x):
+            if self.tp is not None:
+                return tensor.mlp_hidden(self, x, dtype)
+            return self.mlp.hidden(self.ln_2(x), dtype)
+
+        def mlp_out(x, hidden):
+            if self.tp is not None:
+                return tensor.mlp_out(self, x, hidden, dtype)
+            return x + linear(hidden, self.mlp.c_proj, dtype)
+
         def mlp(x):
-            return x + self.mlp(self.ln_2(x), dtype)
+            return mlp_out(x, mlp_hidden(x))
 
         if remat is None:
             return mlp(attention(x))
@@ -179,9 +198,7 @@ class ResidualAttentionBlock(nn.Module):
             return _checkpoint(mlp, attention(x, lean=True))
         if remat == "dots":
             x = _checkpoint(attention, x)
-            hidden = _checkpoint(
-                lambda x: self.mlp.hidden(self.ln_2(x), dtype), x)
-            return x + linear(hidden, self.mlp.c_proj, dtype)
+            return mlp_out(x, _checkpoint(mlp_hidden, x))
         raise ValueError(f"remat policy {remat!r} is not one of "
                          f"{REMAT_POLICIES}")
 
@@ -217,6 +234,8 @@ class Transformer(nn.Module):
         self.resblocks = nn.ModuleList(
             ResidualAttentionBlock(width, heads, device=device)
             for _ in range(layers))
+        # this stage's slice, set by the pipeline placement
+        self.stages: Optional[pipeline.StageSlice] = None
 
     def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor],
                 dtype: torch.dtype, kernels: bool = True,
@@ -231,6 +250,10 @@ class Transformer(nn.Module):
         if remat and remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy {remat_policy!r} is not one of "
                              f"{REMAT_POLICIES}")
+        if self.stages is not None:
+            return pipeline.pipeline_transformer_apply(
+                self, x, attn_bias, dtype, kernels, fused_attention, remat,
+                remat_policy, ctx=pipeline.current())
         bias = None
         if attn_bias is not None:
             N, L = x.shape[0], x.shape[1]

@@ -73,6 +73,15 @@ class NeighborRetr(nn.Module):
     def compute_dtype(self) -> torch.dtype:
         return DTYPES[self.cfg.compute_dtype]
 
+    def forward(self, fn, *args, **kwargs):
+        """fn(self, *args, **kwargs) as this module's forward, so that hooks
+        on the model wrap the whole computation: under FSDP2
+        (parallel/mesh.py) the parameters outside the residual blocks are
+        gathered before it and resharded after, and their gradients
+        reduce-scattered in the backward.  The train step, the bank fill
+        and the eval encode through it."""
+        return fn(self, *args, **kwargs)
+
     def get_text_feat(self, text_ids: torch.Tensor, text_mask: torch.Tensor,
                       kernels: bool = True) -> torch.Tensor:
         """[B, W] ids/mask → [B, W, E] projected token hidden (fp32)."""

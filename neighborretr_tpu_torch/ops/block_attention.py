@@ -97,12 +97,13 @@ def ln_attention_residual_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
 
 def _mha_bwd(h, w_qkv, b_qkv, w_out, n_head: int, g, bias, dt):
     """The backward of `mha` from g = dy, recomputing the forward from h:
-    (dh, dw_qkv [3D, D], db_qkv, dw_out [D, D], db_out), all fp32.  h and g
+    (dh, dw_qkv [3E, D], db_qkv, dw_out [D, E], db_out), all fp32, E the
+    attention's width (D, or a tensor-parallel part of it).  h and g
     hold values of the operand dtype `dt`; operands are rounded to it where
     the TPU kernels round (qkv, scaled q, probs, attn_out, dattn,
     dlogits·scale, dqkv) and multiplied in fp32; db_qkv sums the unrounded
     dqkv."""
-    D = h.shape[-1]
+    D, E = h.shape[-1], w_out.shape[1]   # E < D: a tensor-parallel part
 
     def rnd(t):
         return t.to(dt).float()
@@ -114,12 +115,12 @@ def _mha_bwd(h, w_qkv, b_qkv, w_out, n_head: int, g, bias, dt):
     g16 = rnd(g32)
     g3 = rnd(g16 @ wo)                                       # dattn
     attn, dqkv = attention_core(qkv, n_head, bias, g3)
-    dw_out = g16.reshape(-1, D).T @ attn.reshape(-1, D)
+    dw_out = g16.reshape(-1, D).T @ attn.reshape(-1, E)
     db_out = g32.reshape(-1, D).sum(dim=0)
     dqkv16 = rnd(dqkv)
     dh = dqkv16 @ wq
-    dw_qkv = dqkv16.reshape(-1, 3 * D).T @ h.reshape(-1, D)
-    db_qkv = dqkv.reshape(-1, 3 * D).sum(dim=0)
+    dw_qkv = dqkv16.reshape(-1, 3 * E).T @ h.reshape(-1, D)
+    db_qkv = dqkv.reshape(-1, 3 * E).sum(dim=0)
     return dh, dw_qkv, db_qkv, dw_out, db_out
 
 
@@ -191,18 +192,22 @@ def _check(name, t, dtype, shape, device):
 
 def _check_cuda_args(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, n_head, bias):
     """What the kernels take: bf16 activations and weights, fp32 LN params
-    (None for K10/K11) and biases, contiguous, head dim 64, L <= 64.
-    Anything else raises."""
+    (None for K10/K11) and biases, contiguous, head dim 64, L <= 64.  K10/K11
+    also take n_head heads that are a part of the model's (tensor
+    parallelism): E = 64·n_head, w_qkv [3E, D], w_out [D, E], D a multiple
+    of 64.  Anything else raises."""
     if x.dim() != 3:
         raise ValueError(f"activations must be [N, L, D], got "
                          f"{tuple(x.shape)}")
     N, L, D = x.shape
+    E = w_qkv.shape[0] // 3           # the attention's width
     if x.dtype != torch.bfloat16:
         raise ValueError(
             f"the attention-sublayer kernel computes in bfloat16; got {x.dtype}"
             " activations on CUDA (compute_dtype='float32' has no CUDA kernel "
             "in this port yet — use compute_dtype='bfloat16')")
-    if D != 64 * n_head or L > 64:
+    whole = ln_w is not None        # K1/K3: the residual needs D == E
+    if E != 64 * n_head or (D != E if whole else D % 64) or L > 64:
         raise ValueError(f"attention-sublayer kernel takes head dim 64 and "
                          f"L <= 64; got D={D}, heads={n_head}, L={L}")
     if N * L > MAX_ROWS:
@@ -212,8 +217,8 @@ def _check_cuda_args(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, n_head, bias):
     f32, b16 = torch.float32, torch.bfloat16
     for name, t, dtype, shape in (
             ("x", x, b16, (N, L, D)), ("ln_w", ln_w, f32, (D,)),
-            ("ln_b", ln_b, f32, (D,)), ("w_qkv", w_qkv, b16, (3 * D, D)),
-            ("b_qkv", b_qkv, f32, (3 * D,)), ("w_out", w_out, b16, (D, D)),
+            ("ln_b", ln_b, f32, (D,)), ("w_qkv", w_qkv, b16, (3 * E, D)),
+            ("b_qkv", b_qkv, f32, (3 * E,)), ("w_out", w_out, b16, (D, E)),
             ("b_out", b_out, f32, (D,))):
         if t is not None or name not in ("ln_w", "ln_b"):
             _check(name, t, dtype, shape, dev)
@@ -268,6 +273,7 @@ def _launch_bwd(entry: str, argtypes, x, ln, w_qkv, b_qkv, w_out, n_head: int,
     on checked arguments → (dx, dln [3, D], dw_qkv, db_qkv, dw_out); ln:
     (ln_w, ln_b), or None for K11 (dln's rows 0 and 1 then stay zero)."""
     N, L, D = x.shape
+    E = 64 * n_head
     dev = x.device
     _check("g", g, torch.bfloat16, (N, L, D), dev)
     lib = "ln_attention_residual_bwd"
@@ -276,9 +282,9 @@ def _launch_bwd(entry: str, argtypes, x, ln, w_qkv, b_qkv, w_out, n_head: int,
                        dtype=torch.uint8, device=dev)
     dx = torch.empty_like(x)
     dln = torch.empty((3, D), dtype=f32, device=dev)
-    dw_qkv = torch.empty((3 * D, D), dtype=f32, device=dev)
-    db_qkv = torch.empty(3 * D, dtype=f32, device=dev)
-    dw_out = torch.empty((D, D), dtype=f32, device=dev)
+    dw_qkv = torch.empty((3 * E, D), dtype=f32, device=dev)
+    db_qkv = torch.empty(3 * E, dtype=f32, device=dev)
+    dw_out = torch.empty((D, E), dtype=f32, device=dev)
     P = _build.ptr
     ln_args = [P(ln[0]), P(ln[1])] if ln is not None else []
     eps = [LN_EPS] if ln is not None else []
@@ -340,10 +346,12 @@ def attention_sublayer_bwd_plain(h, w_qkv, b_qkv, w_out, b_out, n_head: int,
 
 def attention_sublayer(h, w_qkv, b_qkv, w_out, b_out, n_head: int,
                        bias=None) -> torch.Tensor:
-    """K10: h [N, L, D]; w_qkv [3D, D], b_qkv [3D]; w_out [D, D], b_out [D];
-    bias [N, L, L] fp32 or None → y [N, L, D] in h's dtype.  A CPU tensor
-    takes the plain version.  On CUDA: h and both weights bf16, biases fp32,
-    all contiguous; head dim 64 and L <= 64.  Anything else raises."""
+    """K10: h [N, L, D]; w_qkv [3E, D], b_qkv [3E]; w_out [D, E], b_out [D];
+    bias [N, L, L] fp32 or None → y [N, L, D] in h's dtype, E = 64·n_head
+    (D, or the part of the heads a tensor-parallel rank holds).  A CPU
+    tensor takes the plain version.  On CUDA: h and both weights bf16,
+    biases fp32, all contiguous; head dim 64 and L <= 64.  Anything else
+    raises."""
     if not h.is_cuda:
         return attention_sublayer_plain(h, w_qkv, b_qkv, w_out, b_out, n_head,
                                         bias)

@@ -5,11 +5,17 @@
 Starts two processes, both on cuda:0, twice:
   nccl  one all-reduce over NCCL (which expects one rank per card): prints
         the error each rank gets, or that it passed;
-  gloo  the collectives the data group (parallel/mesh.py) calls, on CUDA
-        tensors over gloo: broadcast, all_gather, all_reduce SUM and MAX,
-        broadcast_object_list, each checked against its expected value,
-        and the time of one all-reduce of 151 M fp32 values (ViT-B/32's
-        gradient buffer) — with the card's name and power limit.
+  gloo  the collectives the mesh (parallel/mesh.py) and the sharded
+        strategies call, on CUDA tensors over gloo: broadcast, all_gather,
+        all_reduce SUM and MAX, broadcast_object_list, all_gather_into_tensor,
+        reduce_scatter_tensor, an all-reduce over a subgroup, one FSDP2
+        (`fully_shard`) step on a two-layer module over a gloo device mesh,
+        batch_isend_irecv around the ring on CPU tensors, then (last: a
+        crash there ends the rank) on CUDA tensors; each checked against
+        its expected value (or the error it raised).  DTensor's `full_tensor` is left out: over gloo on CUDA
+        tensors it ends the process (seen with torch 2.11).  And the time
+        of one all-reduce of 151 M fp32 values (ViT-B/32's gradient
+        buffer) — with the card's name and power limit.
 Each run has a time limit of its own; every process is stopped at the end.
 """
 
@@ -27,11 +33,14 @@ GRAD_NUMEL = 151_000_000
 
 
 def _rank(backend: str, rank: int, port: int) -> None:
+    import faulthandler
+
     import torch
+    faulthandler.enable()
     import torch.distributed as dist
     torch.cuda.set_device(0)
     dev = torch.device("cuda", 0)
-    out = {"backend": backend, "rank": rank}
+    out = {"backend": backend, "rank": rank, "torch": torch.__version__}
     try:
         dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
                                 world_size=2, rank=rank)
@@ -62,12 +71,94 @@ def _rank(backend: str, rank: int, port: int) -> None:
                 times.append(time.perf_counter() - t0)
             out["big_all_reduce_s"] = times
             out["big_all_reduce_ok"] = bool((big == 8.0).all())
+            del big
+            out.update(_sharding_collectives(dist, torch, dev, rank, out))
         dist.destroy_process_group()
         out["ok"] = True
     except Exception as e:          # the probe reports what each rank saw
         out["ok"] = False
         out["error"] = f"{type(e).__name__}: {e}"
     print("PROBE " + json.dumps(out), flush=True)
+
+
+def _attempt(fn):
+    """fn()'s value, or the error it raised: the probe records what each
+    collective does on this backend."""
+    try:
+        return fn()
+    except Exception as e:
+        return f"error {type(e).__name__}: {str(e)[:300]}"
+
+
+def _sharding_collectives(dist, torch, dev, rank: int, out: dict) -> dict:
+    """The collectives of the sharded strategies (FSDP2, the pipeline's
+    ring, the tensor-parallel subgroups) on CUDA tensors, two ranks; each
+    result is added to `out` and printed as it comes."""
+    x = torch.arange(4., device=dev) + rank
+
+    def agit():
+        o = torch.empty(8, device=dev)
+        dist.all_gather_into_tensor(o, x)
+        return o.tolist()
+
+    def rst():
+        o = torch.empty(2, device=dev)
+        dist.reduce_scatter_tensor(o, x.clone())
+        return o.tolist()
+
+    def p2p(on):
+        def run():
+            src, r = x.to(on), torch.empty(4, device=on)
+            ops = [dist.P2POp(dist.isend, src, (rank + 1) % 2),
+                   dist.P2POp(dist.irecv, r, (rank + 1) % 2)]
+            for w in dist.batch_isend_irecv(ops):
+                w.wait()
+            return r.tolist()
+        return run
+
+    def subgroup():
+        mine, _ = dist.new_subgroups_by_enumeration([[0, 1]])
+        t = torch.full((2,), float(rank + 1), device=dev)
+        dist.all_reduce(t, group=mine)
+        return t.tolist()
+
+    def fsdp2():
+        """One FSDP2 step over gloo."""
+        def run():
+            from torch.distributed.device_mesh import DeviceMesh
+            from torch.distributed.fsdp import fully_shard
+            torch.manual_seed(0)
+            m = torch.nn.Sequential(torch.nn.Linear(8, 6),
+                                    torch.nn.Linear(6, 4)).to(dev)
+            ref = sum(p.sum().item() for p in m.parameters())
+            dm = DeviceMesh.from_group(dist.new_group([0, 1]), "cuda")
+            for layer in list(m) + [m]:
+                fully_shard(layer, mesh=dm)
+            m(torch.ones(2, 8, device=dev)).sum().backward()
+
+            def total(ts):       # not DTensor.full_tensor: see the docstring
+                t = torch.stack([x.to_local().sum() for x in ts])
+                dist.all_reduce(t)
+                return t.tolist()
+
+            return {"params_equal": abs(sum(total(m.parameters())) - ref)
+                    < 1e-5,
+                    "grad_sums": total([p.grad for p in m.parameters()])}
+        return run
+
+    # the ring on CUDA tensors last: over gloo it aborts the process (a
+    # write from a device pointer), so every earlier result is printed
+    # before it runs
+    for name, fn in (("all_gather_into_tensor", agit),
+                     ("reduce_scatter_tensor", rst),
+                     ("subgroup_all_reduce", subgroup),
+                     ("fsdp2", fsdp2()),
+                     ("batch_isend_irecv_host", p2p("cpu")),
+                     ("batch_isend_irecv_cuda", p2p(dev))):
+        out[name] = _attempt(fn)
+        torch.cuda.synchronize()
+        print("PROBE " + json.dumps(out), flush=True)
+    return out
 
 
 def _run(backend: str, timeout: float):
@@ -91,10 +182,12 @@ def _run(backend: str, timeout: float):
                             "error": f"no result within {timeout:.0f} s"})
             continue
         lines = [ln for ln in text.splitlines() if ln.startswith("PROBE ")]
-        results.append(json.loads(lines[-1][6:]) if lines else
-                       {"backend": backend, "ok": False,
-                        "error": "exit " + str(p.returncode) + ": "
-                        + text[-1500:]})
+        res = json.loads(lines[-1][6:]) if lines else {"backend": backend}
+        if "ok" not in res:         # the rank died before its last line
+            res.update(ok=False, error=f"exit {p.returncode}: "
+                       + "\n".join(ln for ln in text.splitlines()
+                                    if not ln.startswith("PROBE "))[-1500:])
+        results.append(res)
     for p in procs:
         if p.poll() is None:
             p.kill()

@@ -16,7 +16,12 @@ optimizer stack), over a model's named parameters:
      update and stays out of both norms.
 
 Moments are stored in `moments_dtype` (fp32 or bf16); the update runs in
-fp32.  Parameters are updated in place.  The update walks all tensors at
+fp32.  Parameters are updated in place.  On a model-sharded placement
+(parallel/mesh.py) the parameters, gradients and moments are the rank's
+local tensors, and both norms are the full model's: a leaf split over ranks
+sums its squares over its shards exactly once, a stage's leaves are summed
+over the stages, a replicated leaf counts once (`squares_over_shards`), so
+every rank clips by the same coefficients.  The update walks all tensors at
 once with torch's multi-tensor (`_foreach`) ops: a loop over ~400 tensors of
 ~15 small launches each leaves the card waiting for the host.
 """
@@ -24,11 +29,12 @@ once with torch's multi-tensor (`_foreach`) ops: a loop over ~400 tensors of
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
 from ..core.config import OptimizerConfig
+from ..parallel.mesh import ModelPlacement, local, squares_over_shards
 
 FROZEN = ("clip.visual.conv1.weight",)
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -74,42 +80,52 @@ class BertAdamState(NamedTuple):
 
 def bert_adam_init(params: Dict[str, torch.Tensor],
                    moments_dtype: str = "float32") -> BertAdamState:
+    """Zero moments, each shaped as its parameter's local tensor."""
     dt = DTYPES[moments_dtype]
     return BertAdamState(
         step=0,
-        m={n: torch.zeros_like(p, dtype=dt) for n, p in params.items()},
-        v={n: torch.zeros_like(p, dtype=dt) for n, p in params.items()})
+        m={n: torch.zeros_like(local(p), dtype=dt) for n, p in params.items()},
+        v={n: torch.zeros_like(local(p), dtype=dt) for n, p in params.items()})
 
 
-def _global_norm(norms) -> torch.Tensor:
-    return torch.linalg.vector_norm(torch.stack(norms))
+def _norms(names, g, placement: Optional[ModelPlacement]):
+    """(each leaf's norm, the global norm) over the full model."""
+    norms = torch.stack(torch._foreach_norm(g))
+    if placement is None:
+        return norms, torch.linalg.vector_norm(norms)
+    leaf, total = squares_over_shards(names, norms ** 2, placement)
+    return leaf.sqrt(), total.sqrt()
 
 
-def clip_effective_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+def clip_effective_norm(grads: Dict[str, torch.Tensor],
+                        placement: Optional[ModelPlacement] = None
+                        ) -> torch.Tensor:
     """Global norm over the non-frozen gradients: the norm the clipping
     sees, comparable to max_grad_norm."""
-    return _global_norm(torch._foreach_norm(
-        [g.float() for n, g in grads.items() if not is_frozen(n)]))
+    names = [n for n in grads if not is_frozen(n)]
+    return _norms(names, [grads[n].float() for n in names], placement)[1]
 
 
 @torch.no_grad()
 def bert_adam_update(grads: Dict[str, torch.Tensor], state: BertAdamState,
                      params: Dict[str, torch.Tensor], cfg: OptimizerConfig,
-                     t_total: int) -> BertAdamState:
+                     t_total: int,
+                     placement: Optional[ModelPlacement] = None
+                     ) -> BertAdamState:
     """One step over `params` (name → tensor, updated in place) from `grads`
-    (same names; frozen names may be absent).  Returns the new state."""
+    (same names, local tensors; frozen names may be absent); `placement`:
+    the model's, for the norms over its shards.  Returns the new state."""
     lr_mult = SCHEDULES[cfg.schedule](state.step / float(t_total),
                                       cfg.warmup_proportion)
     live = [n for n in params if not is_frozen(n)]
-    p = [params[n] for n in live]
+    p = [local(params[n]) for n in live]
     g = [grads[n].float() for n in live]
     if cfg.max_grad_norm > 0:
         # both clip stages from one read of the gradients: the global norm
         # gives stage 1's coefficient, and stage 2 clips coef·|g_l| per tensor
-        norms = torch._foreach_norm(g)
-        coef = torch.clamp(cfg.max_grad_norm / (_global_norm(norms) + 1e-6),
-                           max=1.0)
-        pnorm = coef * torch.stack(norms)
+        leaf, total = _norms(live, g, placement)
+        coef = torch.clamp(cfg.max_grad_norm / (total + 1e-6), max=1.0)
+        pnorm = coef * leaf
         scale = coef * torch.clamp(cfg.max_grad_norm / (pnorm + 1e-6),
                                    max=1.0)
         g = torch._foreach_mul(g, list(scale.unbind()))

@@ -13,11 +13,14 @@ device (↔ neighborretr_tpu/train/evaluate.py).
      forms with -inf padding per caption group; only rank vectors leave the
      device.
 
-On a data group of several processes (parallel/mesh.py) each rank encodes
-its block of every eval batch (the loader cuts it), the features are
-gathered, and the padded rows are dropped and dataset order restored from
-the loader's global plan, so every rank holds the one-process feature
-cache and computes the one-process R@K.
+On a mesh of several processes (parallel/mesh.py) each data rank encodes
+its block of every eval batch (the loader cuts it; a tensor-parallel or
+pipeline mesh's other ranks encode the same block with their part of the
+towers), the features are gathered over the data axes, and the padded rows
+are dropped and dataset order restored from the loader's global plan, so
+every rank holds the one-process feature cache and computes the
+one-process R@K.  The encodes run as the model's forward
+(`NeighborRetr.forward`, where FSDP2's hooks sit).
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ def encode_text_batch(model: NeighborRetr, text_ids, text_mask,
     dev = _device(model)
     ids = torch.as_tensor(np.asarray(text_ids), device=dev)
     mask = torch.as_tensor(np.asarray(text_mask, np.float32), device=dev)
-    return model.get_text_feat(ids, mask, kernels)
+    return model(lambda m: m.get_text_feat(ids, mask, kernels))
 
 
 @torch.no_grad()
@@ -57,8 +60,8 @@ def encode_video_batch(model: NeighborRetr, video, video_mask,
     model's device (the host ships raw bytes)."""
     dev = _device(model)
     v = torch.as_tensor(np.asarray(video), device=dev)
-    m = torch.as_tensor(np.asarray(video_mask, np.float32), device=dev)
-    return model.get_video_feat(v, m, kernels)
+    mask = torch.as_tensor(np.asarray(video_mask, np.float32), device=dev)
+    return model(lambda m: m.get_video_feat(v, mask, kernels))
 
 
 @torch.no_grad()
@@ -77,11 +80,15 @@ def similarity_matrix_device(model: NeighborRetr, t_feat, t_mask, v_feat,
         for a in (t_feat, t_mask, v_feat, v_mask))
     n_t, T = t_feat.shape[:2]
     logits_bytes = n_t * T * v_feat.shape[0] * v_feat.shape[1] * 4
+
+    def rows(m, s, e):
+        return local_similarity(m, t_feat[s:e], v_feat, t_mask[s:e], v_mask,
+                                kernels)
+
     if (kernels and dev.type == "cuda") or logits_bytes <= max_logits_bytes:
-        return local_similarity(model, t_feat, v_feat, t_mask, v_mask, kernels)
-    return torch.cat([local_similarity(model, t_feat[s:s + block], v_feat,
-                                       t_mask[s:s + block], v_mask, kernels)
-                      for s in range(0, n_t, block)])
+        return model(lambda m: rows(m, 0, n_t))
+    return model(lambda m: torch.cat([rows(m, s, s + block)
+                                      for s in range(0, n_t, block)]))
 
 
 def similarity_matrix(model: NeighborRetr, t_feat, t_mask, v_feat, v_mask,

@@ -21,10 +21,17 @@ come from generators seeded from (run seed, global step) for a step and
 (run seed, epoch, fill index) for a bank-fill batch, so a resume replays
 them too.
 
-On a data group every rank loads its block of each train, bank and test
-batch (the loader's process_index / process_count), logs only on rank 0,
-and rank 0 alone writes best.npz, state_epochN.npz and the tracker json;
-the tracker of a resumed run is rank 0's, broadcast.  A SIGTERM that any
+On a mesh every data rank loads its block of each train, bank and test
+batch (the loader's process_index / process_count are the data coordinates:
+a tensor-parallel or pipeline mesh's other ranks load the same block), logs
+only on rank 0, and rank 0 alone writes best.npz, state_epochN.npz and the
+tracker json, full and in the JAX layout whatever the placement (on a
+sharded one every rank takes part in the gathers); the tracker of a
+resumed run is rank 0's, broadcast.  The parameters are placed
+(parallel/mesh.py::place_params: replicated, FSDP2 under `train.fsdp`,
+the Megatron split and stage slices by the mesh's axes) after the CLIP and
+warm-start weights are loaded, and a resumed state loads under any
+placement.  A SIGTERM that any
 rank catches stops every rank at the same step boundary (a MAX all-reduce
 of the stop flag), and each rank then writes its file of the sharded
 preempt set (`state_preempt.shard{p}.npz` + `state_preempt.manifest.json`,
@@ -154,8 +161,8 @@ def run_training(cfg: Config, train_ds, test_ds, logger=None, device=None,
                                     is_main=main)
     workers = workers if workers is not None else cfg.data.workers
 
-    mode = dict(worker_mode=cfg.data.worker_mode, process_index=mesh.rank,
-                process_count=mesh.world)
+    mode = dict(worker_mode=cfg.data.worker_mode,
+                process_index=mesh.dp_rank, process_count=mesh.dp_size)
     train_loader = BatchLoader(train_ds, cfg.train.batch_size, shuffle=True,
                                drop_last=True, workers=workers,
                                seed=cfg.train.seed, **mode)
@@ -170,7 +177,6 @@ def run_training(cfg: Config, train_ds, test_ds, logger=None, device=None,
     t_total = max(steps_per_epoch * cfg.train.epochs, 1)
 
     model = weights_io.init_model(cfg.model, cfg.train.seed, device)
-    pmesh.place_params(model, mesh, fsdp=cfg.train.fsdp)
     if cfg.train.clip_checkpoint:
         weights_io.load_openai_clip_into(model, cfg.train.clip_checkpoint)
         logger.info("Loaded CLIP weights from %s", cfg.train.clip_checkpoint)
@@ -181,6 +187,7 @@ def run_training(cfg: Config, train_ds, test_ds, logger=None, device=None,
         weights_io.load_model_checkpoint(model, cfg.train.init_checkpoint,
                                          strict=False, logger=logger)
         logger.info("Warm-started from %s", cfg.train.init_checkpoint)
+    pmesh.place_params(model, mesh, fsdp=cfg.train.fsdp)
 
     state = create_train_state(model, _empty_bank(cfg, device),
                                moments_dtype=cfg.optim.moments_dtype)
@@ -243,12 +250,15 @@ def run_training(cfg: Config, train_ds, test_ds, logger=None, device=None,
             elif mesh.world == 1 and os.path.exists(best_path):
                 best = ckpt.load_params(best_path, like)
             if best is not None:
-                final = {k: v.clone() for k, v in model.state_dict().items()}
+                final = [pmesh.local(p).detach().clone()
+                         for p in model.parameters()]
                 ckpt.load_tree_into_model(model, best)
                 logger.info("Final test on best checkpoint:")
                 evaluate(model, cfg, test_loader, dataset=test_ds,
                          logger=logger, kernels=kernels, mesh=mesh)
-                model.load_state_dict(final)
+                with torch.no_grad():
+                    for p, t in zip(model.parameters(), final):
+                        pmesh.local(p).copy_(t)
         return state, tracker
     finally:
         if writer is not None:
@@ -270,6 +280,7 @@ def _train_epochs(cfg, state: TrainState, tracker, guard, train_loader,
     best_flat = None
     cuda = device.type == "cuda"
     main = mesh.rank == 0
+    sharded = pmesh.placement_of(model) is not None
 
     def stop():
         """Whether any rank caught SIGTERM: the same answer on every rank,
@@ -444,10 +455,12 @@ def _train_epochs(cfg, state: TrainState, tracker, guard, train_loader,
                     return preempt_exit()
 
         eval_and_track(epoch)
-        if cfg.train.save_checkpoints and main:
+        # a sharded state is gathered by every rank; rank 0 writes it
+        if cfg.train.save_checkpoints and (main or sharded):
             payload = ckpt.train_state_payload(state)
-            writer.submit(lambda p=payload, e=epoch: ckpt._atomic_savez(
-                os.path.join(out_dir, f"state_epoch{e}.npz"), p))
+            if main:
+                writer.submit(lambda p=payload, e=epoch: ckpt._atomic_savez(
+                    os.path.join(out_dir, f"state_epoch{e}.npz"), p))
         if stop():              # SIGTERM during the eval or the checkpoint
             return preempt_exit()
         # epoch-end bank clear: re-filled next epoch

@@ -20,15 +20,25 @@ attention route.  `data.augment_backend="device"` runs the RandAugment
 policy on the batch's device at the top of the step (ops/device_augment.py),
 its draws from an explicit generator.
 
-With a data group (`mesh=`, parallel/mesh.py; one process per device) the
-batch is this rank's block of the global batch.  Without
+With a mesh (`mesh=`, parallel/mesh.py; one process per device) the batch
+is this rank's block of the global batch over the data axes.  Without
 `train.explicit_spmd` the step takes the gathered form (↔ the JAX
 package's GSPMD path): each rank encodes its rows, gathers the features
-and masks, and runs the single-device loss code on the global batch.  With
-it, and more than one rank, the explicit form (parallel/spmd.py) computes
-each rank's row block of the similarity matrices.  The gradients are then
-averaged over the ranks, so BertAdam steps identically on every rank, and
-the FIFO refresh takes the gathered rows.  The pipeline form, FSDP and the
+and masks over the data axes, and runs the single-device loss code on the
+global batch.  With it, and more than one rank, the explicit form
+(parallel/spmd.py) computes each rank's row block of the similarity
+matrices.  The gradients are then averaged over the data axes (a
+replicated parameter's over every rank, which changes no value and keeps
+its replicas bit-equal: parallel/mesh.py::all_reduce_grads), so BertAdam
+steps identically on every rank, and the FIFO refresh takes the gathered
+rows.  On a model-sharded placement (parallel/mesh.py::
+place_params: FSDP2, the Megatron split, the stage slices) a split
+parameter's gradient stays with its shard, BertAdam's norms are taken over
+the full model, and the computation runs as the model's forward
+(`NeighborRetr.forward`, where FSDP2's hooks sit); with
+`train.pipeline_parallel > 1` on a mesh with a `stage` axis the pipeline
+context is active (↔ the JAX step), so the placed towers stream
+`train.pipeline_microbatches` microbatches (0 → 4 × stages).  The
 host-resident bank and moments are not ported: asking for one raises.
 """
 
@@ -44,6 +54,7 @@ from ..losses import hubness
 from ..models import neighborretr as M
 from ..ops.device_augment import augment_batch
 from ..parallel import mesh as pmesh
+from ..parallel import pipeline
 from . import bertadam
 from .memory_bank import MemoryBank, fifo_update, write_slice
 
@@ -84,8 +95,6 @@ def _check_supported(cfg: Config, model: Optional[M.NeighborRetr] = None
             "its TPU); use sim_dtype='float32'")
     t = cfg.train
     unported = {
-        "train.pipeline_parallel > 1": t.pipeline_parallel > 1,
-        "train.fsdp": t.fsdp,
         "train.bank_placement='host'": t.bank_placement != "device",
         "optim.moments_placement='host'":
             cfg.optim.moments_placement != "device",
@@ -118,7 +127,7 @@ def _maybe_device_augment(cfg: Config, batch: Dict[str, torch.Tensor],
             "--augment_backend device needs uint8 frames from the loader "
             f"(got {batch['video'].dtype}); the host pipeline must not "
             "normalize or augment first")
-    rank, world = (mesh.rank, mesh.world) if mesh is not None else (0, 1)
+    rank, world = (mesh.dp_rank, mesh.dp_size) if mesh is not None else (0, 1)
     video = augment_batch(batch["video"], batch["video_mask"], generator,
                           d.augment, rank, world)
     return dict(batch, video=video)
@@ -142,15 +151,21 @@ def global_rows(batch: Dict[str, torch.Tensor],
     return tuple(pmesh.all_gather(x, mesh) for x in rows)
 
 
+def encode(model, batch, kernels: bool, rows=slice(None)):
+    """The (text, video) features of `rows` of the batch, through the
+    model's forward (`NeighborRetr.forward`)."""
+    keys = ("text_ids", "text_mask", "video", "video_mask")
+    return model(lambda m: m.get_text_video_feat(
+        *(batch[k][rows] for k in keys), kernels))
+
+
 def _encode_microbatches(model, batch, n: int, kernels: bool):
     """Features of the whole batch, encoded `n` rows-slices at a time."""
     B = batch["text_ids"].shape[0]
     if B % n:
         raise ValueError(f"batch {B} is not divisible by micro_batches={n}")
-    feats = [model.get_text_video_feat(
-        *(batch[k][s:s + B // n]
-          for k in ("text_ids", "text_mask", "video", "video_mask")), kernels)
-        for s in range(0, B, B // n)]
+    feats = [encode(model, batch, kernels, slice(s, s + B // n))
+             for s in range(0, B, B // n)]
     return (torch.cat([f[0] for f in feats]),
             torch.cat([f[1] for f in feats]))
 
@@ -289,17 +304,27 @@ def _microbatched_backward(model, cfg: Config, batch, bank: MemoryBank, noise,
     with torch.no_grad():
         feats = _encode_microbatches(model, batch, n, kernels)
     leaves = tuple(f.requires_grad_(True) for f in feats)
-    total, aux = compute_losses(model, cfg, batch, bank, noise, kernels,
-                                features=leaves, mesh=mesh)
+    total, aux = model(lambda m: compute_losses(
+        m, cfg, batch, bank, noise, kernels, features=leaves, mesh=mesh))
     total.backward()
     B = leaves[0].shape[0]
-    keys = ("text_ids", "text_mask", "video", "video_mask")
     for s in range(0, B, B // n):
         rows = slice(s, s + B // n)
-        out = model.get_text_video_feat(*(batch[k][rows] for k in keys),
-                                        kernels)
+        out = encode(model, batch, kernels, rows)
         torch.autograd.backward(out, [leaf.grad[rows] for leaf in leaves])
     return aux
+
+
+def pipeline_context(cfg: Config, mesh: Optional[pmesh.DataGroup]
+                     ) -> Optional[pipeline.PipelineContext]:
+    """The pipeline context of a step (↔ the JAX step's): on a mesh with a
+    `stage` axis under train.pipeline_parallel > 1, else None."""
+    pp = cfg.train.pipeline_parallel
+    if mesh is None or pp <= 1 or "stage" not in mesh.axis_names:
+        return None
+    return pipeline.PipelineContext(
+        mesh=mesh, stages=pp,
+        microbatches=cfg.train.pipeline_microbatches or 4 * pp)
 
 
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor], cfg: Config,
@@ -311,9 +336,9 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], cfg: Config,
     """One optimizer step on `batch` (tensors on the model's device, see
     `to_device`).  `generator` draws the DPC-KNN tie-break noise when
     cfg.model.cluster_noise is set; `augment_generator` the RandAugment
-    draws under data.augment_backend="device" (required there); on a data
-    group both draw for the global batch, the same on every rank.  `mesh`:
-    the data group (parallel/mesh.py), `batch` then being this rank's rows.
+    draws under data.augment_backend="device" (required there); on a mesh
+    both draw for the global batch, the same on every rank.  `mesh`: the
+    mesh (parallel/mesh.py), `batch` then being this rank's rows.
     Updates the model in place and returns the state with the new optimizer
     state, bank and step count, and the metrics (every loss term,
     grad_norm, logit_scale)."""
@@ -327,40 +352,45 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], cfg: Config,
         if generator is None:
             raise ValueError("cfg.model.cluster_noise needs a torch.Generator "
                              "for the DPC-KNN tie-break draws")
-        world = mesh.world if mesh is not None else 1
+        world = mesh.dp_size if mesh is not None else 1
         noise = M.draw_cluster_noise(cfg.model,
                                      batch["text_ids"].shape[0] * world,
                                      generator, batch["text_ids"].device)
 
     model.zero_grad(set_to_none=True)
-    if mesh is not None and mesh.world > 1 and cfg.train.explicit_spmd:
-        from ..parallel.spmd import compute_losses_spmd
-        total, aux = compute_losses_spmd(model, cfg, batch, state.bank, noise,
-                                         mesh, kernels, cfg.train.data_axis)
-        total.backward()
-    elif cfg.train.micro_batches > 1:
-        aux = _microbatched_backward(model, cfg, batch, state.bank, noise,
-                                     kernels, mesh)
-    else:
-        total, aux = compute_losses(model, cfg, batch, state.bank, noise,
-                                    kernels, mesh=mesh)
-        total.backward()
+    bank = state.bank
+    with pipeline.activated(pipeline_context(cfg, mesh)):
+        if mesh is not None and mesh.world > 1 and cfg.train.explicit_spmd:
+            from ..parallel.spmd import compute_losses_spmd
+            total, aux = model(lambda m: compute_losses_spmd(
+                m, cfg, batch, bank, noise, mesh, kernels,
+                cfg.train.data_axis))
+            total.backward()
+        elif cfg.train.micro_batches > 1:
+            aux = _microbatched_backward(model, cfg, batch, bank, noise,
+                                         kernels, mesh)
+        else:
+            total, aux = model(lambda m: compute_losses(
+                m, cfg, batch, bank, noise, kernels, mesh=mesh))
+            total.backward()
 
     params = dict(model.named_parameters())
+    placement = pmesh.placement_of(model)
     # a parameter the loss does not reach (the `*_fc1` nets at one merged
-    # token) has a zero gradient, and is still weight-decayed; on a data
-    # group every rank gets the mean over the ranks
+    # token) has a zero gradient, and is still weight-decayed; on a mesh
+    # every rank gets the mean over the data ranks
     live = {n: p for n, p in params.items() if not bertadam.is_frozen(n)}
-    grads = pmesh.all_reduce_grads(live, mesh or pmesh.DataGroup())
+    grads = pmesh.all_reduce_grads(live, mesh or pmesh.DataGroup(),
+                                   placement)
     opt = bertadam.bert_adam_update(grads, state.opt, params, cfg.optim,
-                                    t_total)
+                                    t_total, placement)
     M.clamp_logit_scale(model, cfg.loss.max_logit_scale)
 
     idx, t_mask, v_mask = global_rows(batch, mesh)
     bank = fifo_update(state.bank, idx, aux.pop("text_feat"),
                        aux.pop("video_feat"), t_mask, v_mask)
     metrics = dict(aux)
-    metrics["grad_norm"] = bertadam.clip_effective_norm(grads)
+    metrics["grad_norm"] = bertadam.clip_effective_norm(grads, placement)
     metrics["logit_scale"] = M.logit_scale(model).detach()
     model.zero_grad(set_to_none=True)
     return TrainState(model=model, opt=opt, bank=bank,
@@ -383,9 +413,7 @@ def fill_bank_step(model: M.NeighborRetr, bank: MemoryBank,
         mesh = None
     if augment_generator is not None:
         batch = _maybe_device_augment(cfg, batch, augment_generator, mesh)
-    text_feat, video_feat = model.get_text_video_feat(
-        batch["text_ids"], batch["text_mask"], batch["video"],
-        batch["video_mask"], kernels)
+    text_feat, video_feat = encode(model, batch, kernels)
     if mesh is not None:
         text_feat, video_feat = (pmesh.all_gather(x, mesh)
                                  for x in (text_feat, video_feat))

@@ -315,10 +315,13 @@ def test_init_distributed_flag_validation():
     (["--num_devices", "0"], "requested 0 devices"),
     (["--num_devices", "2", "--explicit_spmd", "--micro_batches", "2"],
      "micro_batches applies to the GSPMD path"),
-    (["--num_devices", "2", "--fsdp"], "--fsdp"),
-    (["--num_devices", "2", "--tensor_parallel", "2"], "--tensor_parallel"),
-    (["--num_devices", "2", "--pipeline_parallel", "2"],
-     "--pipeline_parallel"),
+    (["--num_devices", "2", "--fsdp", "--tensor_parallel", "2"],
+     "--fsdp applies to pure data-parallel meshes"),
+    (["--num_devices", "2", "--tensor_parallel", "3"],
+     "--tensor_parallel 3 must divide the device count 2"),
+    (["--num_devices", "2", "--pipeline_parallel", "2", "--explicit_spmd"],
+     "pipeline_parallel nests shard_map and cannot combine with "
+     "explicit_spmd"),
 ])
 def test_train_cli_flag_exits(tmp_path, flags, says):
     """Exits with the reason before any rank starts."""

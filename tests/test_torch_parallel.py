@@ -350,12 +350,22 @@ def test_video_keep_refused_on_a_multi_process_group():
 
 
 def test_fsdp_and_device_requests_raise():
+    """place_params(fsdp=True) places (one data rank: nothing to shard,
+    the model as it was); on a mesh with a `model` axis it raises as the
+    JAX package's does."""
     from neighborretr_tpu_torch.models import weights_io as W
     from neighborretr_tpu_torch.parallel import mesh as pmesh
     cfg, *_ = _one_rank_inputs()
-    with pytest.raises(NotImplementedError, match="fsdp.*slice 13"):
-        pmesh.place_params(W.init_model(cfg.model, 0, "cpu"),
-                           pmesh.DataGroup(), fsdp=True)
+    model = W.init_model(cfg.model, 0, "cpu")
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    assert pmesh.place_params(model, pmesh.DataGroup(), fsdp=True) is model
+    assert pmesh.placement_of(model) is None
+    assert all(torch.equal(v, before[k])
+               for k, v in model.state_dict().items())
+    tp_mesh = pmesh.DataGroup(world=4, axis_names=("data", "model"),
+                              shape=(2, 2))
+    with pytest.raises(ValueError, match="pure data-parallel meshes"):
+        pmesh.place_params(model, tp_mesh, fsdp=True)
     assert pmesh.take_devices(3, "cpu") == [torch.device("cpu")] * 3
     with pytest.raises(ValueError, match="refusing to silently run"):
         pmesh.take_devices(torch.cuda.device_count() + 1, "cuda")

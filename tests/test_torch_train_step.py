@@ -216,10 +216,12 @@ def test_unported_options_raise():
         cfg.data, augment_backend="device")))    # ported: device RandAugment
     tstep._check_supported(dc.replace(cfg, train=dc.replace(
         cfg.train, explicit_spmd=True)))   # ported: parallel/spmd.py
-    for section, change in (("train", dict(pipeline_parallel=2)),
-                            ("train", dict(bank_placement="host")),
-                            ("optim", dict(moments_placement="host")),
-                            ("train", dict(fsdp=True))):
+    tstep._check_supported(dc.replace(cfg, train=dc.replace(
+        cfg.train, pipeline_parallel=2)))  # ported: parallel/pipeline.py
+    tstep._check_supported(dc.replace(cfg, train=dc.replace(
+        cfg.train, fsdp=True)))            # ported: FSDP2, parallel/mesh.py
+    for section, change in (("train", dict(bank_placement="host")),
+                            ("optim", dict(moments_placement="host"))):
         bad = dc.replace(cfg, **{section: dc.replace(getattr(cfg, section),
                                                      **change)})
         with pytest.raises(NotImplementedError, match="not ported"):

@@ -13,7 +13,8 @@ data parallelism over torch.distributed, the input side (an
 OpenAI-layout CLIP archive and encoded clips through the pack, train,
 eval, index and search CLIs), and the model-sharded strategies (tensor
 parallelism, FSDP2, the pipeline, pipeline x tensor, the eval under tensor
-parallelism).
+parallelism), and the trainer's host-memory paths (the device prefetch,
+host-resident moments and bank, --debug_nans).
 
     python3 chip_smoke.py [--profile]
     python3 chip_smoke.py --alone 9 [--seeds S ...]   # phase 9 per seed
@@ -21,6 +22,7 @@ parallelism).
     python3 chip_smoke.py --alone 17                  # phase 17
     python3 chip_smoke.py --alone 18                  # phase 18
     python3 chip_smoke.py --alone 19                  # phase 19
+    python3 chip_smoke.py --alone 20                  # phase 20
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. device  — requires CUDA; prints the card's name and power limit;
@@ -209,6 +211,25 @@ Phases (each prints its own lines; any failure exits non-zero):
                beside one process's (FSDP at most 0.55 x), launches; (e)
                cli.eval --tensor_parallel 2 on 16 videos against one
                process's similarity matrix.
+ 20. host memory — the trainer's host-memory paths at the MSR-VTT recipe
+               (ViT-B/32 width, bf16, seeded random weights): (a) one
+               flagship batch's upload, `to_device` from pageable memory
+               against the prefetch's pinned slot and copy stream; (b) the
+               bank fill and 3 steps from equal state under the four
+               placements of the bank and the moments (device/device, host
+               moments, host bank, both), torch's deterministic algorithms
+               on and device/device's decisions replayed: loss terms,
+               parameters, moments and bank bit-equal to device/device,
+               peak memory, ms/step and K1/K3/K4/K5 launches per
+               placement; (c) cli.train through the prefetch (5 fills, 5
+               steps, eval), then with the loop's batches moved by
+               to_device (the loop before the prefetch), then through the
+               prefetch again: ms/step, step to step, data_wait_s; (d)
+               cli.train --debug_nans with a NaN planted before step 2: a
+               FloatingPointError that names the parameter, the clean
+               step's ms; (e) the learning check (tools/learning_check.py)
+               with the prefetch, host moments and host bank on: R@1 >= 75
+               both ways.
 The line before the last is a JSON object with, for each kernel, its
 launches on each main path (all eleven counts are set to 0 before each path
 and read after it; phase 16's path is its in-process load, (b)), error, times and roofline bound; the last line is the
@@ -2273,8 +2294,12 @@ def phase_trainer(profile: bool, card: str):
         print(f"  steps {' / '.join(f'{t:.1f}' for t in step_ms)} ms, median "
               f"{ms:.1f} ms/step = {B / ms * 1e3:.2f} pairs/s on {card}; "
               f"loader wait before the logged steps "
-              f"{' / '.join(f'{w:.3f}' for w in waits)} s; peak device memory "
-              f"{peak_gib:.2f} GiB; resumed run {t_res:.1f} s")
+              f"{' / '.join(f'{w:.3f}' for w in waits)} s through the "
+              f"prefetch (before it: "
+              f"{' / '.join(f'{w:.3f}' for w in EARLIER_LONG_WAITS)} s); peak "
+              f"device memory {peak_gib:.2f} GiB; resumed run {t_res:.1f} s")
+        h = h2d_times(_host_batch(m, B, 0))
+        print(f"  one long batch, {h['bytes'] / 1e6:.1f} MB: {h2d_line(h)}")
         log = open(os.path.join(out_dir, "log.txt")).read()
         for line in log.splitlines():
             if "memory bank filled" in line or "Eval timing" in line:
@@ -4202,13 +4227,411 @@ def phase_sharded(card: str):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the trainer's host-memory paths
+# ---------------------------------------------------------------------------
+
+# the train CLI at the MSR-VTT recipe, its batches through the prefetch
+HOST_ARGV = [
+    "--datatype", "synthetic", "--clip_checkpoint", "random",
+    "--max_words", "24", "--max_frames", "12", "--batch_size", "128",
+    "--mb_batch", "15", "--epochs", "1", "--synthetic_size", "640",
+    "--batch_size_val", "128", "--n_display", "1", "--mid_epoch_eval", "0",
+    "--workers", "8", "--seed", "42"]
+# what the prefetch is read against, measured on an NVIDIA H100 80GB HBM3
+# at 700 W before the loop had it: phase 8's step and the train CLI's under
+# the device augment, phase 10's loader wait before the logged steps
+EARLIER_STEP_MS, EARLIER_CLI_MS = 282.6, 299.1
+EARLIER_LONG_WAITS = (2.738, 2.889)
+# (bank, moments) placements of phase 20 (b), device/device the reference
+HOST_PLACEMENTS = (("device", "device"), ("device", "host"),
+                   ("host", "device"), ("host", "host"))
+NAN_LEAF = "clip.visual.transformer.resblocks.5.mlp.c_fc.weight"
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's ordered forms of its scatter-adds (embedding backward,
+    `index_add_`: float atomics otherwise, 0.4% of a gradient between two
+    runs of one step), so that two placements can be held to the bit;
+    prints the ops torch has no ordered form of, if any ran."""
+    import warnings
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+    notes = sorted({str(w.message).splitlines()[0] for w in caught
+                    if "determinis" in str(w.message)})
+    for note in notes:
+        print(f"  (deterministic mode) {note}")
+
+
+def _host_batch(m, B: int, seed: int, frames=None):
+    """One synthetic host batch (numpy) at the model's widths: captions of
+    4..W words ending in EoT, uint8 frames drawn as uint8."""
+    rng = np.random.default_rng(seed)
+    W, R, V = m.max_words, m.clip.image_resolution, m.clip.vocab_size
+    F = frames or m.max_frames
+    n = rng.integers(4, W + 1, size=B)
+    mask = (np.arange(W)[None] < n[:, None]).astype(np.float32)
+    ids = rng.integers(1, V - 1, size=(B, W)).astype(np.int32)
+    ids[np.arange(B), n - 1] = V - 1
+    ids[mask == 0] = 0
+    return {"text_ids": ids, "text_mask": mask,
+            "video": rng.integers(0, 256, (B, F, R, R, 3), dtype=np.uint8),
+            "video_mask": np.ones((B, F), np.float32),
+            "idx": np.arange(B, dtype=np.int32) + B * seed}
+
+
+def h2d_times(batch, reps: int = 3) -> dict:
+    """One host batch to the card, median of `reps`: `to_device` from
+    pageable memory (host clock, synchronised: the host blocks for it), and
+    the prefetch's two halves, the copy into its pinned slot (host clock,
+    on the prefetch's thread) and the upload on the copy stream (CUDA
+    events on that stream)."""
+    from neighborretr_tpu_torch.data import device_prefetch as DP
+    from neighborretr_tpu_torch.train import step as TS
+    from neighborretr_tpu_torch.utils import host_memory
+
+    nb = sum(np.asarray(batch[k]).nbytes for k in DP.BATCH_KEYS)
+    pageable, pin, upload = [], [], []
+    stream = host_memory.copy_stream("cuda", "batches")
+    slot = DP._Slot()
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dev = TS.to_device(batch, "cuda")
+        torch.cuda.synchronize()
+        pageable.append(1e3 * (time.perf_counter() - t0))
+        del dev
+        t0 = time.perf_counter()
+        slot.fill(batch)
+        pin.append(1e3 * (time.perf_counter() - t0))
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(stream):
+            a.record(stream)
+            dev = {k: v.to("cuda", non_blocking=True)
+                   for k, v in slot.host.items()}
+            b.record(stream)
+        slot.uploaded = b
+        b.synchronize()
+        upload.append(a.elapsed_time(b))
+        del dev
+    med = statistics.median
+    return {"bytes": nb, "pageable_ms": med(pageable), "pin_ms": med(pin),
+            "upload_ms": med(upload)}
+
+
+def h2d_line(h: dict) -> str:
+    def rate(ms):
+        return h["bytes"] / ms / 1e6
+    return (f"to_device from pageable memory {h['pageable_ms']:.3f} ms "
+            f"({rate(h['pageable_ms']):.2f} GB/s, the host blocked); the "
+            f"prefetch: pinned slot filled in {h['pin_ms']:.3f} ms on its "
+            f"thread, uploaded on the copy stream in {h['upload_ms']:.3f} ms "
+            f"({rate(h['upload_ms']):.2f} GB/s)")
+
+
+def phase_host_memory(card: str, block_ms=None):
+    """The trainer's host-memory paths at the MSR-VTT recipe: (a) one
+    batch's upload, pageable against the prefetch's; (b) the four
+    placements of the bank and the moments from equal state, bit-equal;
+    (c) the train CLI through the prefetch against the synchronous copy;
+    (d) --debug_nans on a planted NaN; (e) the learning check with all
+    three on → launch counts by path.  block_ms: phase 8's ms/step in this
+    run (None when phase 8 did not run)."""
+    print("== phase 20: host memory (ViT-B/32 width, bf16, the MSR-VTT "
+          "recipe: batch 128, bank 15 x 128; the prefetch, host moments and "
+          "bank, --debug_nans)")
+    import dataclasses as dc
+    import shutil
+    import tempfile
+
+    from neighborretr_tpu_torch.cli import train as cli
+    from neighborretr_tpu_torch.core.config import Config
+    from neighborretr_tpu_torch.models.weights_io import init_model
+    from neighborretr_tpu_torch.tools import learning_check
+    from neighborretr_tpu_torch.train import loop as LOOP
+    from neighborretr_tpu_torch.train import memory_bank as MB
+    from neighborretr_tpu_torch.train import step as TS
+    from neighborretr_tpu_torch.utils import host_memory
+
+    t_phase = time.perf_counter()
+    paths = {}
+    cfg0 = Config()      # the reference's MSR-VTT recipe: batch 128, 15 x 128
+    m, B = cfg0.model, cfg0.train.batch_size
+    n_fill, n_steps, t_total = cfg0.train.mb_batch, 3, 30
+    cap = cfg0.train.memory_bank_capacity
+    layers = (m.clip.vision_layers + m.clip.transformer_layers
+              + m.temporal_layers)
+
+    # (a)
+    host = [_host_batch(m, B, seed) for seed in range(7)]
+    h = h2d_times(host[0])
+    print(f"  (a) one flagship batch, {h['bytes'] / 1e6:.1f} MB: "
+          f"{h2d_line(h)} on {card}")
+
+    # (b)
+    batches = [TS.to_device(b, "cuda") for b in host]
+    fill, steps = batches[:4], batches[4:]
+    model = init_model(m, seed=0, device="cuda")
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    want = dict.fromkeys(kernel_wrappers(), 0)
+    want.update({"K1": (n_fill + n_steps) * layers, "K3": n_steps * layers,
+                 "K4": 2 * n_steps, "K5": 2 * n_steps})
+
+    def run(bank_at, moments_at, replay):
+        cfg = dc.replace(
+            cfg0, optim=dc.replace(cfg0.optim, moments_placement=moments_at),
+            train=dc.replace(cfg0.train, bank_placement=bank_at))
+        model.load_state_dict(start)
+        out = {"ms": [], "losses": [], "decisions": []}
+        with deterministic():
+            bank = MB.place_bank(MB.create(cap, m.max_words, m.max_frames,
+                                           m.width, device="cuda"),
+                                 bank_at, "cuda")
+            for i in range(n_fill):
+                bank = TS.fill_bank_step(model, bank, fill[i % len(fill)],
+                                         cfg, i * B)
+            state = TS.create_train_state(model, bank,
+                                          moments_placement=moments_at)
+            gen = torch.Generator(device="cuda").manual_seed(1)
+            for i, batch in enumerate(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                log = []
+                with decisions(log, replay[i] if replay else None):
+                    state, met = TS.train_step(state, batch, cfg, t_total,
+                                               gen)
+                torch.cuda.synchronize()
+                out["ms"].append(1e3 * (time.perf_counter() - t0))
+                out["decisions"].append(log)
+                out["losses"].append([met[k].item() for k in
+                                      LOSS_TERMS + ("grad_norm",)])
+        host_memory.wait_copies()
+        homes = {"moments": {t.is_pinned() for t in state.opt.m.values()},
+                 "bank": {t.is_pinned() for t in state.bank}}
+        for what, at in (("moments", moments_at), ("bank", bank_at)):
+            if homes[what] != {at == "host"}:
+                raise SystemExit(f"the {what} are not all in {at} memory")
+        out["params"] = {k: v.cpu() for k, v in model.state_dict().items()}
+        out["m"] = {n: t.cpu() for n, t in state.opt.m.items()}
+        out["v"] = {n: t.cpu() for n, t in state.opt.v.items()}
+        out["bank"] = [t.cpu() for t in state.bank]
+        return out
+
+    print(f"  (b) bank fill ({n_fill} batches) and {n_steps} steps from the "
+          "same weights and batches under each placement, torch's "
+          "deterministic algorithms on (slower steps than phase 8's), after "
+          "a warm-up run of device/device whose DPC-KNN clusters and top-k "
+          "masks every placement replays:")
+    replay = run("device", "device", None)["decisions"]
+    ref, failed, rows = None, [], []
+    for bank_at, moments_at in HOST_PLACEMENTS:
+        name = f"bank {bank_at}, moments {moments_at}"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        got, counts = counted(lambda: run(bank_at, moments_at, replay))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        paths[f"placements_bank_{bank_at}_moments_{moments_at}"] = counts
+        if counts != want:
+            raise SystemExit(f"{name}: launches {counts}, expected {want}")
+        if ref is None:
+            ref = got
+            same = "the reference"
+        else:
+            diff = [f"loss terms of step {i + 1}" for i, (a, b) in enumerate(
+                zip(got["losses"], ref["losses"])) if a != b]
+            for part in ("params", "m", "v"):
+                diff += [f"{part} {k}" for k, t in ref[part].items()
+                         if not torch.equal(got[part][k], t)]
+            diff += [f"bank.{f}" for f, a, b in zip(
+                MB.MemoryBank._fields, got["bank"], ref["bank"])
+                if not torch.equal(a, b)]
+            same = ("loss terms, parameters, moments and bank bit-equal to "
+                    "device/device" if not diff else
+                    f"{len(diff)} DIFFER from device/device: "
+                    + ", ".join(diff[:6]))
+            if diff:
+                failed.append(name)
+        ms = statistics.median(got["ms"])
+        rows.append((name, ms, peak))
+        print(f"    {name}: steps {' / '.join(f'{t:.1f}' for t in got['ms'])}"
+              f" ms (median {ms:.1f}), peak device memory {peak:.2f} GiB, "
+              f"launches K1 {counts['K1']} K3 {counts['K3']} K4 "
+              f"{counts['K4']} K5 {counts['K5']} (as expected); {same}")
+        del got
+    for i, losses in enumerate(ref["losses"]):
+        print(f"    step {i + 1}: " + " ".join(
+            f"{n} {v:.6f}" for n, v in zip(LOSS_TERMS + ("grad_norm",),
+                                           losses)))
+        if not all(np.isfinite(losses)):
+            raise SystemExit(f"non-finite loss term at step {i + 1}")
+    base_ms, base_peak = rows[0][1], rows[0][2]
+    print("    against device/device: " + "; ".join(
+        f"{n}: {ms - base_ms:+.1f} ms/step, {peak - base_peak:+.3f} GiB peak"
+        for n, ms, peak in rows[1:]) + f" on {card}")
+    if failed:
+        raise SystemExit("host placements differ from the device placement: "
+                         + ", ".join(failed))
+    del ref, batches, fill, steps, start
+    model.cpu()
+    del model
+    torch.cuda.empty_cache()
+
+    # (c)
+    argv = HOST_ARGV
+    args = cli.parse_args(argv)
+    n_cli = args.synthetic_size // args.batch_size
+    print(f"  (c) {' '.join(argv)}, through the prefetch, then with every "
+          "batch moved by to_device when the loop wants it (the loop before "
+          "the prefetch), then through the prefetch again:")
+    real_step, real_prefetch = LOOP.train_step, LOOP.prefetch_to_device
+
+    def synchronous(iterator, size=2, device=None, mesh=None):
+        return (TS.to_device(b, device) for b in iterator)
+
+    def cli_run(prefetch: bool):
+        out_dir = tempfile.mkdtemp(prefix="chip_smoke_prefetch_")
+        rec = {"ms": [], "starts": []}
+
+        def timed_step(*a, **kw):
+            rec["starts"].append(time.perf_counter())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_step(*a, **kw)
+            torch.cuda.synchronize()
+            rec["ms"].append(1e3 * (time.perf_counter() - t0))
+            return out
+
+        LOOP.train_step = timed_step
+        if not prefetch:
+            LOOP.prefetch_to_device = synchronous
+        try:
+            (state, _), counts = counted(
+                lambda: cli.main(argv + ["--output_dir", out_dir]))
+            with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+                rows_ = list(map(json.loads, f))
+            has_best = os.path.exists(os.path.join(out_dir, "best.npz"))
+        finally:
+            LOOP.train_step, LOOP.prefetch_to_device = real_step, real_prefetch
+            shutil.rmtree(out_dir, ignore_errors=True)
+        ev = [r for r in rows_ if r["kind"] == "eval"]
+        train_rows = [r for r in rows_ if r["kind"] == "train"]
+        if len(ev) != 1 or state.step != n_cli or len(train_rows) != n_cli:
+            raise SystemExit("the train CLI did not take its steps and eval")
+        n_evals = 1 + has_best
+        want = dict.fromkeys(kernel_wrappers(), 0)
+        want.update({"K1": (2 * n_cli + n_evals) * layers,
+                     "K3": n_cli * layers, "K4": 2 * n_cli, "K5": 2 * n_cli,
+                     "K2": n_evals})
+        if counts != want:
+            raise SystemExit(f"launches {counts}, expected {want}")
+        if not all(np.isfinite(r["loss"]) for r in train_rows):
+            raise SystemExit("non-finite loss in the train CLI")
+        rec["waits"] = [r["data_wait_s"] for r in train_rows]
+        rec["gaps"] = [1e3 * (b - a) for a, b in
+                       zip(rec["starts"], rec["starts"][1:])]
+        return counts, rec
+
+    runs = []
+    for label, prefetch in (("prefetch", True), ("to_device", False),
+                            ("prefetch", True)):
+        counts, rec = cli_run(prefetch)
+        runs.append((prefetch, rec))
+        if prefetch:
+            paths["prefetch_trainer"] = counts
+        print(f"    {label}: steps {' / '.join(f'{t:.1f}' for t in rec['ms'])}"
+              f" ms (synchronised around each); step start to step start "
+              f"{' / '.join(f'{t:.1f}' for t in rec['gaps'])} ms (median "
+              f"after the first {statistics.median(rec['gaps'][1:]):.1f}); "
+              f"data_wait_s {' / '.join(f'{w:.4f}' for w in rec['waits'])}; "
+              f"launches {counts} (as expected)")
+
+    def med(prefetch, key):
+        return statistics.median([x for p, r in runs if p == prefetch
+                                  for x in r[key][1:]])
+
+    print(f"    the prefetch: {med(True, 'gaps'):.1f} ms from step to step "
+          f"against {med(False, 'gaps'):.1f} with to_device "
+          f"({med(True, 'gaps') - med(False, 'gaps'):+.1f} ms); steps "
+          f"{med(True, 'ms'):.1f} against {med(False, 'ms'):.1f} ms (phase 8 "
+          f"{'in this run ' + format(block_ms, '.1f') if block_ms else 'not run'}"
+          f"; before the prefetch: phase 8's {EARLIER_STEP_MS} ms, the train "
+          f"CLI's {EARLIER_CLI_MS} ms under the device augment) on {card}")
+
+    # (d)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_debug_nans_")
+    argv = HOST_ARGV + ["--output_dir", out_dir, "--debug_nans",
+                        "--synthetic_size", "256"]
+    rec = {"ms": []}
+
+    def planting_step(state, *a, **kw):
+        if state.step == 1:
+            with torch.no_grad():
+                dict(state.model.named_parameters())[NAN_LEAF].view(-1)[
+                    0] = float("nan")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_step(state, *a, **kw)
+        torch.cuda.synchronize()
+        rec["ms"].append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    raised = None
+    LOOP.train_step = planting_step
+    try:
+        cli.main(argv)
+    except FloatingPointError as e:
+        raised = str(e)
+    finally:
+        LOOP.train_step = real_step
+        TS.set_debug_nans(False)
+        shutil.rmtree(out_dir, ignore_errors=True)
+    ok = raised is not None and NAN_LEAF in raised and len(rec["ms"]) == 1
+    print(f"  (d) cli.train --debug_nans, a NaN planted in {NAN_LEAF} before "
+          f"step 2: {'FloatingPointError: ' + raised if raised else 'no error'}"
+          f"; the clean step 1 under the flag took "
+          f"{' / '.join(f'{t:.1f}' for t in rec['ms'])} ms (autograd's "
+          f"anomaly mode and the finiteness checks) "
+          f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise SystemExit("--debug_nans did not name the planted NaN")
+
+    # (e)
+    got, counts = counted(lambda: learning_check.run("cuda", "host", "host"))
+    paths["learning_check"] = counts
+    ok = min(got["t2v_r1"], got["v2t_r1"]) >= learning_check.R1_BAR
+    print(f"  (e) the learning check (tiny towers memorise "
+          f"{learning_check.PAIRS} pairs from random init through "
+          f"run_training, the prefetch, host moments and host bank on): "
+          f"{got['steps']} steps, t2v R@1 {got['t2v_r1']:.2f}, v2t R@1 "
+          f"{got['v2t_r1']:.2f} (bar {learning_check.R1_BAR:g}), "
+          f"{got['seconds']:.1f} s; launches {counts} "
+          f"{'ok' if ok else 'FAILED'}")
+    if not ok or got["steps"] != learning_check.STEPS:
+        raise SystemExit("the learning check did not reach its R@1")
+    print(f"  phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def alone(argv):
     """`--alone 9 [--seeds S ...]`: phase 9 by itself once per generator
-    seed; `--alone 16` / `17` / `18` / `19`: that phase by itself.  Prints
-    no JSON lines."""
+    seed; `--alone 16` / `17` / `18` / `19` / `20`: that phase by itself.
+    Prints no JSON lines."""
     import argparse
     ap = argparse.ArgumentParser()
-    ap.add_argument("--alone", choices=("9", "16", "17", "18", "19"),
+    ap.add_argument("--alone", choices=("9", "16", "17", "18", "19", "20"),
                     required=True)
     ap.add_argument("--seeds", type=int, nargs="+", default=[0])
     args = ap.parse_args(argv)
@@ -4225,6 +4648,9 @@ def alone(argv):
         return
     if args.alone == "19":
         phase_sharded(card)
+        return
+    if args.alone == "20":
+        phase_host_memory(card)
         return
     for seed in args.seeds:
         print(f"-- phase 9 alone, generator seed {seed}")
@@ -4267,6 +4693,7 @@ def main():
     dp_counts = phase_data_parallel(card, block_ms, train_peak)
     real_counts = phase_real_inputs(card)
     sharded_counts = phase_sharded(card)
+    host_counts = phase_host_memory(card, block_ms)
 
     def kernel(name, source, replaces, launches, row, timed_at, **extra):
         err, ms, plain_ms, bound_ms, bound_by, *library_ms = row
@@ -4291,7 +4718,8 @@ def main():
                 "serving_daemon": daemon_counts[k],
                 **{path: c[k] for path, c in dp_counts.items()},
                 **{path: c[k] for path, c in real_counts.items()},
-                **{path: c[k] for path, c in sharded_counts.items()}}
+                **{path: c[k] for path, c in sharded_counts.items()},
+                **{path: c[k] for path, c in host_counts.items()}}
 
     def by_shape(rows):
         return {str(k): list(r[1:]) for k, r in rows.items()}

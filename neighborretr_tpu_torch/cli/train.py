@@ -13,8 +13,12 @@ fetched into the cache unless `--resume` supplies the weights), then
 reference-trained `best.pth` (strict=False).  `--datatype synthetic`
 trains on generated data: tiny towers unless `--clip_checkpoint random`
 asks for the full-size model with seeded random weights.  `--packed_dir`
-reads clips packed by `neighborretr_tpu_torch.cli.pack_dataset`.  A flag
-for an option that is not ported exits with the reason.
+reads clips packed by `neighborretr_tpu_torch.cli.pack_dataset`.
+`--bank_placement host` / `--opt_moments_placement host` keep the memory
+bank / the Adam moments in pinned host memory between steps (a CUDA
+device only: under `--device cpu` they exit with the reason), and
+`--debug_nans` raises FloatingPointError at the first NaN or Inf of a
+train step.
 Checkpoints (`best.npz`, `state_epochN.npz`, `state_preempt.npz`, and the
 sharded preempt set of a multi-process run) are in the JAX package's npz
 layout and resume in either package.
@@ -43,13 +47,6 @@ from ..core.config import (ClipConfig, Config, DataConfig, LossConfig,
 from .common import (add_attention_impl_arg, add_distributed_args,
                      init_distributed, ranks_on_this_host,
                      resolve_clip_checkpoint, resolve_device, tiny_requested)
-
-# flags the JAX CLI has and the port does not honour yet: asking for one
-# (a value other than the default shown) exits
-UNPORTED = {
-    "bank_placement": "device", "opt_moments_placement": "device",
-    "debug_nans": False,
-}
 
 
 def parse_args(argv=None):
@@ -113,6 +110,18 @@ def parse_args(argv=None):
                    choices=["float32", "bfloat16"])
     p.add_argument("--opt_moments_dtype", default="float32",
                    choices=["float32", "bfloat16"])
+    p.add_argument("--bank_placement", default="device",
+                   choices=["device", "host"],
+                   help="where the memory bank lives between steps: 'host' "
+                        "parks it in pinned host memory (frees bank-sized "
+                        "HBM for activations at a per-step PCIe round "
+                        "trip); TPU/GPU backends only")
+    p.add_argument("--opt_moments_placement", default="device",
+                   choices=["device", "host"],
+                   help="where the carried moments live between steps: "
+                        "'host' streams them through pinned host memory, "
+                        "freeing moments-sized HBM (~1.2 GB fp32 ViT-B) for "
+                        "activation headroom at a per-step PCIe round trip")
     p.add_argument("--micro_batches", type=int, default=1,
                    help="encode the batch in N sequential micro-batches while "
                         "the losses see the full batch: exact gradients, ~N× "
@@ -170,21 +179,24 @@ def parse_args(argv=None):
                    help="FSDP2: shard every parameter and its moments over "
                         "the data ranks (gathered just in time for each "
                         "block, gradients reduce-scattered)")
-    # the JAX CLI's flags for options that are not ported
-    p.add_argument("--bank_placement", default="device",
-                   choices=["device", "host"])
-    p.add_argument("--opt_moments_placement", default="device",
-                   choices=["device", "host"])
-    p.add_argument("--debug_nans", action="store_true")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="raise FloatingPointError on NaN/Inf in a train "
+                        "step (the reference's --detect_grad / "
+                        "detect_anomaly analogue)")
     return p.parse_args(argv)
 
 
-def check_ported(args) -> None:
-    asked = [f"--{k}" for k, default in UNPORTED.items()
-             if getattr(args, k) != default]
-    if asked:
-        raise SystemExit(str(NotImplementedError(
-            "not ported to PyTorch yet: " + ", ".join(asked))))
+def check_placements(args, device) -> None:
+    """Host placements need a CUDA device: exits with the reason before
+    anything is written."""
+    from ..train import bertadam, memory_bank
+    try:
+        if args.bank_placement == "host":
+            memory_bank.require_host_placement(device)
+        if args.opt_moments_placement == "host":
+            bertadam.require_host_placement(device)
+    except ValueError as e:
+        raise SystemExit(str(e))
 
 
 def build_config(args) -> Config:
@@ -221,7 +233,8 @@ def build_config(args) -> Config:
         optim=OptimizerConfig(lr=args.lr, coef_lr=args.coef_lr,
                               weight_decay=args.weight_decay,
                               warmup_proportion=args.warmup_proportion,
-                              moments_dtype=args.opt_moments_dtype),
+                              moments_dtype=args.opt_moments_dtype,
+                              moments_placement=args.opt_moments_placement),
         data=DataConfig(datatype=args.datatype, data_path=args.anno_path,
                         video_path=args.video_path, max_words=args.max_words,
                         max_frames=args.max_frames,
@@ -234,6 +247,7 @@ def build_config(args) -> Config:
                           batch_size_val=args.batch_size_val,
                           mb_batch=args.mb_batch, seed=args.seed,
                           bank_dtype=args.bank_dtype,
+                          bank_placement=args.bank_placement,
                           n_display=args.n_display,
                           output_dir=args.output_dir,
                           init_checkpoint=args.init_checkpoint,
@@ -315,13 +329,12 @@ def main(argv=None):
     """Runs the training → (final TrainState, BestMetricsTracker); on a data
     group, this rank's."""
     args = parse_args(argv)
-    check_ported(args)
     # a missing CLIP file fails before the output directory is written
     if args.clip_checkpoint not in (None, "random") and \
             not os.path.isfile(args.clip_checkpoint):
         raise SystemExit(f"--clip_checkpoint {args.clip_checkpoint}: no such "
                          "file")
-    resolve_device(args.device)
+    check_placements(args, resolve_device(args.device))
     world = args.num_devices or args.num_processes or 1
     if args.num_devices and args.num_processes and \
             args.num_devices != args.num_processes:
@@ -348,6 +361,7 @@ def _run(args):
     from ..models.neighborretr import resolve_fused_attention
     from ..parallel.mesh import make_mesh
     from ..train.loop import run_training
+    from ..train.step import set_debug_nans
     from ..utils.logging import setup_logger
 
     mesh = make_mesh(args.device, *mesh_layout(args, args.num_processes or 1))
@@ -387,6 +401,7 @@ def _run(args):
             "pipelined towers use their own per-microbatch schedule and "
             "ignore them (--remat and --remat_policy do carry over)")
     logger.info("Config:\n%s", cfg.to_json())
+    set_debug_nans(args.debug_nans)
     train_ds, test_ds = build_datasets(args, cfg)
     return run_training(cfg, train_ds, test_ds, logger=logger, device=device,
                         mesh=mesh)

@@ -42,6 +42,7 @@ from ..models import weights_io
 from ..parallel import mesh as pmesh
 from ..train.bertadam import BertAdamState
 from ..train.memory_bank import MemoryBank
+from ..utils import host_memory
 
 _SEP = "//"
 Tree = Dict[str, Any]
@@ -272,14 +273,20 @@ def _moments_tree(moments: Dict[str, torch.Tensor], model) -> Tree:
     holds for m and for v."""
     placement = pmesh.placement_of(model)
     if placement is not None:
-        moments = pmesh.gather_full(moments, placement)
+        # host-placed moments join the gathers from the ranks' device
+        moments = pmesh.gather_full(
+            {n: t.to(placement.mesh.device) for n, t in moments.items()},
+            placement)
     return weights_io.to_jax_params(moments, model.cfg)
 
 
 def train_state_payload(state) -> Dict[str, np.ndarray]:
     """Host copy of a train/step.py::TrainState in the npz key layout.
     Taken synchronously (parameters change in place at the next step); the
-    write itself may then run in the background (`_atomic_savez`)."""
+    write itself may then run in the background (`_atomic_savez`).  Host-
+    placed moments and bank are read once their copies have landed; a
+    resumed run re-homes them (train/loop.py)."""
+    host_memory.wait_copies()
     payload: Dict[str, np.ndarray] = {}
     for name, tree in (("params", params_tree(state.model)),
                        ("opt_m", _moments_tree(state.opt.m, state.model)),

@@ -37,8 +37,14 @@ of the stop flag), and each rank then writes its file of the sharded
 preempt set (`state_preempt.shard{p}.npz` + `state_preempt.manifest.json`,
 core/checkpoint.py), which `--resume` takes by its manifest.
 
-Not ported: the device prefetch (batches are moved when the step wants
-them).
+The bank fill's batches and each epoch's steps come through
+data/device_prefetch.py (two batches in flight: pinned host slots and a
+copy stream on a CUDA device), as the JAX loop's do; `data_wait_s` times
+the host's wait in `next()` on the prefetched iterator.  Batches that were
+prefetched but not consumed when a run stops are not counted: a resume
+skips the steps taken.  Under train.bank_placement / optim.moments_placement
+"host" the bank and the moments are placed in pinned host memory wherever
+they are created, resumed or cleared.
 """
 
 from __future__ import annotations
@@ -54,15 +60,16 @@ import torch
 
 from ..core import checkpoint as ckpt
 from ..core.config import Config
+from ..data.device_prefetch import prefetch_to_device
 from ..data.loader import BatchLoader
 from ..models import weights_io
 from ..parallel import mesh as pmesh
 from ..utils.logging import JsonlMetricsWriter, MetricLogger, setup_logger
+from . import bertadam
 from . import memory_bank as mb
 from .evaluate import evaluate
 from .metrics import BestMetricsTracker
-from .step import (TrainState, create_train_state, fill_bank_step, to_device,
-                   train_step)
+from .step import TrainState, create_train_state, fill_bank_step, train_step
 
 
 class PreemptionGuard:
@@ -125,10 +132,12 @@ _BANK_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _empty_bank(cfg: Config, device) -> mb.MemoryBank:
-    return mb.create(cfg.train.memory_bank_capacity, cfg.model.max_words,
+    """An empty bank in its configured home (train.bank_placement)."""
+    bank = mb.create(cfg.train.memory_bank_capacity, cfg.model.max_words,
                      cfg.model.max_frames, cfg.model.clip.embed_dim,
                      feat_dtype=_BANK_DTYPES[cfg.train.bank_dtype],
                      device=device)
+    return mb.place_bank(bank, cfg.train.bank_placement, device)
 
 
 def fill_memory_bank(model, cfg: Config, bank_loader: BatchLoader,
@@ -139,10 +148,11 @@ def fill_memory_bank(model, cfg: Config, bank_loader: BatchLoader,
     each rank encodes its rows of every batch."""
     n_fill = min(cfg.train.mb_batch, len(bank_loader))
     on_device = cfg.data.augment_backend == "device"
-    for i, batch in enumerate(itertools.islice(iter(bank_loader), n_fill)):
+    batches = itertools.islice(iter(bank_loader), n_fill)
+    for i, batch in enumerate(prefetch_to_device(batches, 2, device)):
         gen = (augment_generator(device, cfg.train.seed, epoch, i)
                if on_device else None)
-        bank = fill_bank_step(model, bank, to_device(batch, device), cfg,
+        bank = fill_bank_step(model, bank, batch, cfg,
                               i * cfg.train.batch_size, kernels, gen, mesh)
     return bank
 
@@ -190,7 +200,8 @@ def run_training(cfg: Config, train_ds, test_ds, logger=None, device=None,
     pmesh.place_params(model, mesh, fsdp=cfg.train.fsdp)
 
     state = create_train_state(model, _empty_bank(cfg, device),
-                               moments_dtype=cfg.optim.moments_dtype)
+                               moments_dtype=cfg.optim.moments_dtype,
+                               moments_placement=cfg.optim.moments_placement)
     tracker = BestMetricsTracker()
     global_step = 0
     start_epoch = 0
@@ -201,6 +212,11 @@ def run_training(cfg: Config, train_ds, test_ds, logger=None, device=None,
         state = (ckpt.load_sharded_train_state(path, state)
                  if path.endswith(ckpt.MANIFEST_SUFFIX)
                  else ckpt.load_train_state(path, state))
+        # the file records no placement: the run's config re-homes them
+        state.opt = bertadam.place_moments(
+            state.opt, cfg.optim.moments_placement, device)
+        state.bank = mb.place_bank(state.bank, cfg.train.bank_placement,
+                                   device)
         global_step = state.step
         start_epoch = min(global_step // max(steps_per_epoch, 1),
                           cfg.train.epochs)
@@ -396,7 +412,8 @@ def _train_epochs(cfg, state: TrainState, tracker, guard, train_loader,
         data_wait_logged = 0.0
         # `it` is the absolute in-epoch batch index, so the display and
         # mid-epoch-eval cadence line up with the uninterrupted run
-        for it, batch in enumerate(timed(train_loader), start=skip):
+        batches = prefetch_to_device(train_loader, 2, device)
+        for it, batch in enumerate(timed(batches), start=skip):
             if (main and cfg.train.profile_dir and profiler is None
                     and global_step == cfg.train.profile_steps[0]):
                 from torch.profiler import ProfilerActivity, profile
@@ -408,8 +425,8 @@ def _train_epochs(cfg, state: TrainState, tracker, guard, train_loader,
                    if cfg.model.cluster_noise else None)
             aug = (augment_generator(device, cfg.train.seed, global_step)
                    if cfg.data.augment_backend == "device" else None)
-            state, metrics = train_step(state, to_device(batch, device), cfg,
-                                        t_total, gen, kernels, aug, mesh)
+            state, metrics = train_step(state, batch, cfg, t_total, gen,
+                                        kernels, aug, mesh)
             global_step += 1
             if stop():
                 return preempt_exit()

@@ -2,9 +2,12 @@
 fixed capacity M = mb_batch × batch, FIFO refresh (the current batch is
 prepended and the tail dropped) and an epoch-start fill written slice by
 slice.  Functional like the JAX package's: each update returns a new bank;
-the bank carries no gradient.  The JAX package's host placement is not
-ported (it measured negative there for a reason that holds on any device:
-the bank is live across the whole step).
+the bank carries no gradient.  `place_bank` parks the bank in pinned host
+memory between steps under train.bank_placement="host", and the step
+brings it to the card and sends it back (`bank_to_memory`) on the device's
+copy stream (utils/host_memory.py).  The bank is live across the whole
+step, so this frees no memory at the step's peak; the option is kept for
+the shapes where the bank's consumers do not straddle the peak.
 """
 
 from __future__ import annotations
@@ -12,6 +15,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from ..utils import host_memory
 
 
 class MemoryBank(NamedTuple):
@@ -60,3 +65,29 @@ def write_slice(bank: MemoryBank, offset: int, ind, feat_t, feat_v, mask_t,
         old[offset:offset + new.shape[0]] = new
         out.append(old)
     return MemoryBank(*out)
+
+
+def place_bank(bank: MemoryBank, placement: str, device=None) -> MemoryBank:
+    """The bank in its configured home between steps: pinned host memory
+    under "host" (its steps run on `device`, which must be a CUDA device),
+    unchanged under "device"."""
+    if placement != "host":
+        return bank
+    require_host_placement(device)
+    return MemoryBank(*(host_memory.pinned(t) for t in bank))
+
+
+def require_host_placement(device) -> None:
+    """Raises ValueError (the JAX package's words first) unless `device`
+    is a CUDA device, which a host-placed bank needs."""
+    host_memory.require_cuda(device, "the bank",
+                             "bank_placement='host' needs a TPU/GPU backend")
+
+
+def bank_to_memory(bank: MemoryBank, kind: str, device=None) -> MemoryBank:
+    """A host-placed bank on `device` ("device": before the step reads it)
+    or a device bank back in pinned host memory ("host": once the step has
+    written it), through the copy stream; neither blocks the host."""
+    if kind == "device":
+        return MemoryBank(*host_memory.to_device(bank, device))
+    return MemoryBank(*host_memory.to_host(bank))

@@ -38,25 +38,38 @@ the full model, and the computation runs as the model's forward
 (`NeighborRetr.forward`, where FSDP2's hooks sit); with
 `train.pipeline_parallel > 1` on a mesh with a `stage` axis the pipeline
 context is active (↔ the JAX step), so the placed towers stream
-`train.pipeline_microbatches` microbatches (0 → 4 × stages).  The
-host-resident bank and moments are not ported: asking for one raises.
+`train.pipeline_microbatches` microbatches (0 → 4 × stages).
+
+`train.bank_placement="host"` keeps the bank in pinned host memory between
+steps: the step brings it to the card before the losses and sends the
+refreshed bank back after the FIFO update (train/memory_bank.py::
+bank_to_memory), and the bank fill does the same around each write.
+`optim.moments_placement="host"` keeps the moments there
+(train/bertadam.py).  Neither changes a bit of the step.  Under
+`debug_nans` (the train CLI's --debug_nans) the step raises
+FloatingPointError at the first non-finite value: a parameter or moment it
+starts from, a gradient node of the backward (autograd's anomaly mode),
+then a loss term, gradient, parameter or moment it leaves.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
 from ..core.config import Config
+from ..data.device_prefetch import to_device  # noqa: F401 (re-exported)
 from ..losses import hubness
 from ..models import neighborretr as M
 from ..ops.device_augment import augment_batch
 from ..parallel import mesh as pmesh
 from ..parallel import pipeline
+from ..utils import host_memory
 from . import bertadam
-from .memory_bank import MemoryBank, fifo_update, write_slice
+from .memory_bank import MemoryBank, bank_to_memory, fifo_update, write_slice
 
 
 @dataclasses.dataclass
@@ -68,21 +81,77 @@ class TrainState:
 
 
 def create_train_state(model: M.NeighborRetr, bank: MemoryBank,
-                       moments_dtype: str = "float32") -> TrainState:
+                       moments_dtype: str = "float32",
+                       moments_placement: str = "device") -> TrainState:
     """Marks every parameter trainable but the frozen patch embedding and
-    starts the optimizer's moments at zero."""
+    starts the optimizer's moments at zero, in `moments_placement`'s home
+    (bertadam.place_moments)."""
     for name, p in model.named_parameters():
         p.requires_grad_(not bertadam.is_frozen(name))
     opt = bertadam.bert_adam_init(dict(model.named_parameters()),
                                   moments_dtype)
+    device = pmesh.local(next(model.parameters())).device
+    opt = bertadam.place_moments(opt, moments_placement, device)
     return TrainState(model=model, opt=opt, bank=bank, step=0)
+
+
+_DEBUG_NANS = [False]
+
+
+def set_debug_nans(enabled: bool) -> None:
+    """Process-wide, as JAX's `jax_debug_nans` (the train CLI's
+    --debug_nans): train_step raises FloatingPointError at the first
+    non-finite value."""
+    _DEBUG_NANS[0] = bool(enabled)
+
+
+@contextlib.contextmanager
+def debug_nans(enabled: bool = True):
+    """`set_debug_nans` for the duration of a block (↔ `jax.debug_nans`)."""
+    prev = _DEBUG_NANS[0]
+    _DEBUG_NANS[0] = bool(enabled)
+    try:
+        yield
+    finally:
+        _DEBUG_NANS[0] = prev
+
+
+def check_finite(named: Iterable[Tuple[str, torch.Tensor]]) -> None:
+    """Raises FloatingPointError naming the first of `named` (label,
+    tensor) that holds a NaN or an Inf: one finiteness reduction per
+    device, read once; the labels are looked at only when one fails."""
+    named = list(named)
+    if any(host_memory.is_host_resident(t) for _, t in named):
+        host_memory.wait_copies()
+    groups: Dict[torch.device, list] = {}
+    for i, (_, t) in enumerate(named):
+        groups.setdefault(t.device, []).append(i)
+    bad = []
+    for idx in groups.values():
+        fine = torch.stack([torch.isfinite(named[i][1]).all() for i in idx])
+        if not bool(fine.all()):
+            bad += [i for i, ok in zip(idx, fine.tolist()) if not ok]
+    if bad:
+        label, t = named[min(bad)]
+        raise FloatingPointError(
+            f"debug_nans: non-finite value in {label} "
+            f"({int((~torch.isfinite(t)).sum())} of {t.numel()} entries)")
+
+
+def _state_leaves(model, opt: bertadam.BertAdamState):
+    for n, p in model.named_parameters():
+        yield f"parameter {n}", pmesh.local(p).detach()
+    for n in opt.m:
+        yield f"moment m of {n}", opt.m[n]
+        yield f"moment v of {n}", opt.v[n]
 
 
 def _check_supported(cfg: Config, model: Optional[M.NeighborRetr] = None
                      ) -> None:
-    """Raises for an option that is not ported, and for a model built from
-    another ModelConfig than `cfg.model` (the towers read the model's own:
-    attention route, remat, frame chunks)."""
+    """Raises for sim_dtype other than float32, the one option that is not
+    ported, and for a model built from another ModelConfig than
+    `cfg.model` (the towers read the model's own: attention route, remat,
+    frame chunks)."""
     if model is not None and model.cfg != cfg.model:
         raise ValueError(
             "the model was built from another ModelConfig than cfg.model; "
@@ -93,16 +162,6 @@ def _check_supported(cfg: Config, model: Optional[M.NeighborRetr] = None
             "similarity kernels and their plain versions multiply in "
             "float32 (the JAX package's two settings gave the same bits on "
             "its TPU); use sim_dtype='float32'")
-    t = cfg.train
-    unported = {
-        "train.bank_placement='host'": t.bank_placement != "device",
-        "optim.moments_placement='host'":
-            cfg.optim.moments_placement != "device",
-    }
-    asked = [k for k, v in unported.items() if v]
-    if asked:
-        raise NotImplementedError(
-            "not ported to PyTorch yet: " + ", ".join(asked))
 
 
 def _maybe_device_augment(cfg: Config, batch: Dict[str, torch.Tensor],
@@ -131,12 +190,6 @@ def _maybe_device_augment(cfg: Config, batch: Dict[str, torch.Tensor],
     video = augment_batch(batch["video"], batch["video_mask"], generator,
                           d.augment, rank, world)
     return dict(batch, video=video)
-
-
-def to_device(batch: Dict[str, object], device) -> Dict[str, torch.Tensor]:
-    """A loader batch (numpy arrays or tensors) on `device`."""
-    keys = ("text_ids", "text_mask", "video", "video_mask", "idx")
-    return {k: torch.as_tensor(batch[k]).to(device) for k in keys}
 
 
 def global_rows(batch: Dict[str, torch.Tensor],
@@ -327,6 +380,24 @@ def pipeline_context(cfg: Config, mesh: Optional[pmesh.DataGroup]
         microbatches=cfg.train.pipeline_microbatches or 4 * pp)
 
 
+def _backward(model, cfg: Config, batch, bank: MemoryBank, noise,
+              kernels: bool, mesh) -> Dict[str, torch.Tensor]:
+    """The losses and their backward on the step's form (the explicit
+    row-sharded one, GradCache micro-batches, or one pass) → aux."""
+    if mesh is not None and mesh.world > 1 and cfg.train.explicit_spmd:
+        from ..parallel.spmd import compute_losses_spmd
+        total, aux = model(lambda m: compute_losses_spmd(
+            m, cfg, batch, bank, noise, mesh, kernels, cfg.train.data_axis))
+    elif cfg.train.micro_batches > 1:
+        return _microbatched_backward(model, cfg, batch, bank, noise,
+                                      kernels, mesh)
+    else:
+        total, aux = model(lambda m: compute_losses(
+            m, cfg, batch, bank, noise, kernels, mesh=mesh))
+    total.backward()
+    return aux
+
+
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor], cfg: Config,
                t_total: int, generator: Optional[torch.Generator] = None,
                kernels: bool = True,
@@ -357,22 +428,22 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], cfg: Config,
                                      batch["text_ids"].shape[0] * world,
                                      generator, batch["text_ids"].device)
 
+    debug = _DEBUG_NANS[0]
+    if debug:
+        check_finite(_state_leaves(model, state.opt))
     model.zero_grad(set_to_none=True)
-    bank = state.bank
-    with pipeline.activated(pipeline_context(cfg, mesh)):
-        if mesh is not None and mesh.world > 1 and cfg.train.explicit_spmd:
-            from ..parallel.spmd import compute_losses_spmd
-            total, aux = model(lambda m: compute_losses_spmd(
-                m, cfg, batch, bank, noise, mesh, kernels,
-                cfg.train.data_axis))
-            total.backward()
-        elif cfg.train.micro_batches > 1:
-            aux = _microbatched_backward(model, cfg, batch, bank, noise,
-                                         kernels, mesh)
-        else:
-            total, aux = model(lambda m: compute_losses(
-                m, cfg, batch, bank, noise, kernels, mesh=mesh))
-            total.backward()
+    device = batch["text_ids"].device
+    host_bank = cfg.train.bank_placement == "host"
+    bank = (bank_to_memory(state.bank, "device", device) if host_bank
+            else state.bank)
+    try:
+        with pipeline.activated(pipeline_context(cfg, mesh)), \
+                torch.autograd.set_detect_anomaly(debug):
+            aux = _backward(model, cfg, batch, bank, noise, kernels, mesh)
+    except RuntimeError as e:
+        if debug and "nan values" in str(e):     # anomaly mode's verdict
+            raise FloatingPointError(f"debug_nans: {e}") from e
+        raise
 
     params = dict(model.named_parameters())
     placement = pmesh.placement_of(model)
@@ -385,10 +456,17 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], cfg: Config,
     opt = bertadam.bert_adam_update(grads, state.opt, params, cfg.optim,
                                     t_total, placement)
     M.clamp_logit_scale(model, cfg.loss.max_logit_scale)
+    if debug:
+        check_finite([(f"loss term {k}", v) for k, v in aux.items()
+                      if v.ndim == 0]
+                     + [(f"gradient of {n}", g) for n, g in grads.items()]
+                     + list(_state_leaves(model, opt)))
 
     idx, t_mask, v_mask = global_rows(batch, mesh)
-    bank = fifo_update(state.bank, idx, aux.pop("text_feat"),
+    bank = fifo_update(bank, idx, aux.pop("text_feat"),
                        aux.pop("video_feat"), t_mask, v_mask)
+    if host_bank:
+        bank = bank_to_memory(bank, "host")
     metrics = dict(aux)
     metrics["grad_norm"] = bertadam.clip_effective_norm(grads, placement)
     metrics["logit_scale"] = M.logit_scale(model).detach()
@@ -407,16 +485,22 @@ def fill_bank_step(model: M.NeighborRetr, bank: MemoryBank,
     With `augment_generator` the batch is augmented first under
     data.augment_backend="device" (the bank loader is a train loader).  On
     a data group each rank encodes its rows and the gathered global batch
-    is written, the same on every rank."""
+    is written, the same on every rank.  A host-placed bank
+    (train.bank_placement="host") comes to the card for the write and goes
+    back after it."""
     _check_supported(cfg, model)
     if mesh is not None and not mesh.collective:
         mesh = None
     if augment_generator is not None:
         batch = _maybe_device_augment(cfg, batch, augment_generator, mesh)
+    host_bank = cfg.train.bank_placement == "host"
+    if host_bank:
+        bank = bank_to_memory(bank, "device", batch["text_ids"].device)
     text_feat, video_feat = encode(model, batch, kernels)
     if mesh is not None:
         text_feat, video_feat = (pmesh.all_gather(x, mesh)
                                  for x in (text_feat, video_feat))
     idx, t_mask, v_mask = global_rows(batch, mesh)
-    return write_slice(bank, offset, idx, text_feat, video_feat, t_mask,
-                       v_mask)
+    out = write_slice(bank, offset, idx, text_feat, video_feat, t_mask,
+                      v_mask)
+    return bank_to_memory(out, "host") if host_bank else out

@@ -7,7 +7,9 @@ JAX is not installed; the repository's conftest.py imports JAX, hence:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import contextlib
 import dataclasses as dc
+import os
 
 import numpy as np
 import pytest
@@ -1457,3 +1459,153 @@ def test_openai_archive_loads_on_the_card(cuda, tmp_path, torchscript):
         got = on_card.state_dict()[name]
         assert got.device.type == "cuda" and got.dtype == torch.float32
         assert torch.equal(got.cpu(), want[name]), name
+
+
+# ---------------------------------------------------------------------------
+# the trainer's host-memory paths: the prefetch, host moments and bank
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _deterministic():
+    """torch's ordered forms of its scatter-adds (float atomics otherwise:
+    two runs of one step differ by 0.4% of the gradient), so that two
+    placements can be held to the bit."""
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+
+
+def _tiny_train_setup(cuda, n_batches):
+    from neighborretr_tpu_torch.core import config as C
+    from neighborretr_tpu_torch.data.datasets.synthetic import \
+        make_synthetic_batch
+
+    m = dc.replace(C.ModelConfig.tiny(max_words=8, max_frames=4),
+                   compute_dtype="bfloat16", cluster_noise=False)
+    host = []
+    for s in range(n_batches):
+        b = make_synthetic_batch(m, 8, seed=s)
+        b["idx"] = b["idx"] + 8 * s
+        host.append(b)
+    return C, m, host
+
+
+@pytest.mark.parametrize("moments_dtype", ["float32", "bfloat16"])
+def test_host_placements_are_bit_equal_to_the_device_placement(
+        cuda, tmp_path, moments_dtype):
+    """Bank fill and 3 steps under each placement from the same weights,
+    the host ones through a checkpoint round trip before step 3: loss
+    terms, parameters, moments and bank equal to the device placement's
+    to the bit, and the host-placed state in pinned host memory."""
+    from neighborretr_tpu_torch.core import checkpoint as CK
+    from neighborretr_tpu_torch.models.weights_io import init_model
+    from neighborretr_tpu_torch.train import bertadam as BAD
+    from neighborretr_tpu_torch.train import memory_bank as MB
+    from neighborretr_tpu_torch.train import step as TS
+    from neighborretr_tpu_torch.utils import host_memory
+
+    C, m, host = _tiny_train_setup(cuda, 5)
+    batches = [TS.to_device(b, cuda) for b in host]
+    terms = ("loss", "centrality_loss", "uniform_loss", "neighbor_loss",
+             "kl_loss", "grad_norm")
+
+    def run(bank_at, moments_at, round_trip):
+        cfg = C.Config(
+            model=m, loss=C.LossConfig(num_neighbors=3),
+            optim=C.OptimizerConfig(lr=1e-2, coef_lr=0.1,
+                                    moments_dtype=moments_dtype,
+                                    moments_placement=moments_at),
+            data=C.DataConfig(max_words=8, max_frames=4),
+            train=C.TrainConfig(batch_size=8, mb_batch=2,
+                                bank_placement=bank_at))
+
+        def fresh(seed):
+            model = init_model(m, seed=seed, device=cuda)
+            bank = MB.place_bank(MB.create(16, 8, 4, m.width, device=cuda),
+                                 bank_at, cuda)
+            return TS.create_train_state(model, bank, moments_dtype,
+                                         moments_at)
+
+        with _deterministic():
+            state = fresh(0)
+            bank = state.bank
+            for i in range(2):
+                bank = TS.fill_bank_step(state.model, bank, batches[i], cfg,
+                                         8 * i)
+            state.bank = bank
+            losses = []
+            for i, batch in enumerate(batches[2:]):
+                if round_trip and i == 2:
+                    path = str(tmp_path / f"{bank_at}-{moments_at}.npz")
+                    CK.save_train_state(path, state)
+                    state = CK.load_train_state(path, fresh(1))
+                    state.opt = BAD.place_moments(state.opt, moments_at, cuda)
+                    state.bank = MB.place_bank(state.bank, bank_at, cuda)
+                state, met = TS.train_step(state, batch, cfg, 10)
+                losses.append([met[k].item() for k in terms])
+        host_memory.wait_copies()
+        if moments_at == "host":
+            assert all(t.is_pinned() for t in state.opt.m.values())
+        if bank_at == "host":
+            assert all(t.is_pinned() for t in state.bank)
+        return dict(
+            losses=losses,
+            params={k: v.cpu() for k, v in state.model.state_dict().items()},
+            m={n: t.cpu() for n, t in state.opt.m.items()},
+            v={n: t.cpu() for n, t in state.opt.v.items()},
+            bank=[t.cpu() for t in state.bank])
+
+    want = run("device", "device", False)
+    assert np.isfinite(want["losses"]).all()
+    for bank_at, moments_at in (("device", "host"), ("host", "device"),
+                                ("host", "host")):
+        got = run(bank_at, moments_at, True)
+        where = f"bank {bank_at}, moments {moments_at}"
+        assert got["losses"] == want["losses"], where
+        for part in ("params", "m", "v"):
+            for k, t in want[part].items():
+                assert torch.equal(got[part][k], t), (where, part, k)
+        for a, b in zip(got["bank"], want["bank"]):
+            assert torch.equal(a, b), where
+
+
+@pytest.mark.parametrize("size", [1, 2, 3])
+def test_cuda_prefetch_matches_to_device_while_steps_run(cuda, size):
+    """The prefetch's batches (pinned slots, the copy stream, an event the
+    compute stream waits on) equal `to_device`'s while train steps keep the
+    compute stream busy; the slots are refilled across 6 batches."""
+    from neighborretr_tpu_torch.data.device_prefetch import \
+        prefetch_to_device
+    from neighborretr_tpu_torch.models.weights_io import init_model
+    from neighborretr_tpu_torch.train import memory_bank as MB
+    from neighborretr_tpu_torch.train import step as TS
+
+    C, m, host = _tiny_train_setup(cuda, 6)
+    cfg = C.Config(model=m, loss=C.LossConfig(num_neighbors=3),
+                   data=C.DataConfig(max_words=8, max_frames=4),
+                   train=C.TrainConfig(batch_size=8, mb_batch=2))
+    state = TS.create_train_state(
+        init_model(m, seed=0, device=cuda),
+        MB.create(16, 8, 4, m.width, device=cuda))
+    kept = []
+    for batch in prefetch_to_device(iter(host), size, cuda):
+        # the batch's first reader is the step's own first kernel
+        state, _ = TS.train_step(state, batch, cfg, 10)
+        kept.append({k: v.clone() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert len(kept) == len(host)
+    for got, b in zip(kept, host):
+        want = TS.to_device(b, cuda)
+        assert got.keys() == want.keys()
+        for k in want:
+            assert got[k].device == want[k].device
+            assert torch.equal(got[k], want[k]), k

@@ -271,14 +271,19 @@ def test_train_cli_smoke_writes_the_files_and_resumes(tmp_path):
 
 def test_train_cli_refuses_unported_options_and_missing_gpu(tmp_path):
     out = str(tmp_path / "refused")
+    # the host placements are ported and need an accelerator: on the CPU
+    # the CLI exits with the JAX package's words for it
+    from neighborretr_tpu.train import memory_bank as jmb
+    with pytest.raises(ValueError) as jax_refusal:
+        jmb.place_bank(jmb.create(4, 2, 2, 3), "host")
+    jax_words = str(jax_refusal.value).split(" (")[0]
     # the model-sharded flags are ported: they exit as the JAX CLI does
     for flags, says in (
             (["--fsdp", "--tensor_parallel", "2"],
              "--fsdp applies to pure data-parallel meshes"),
             (["--tensor_parallel", "2"],
              "--tensor_parallel 2 must divide the device count 1"),
-            (["--bank_placement", "host"],
-             "not ported to PyTorch yet: --bank_placement")):
+            (["--bank_placement", "host"], jax_words)):
         done = run_cli("--output_dir", out, *flags)
         assert done.returncode != 0
         assert says in done.stderr, done.stderr[-2000:]

@@ -220,12 +220,22 @@ def test_unported_options_raise():
         cfg.train, pipeline_parallel=2)))  # ported: parallel/pipeline.py
     tstep._check_supported(dc.replace(cfg, train=dc.replace(
         cfg.train, fsdp=True)))            # ported: FSDP2, parallel/mesh.py
+    # ported: the host placements pass, and a CPU device refuses them where
+    # they are placed (both need pinned host memory and a copy stream)
     for section, change in (("train", dict(bank_placement="host")),
                             ("optim", dict(moments_placement="host"))):
-        bad = dc.replace(cfg, **{section: dc.replace(getattr(cfg, section),
-                                                     **change)})
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tstep._check_supported(bad)
+        host = dc.replace(cfg, **{section: dc.replace(getattr(cfg, section),
+                                                      **change)})
+        tstep._check_supported(host)
+        model = W.init_model(host.model, 0)
+        bank = tmb.create(16, 8, 4, host.model.width)
+        with pytest.raises(ValueError, match="needs a TPU/GPU backend"):
+            if section == "train":
+                tmb.place_bank(bank, host.train.bank_placement, "cpu")
+            else:
+                tstep.create_train_state(
+                    model, bank,
+                    moments_placement=host.optim.moments_placement)
     noisy = make_config(tc, True)
     model = W.init_model(noisy.model, 0)
     state = tstep.create_train_state(

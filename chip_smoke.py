@@ -23,6 +23,7 @@ host-resident moments and bank, --debug_nans).
     python3 chip_smoke.py --alone 18                  # phase 18
     python3 chip_smoke.py --alone 19                  # phase 19
     python3 chip_smoke.py --alone 20                  # phase 20
+    python3 chip_smoke.py --alone 21                  # phase 21
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. device  — requires CUDA; prints the card's name and power limit;
@@ -172,7 +173,10 @@ Phases (each prints its own lines; any failure exits non-zero):
                gradient norms, moments, every parameter's update, the bank;
                the ranks' parameters bit-equal; (c) the long recipe's
                explicit form (64 words x 64 frames, batch 32 = 2 x 16, bank
-               15 x 32, 1 step; K6/K7) the same way; (d) a Searcher over
+               15 x 32, 1 step; K6/K7) the same way; (b) again, the
+               explicit form with sim_dtype bfloat16 against one process's
+               gathered form in bfloat16 (K2/K5 on the bank rows, all their
+               launches bf16); (d) a Searcher over
                10,000 videos in two shards on [cuda:0, cuda:0] against one
                shard: top-5 ids and scores, K2 once a shard.  Two ranks on
                one card measure no scale-out.
@@ -230,6 +234,27 @@ Phases (each prints its own lines; any failure exits non-zero):
                step's ms; (e) the learning check (tools/learning_check.py)
                with the prefetch, host moments and host bank on: R@1 >= 75
                both ways.
+ 21. bf16    — sim_dtype="bfloat16" and the rest: (a) the bf16 forms of K2
+               at the explicit form's bank rows ((64, 24, 1920, 12, 512)
+               and (1920, 24, 64, 12, 512) under autograd, K5 from its
+               routing; phase 17 (b) runs that form in bf16), K4 on both axes
+               and K5 from its routing ((128, 24, 1920, 12, 512) and (1920,
+               24, 128, 12, 512), the rank-1 cotangent), K6 with the near-
+               tie re-pick and K7 from its routing ((128, 64, 1920, 64,
+               512)), K6 at the eval's shape (1024 x 1024): each against its
+               plain bf16 version, timed beside its bf16 bound and its
+               3xTF32 form, with its distance from float64 of the rounded
+               and of the fp32 operands; (b) the MSR-VTT recipe (batch 128,
+               bank 1920, 3 steps) and the long one (64 x 64, batch 128 as 8
+               micro-batches, bank 1920, 2 steps) with sim_dtype bfloat16:
+               K4 = K5 = 6 and K6 = K7 = 3 a step, all bf16, finite losses;
+               (c) phase 19's tensor parallelism over three ranks (uneven
+               heads) and its eval, at phase 19's bars; (d) --debug_nans:
+               clean steps with and without the flag in turns, a NaN that
+               arises in the step and one planted in a parameter, each
+               named, the state untouched; (e) phase 10's loop at the long
+               recipe's widths (one fill batch, six steps) through the
+               prefetch and with to_device: the loader wait per step.
 The line before the last is a JSON object with, for each kernel, its
 launches on each main path (all eleven counts are set to 0 before each path
 and read after it; phase 16's path is its in-process load, (b)), error, times and roofline bound; the last line is the
@@ -431,7 +456,8 @@ def phase_device():
 
 
 LIBS = ("frame_attention", "interaction_similarity",
-        "interaction_similarity_blocked", "ln_attention_residual",
+        "interaction_similarity_bf16", "interaction_similarity_blocked",
+        "interaction_similarity_blocked_bf16", "ln_attention_residual",
         "ln_attention_residual_bwd")
 
 
@@ -453,11 +479,14 @@ def kernel_wrappers():
 
 
 def counted(fn):
-    """Sets every kernel's count to 0, runs `fn`, reads the counts straight
-    after → (fn's result, launches by kernel)."""
+    """Sets every kernel's count (and the bf16 forms' counts, read by
+    bf16_counts) to 0, runs `fn`, reads the counts straight after → (fn's
+    result, launches by kernel)."""
     wrappers = kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
+        if hasattr(w, "launches_bf16"):
+            w.launches_bf16 = 0
     out = fn()
     return out, {name: w.launches for name, w in wrappers.items()}
 
@@ -814,6 +843,23 @@ def check_routed_bwd(tag, bwd, plain_bwd, prep, cot, res, need):
     return err, (text if need == "text" else video)
 
 
+def _bank_inputs(g, A, T, B, V, D):
+    """The train step's kind of inputs: real-valued features, ragged
+    masks, masked softmax weights."""
+    dev = "cuda"
+    tf = torch.randn(A, T, D, generator=g, device=dev)
+    vf = torch.randn(B, V, D, generator=g, device=dev)
+    tlen = torch.randint(4, T + 1, (A,), generator=g, device=dev)
+    vlen = torch.randint(1, V + 1, (B,), generator=g, device=dev)
+    tm = (torch.arange(T, device=dev)[None] < tlen[:, None]).float()
+    vm = (torch.arange(V, device=dev)[None] < vlen[:, None]).float()
+    tw = torch.softmax(torch.randn(A, T, generator=g, device=dev)
+                       .masked_fill(tm == 0, -9e15), -1)
+    vw = torch.softmax(torch.randn(B, V, generator=g, device=dev)
+                       .masked_fill(vm == 0, -9e15), -1)
+    return tf, vf, tm, vm, tw, vw
+
+
 def phase_k4_k5(g):
     print("== phase 7: K4 interaction_mean, K5 interaction_similarity_bwd vs "
           "their plain versions")
@@ -825,17 +871,7 @@ def phase_k4_k5(g):
     for A, T, B, V, D, axis in ((128, 24, 1920, 12, 512, 1),
                                 (1920, 24, 128, 12, 512, 0)):
         need = "text" if axis == 1 else "video"
-        tf = torch.randn(A, T, D, generator=g, device=dev)
-        vf = torch.randn(B, V, D, generator=g, device=dev)
-        tlen = torch.randint(4, T + 1, (A,), generator=g, device=dev)
-        vlen = torch.randint(1, V + 1, (B,), generator=g, device=dev)
-        tm = (torch.arange(T, device=dev)[None] < tlen[:, None]).float()
-        vm = (torch.arange(V, device=dev)[None] < vlen[:, None]).float()
-        tw = torch.softmax(torch.randn(A, T, generator=g, device=dev)
-                           .masked_fill(tm == 0, -9e15), -1)
-        vw = torch.softmax(torch.randn(B, V, generator=g, device=dev)
-                           .masked_fill(vm == 0, -9e15), -1)
-        args = (tf, vf, tm, vm, tw, vw)
+        args = _bank_inputs(g, A, T, B, V, D)
         tag = f"A={A} T={T} B={B} V={V} D={D} axis={axis}"
         flops = 2 * A * T * B * V * D
 
@@ -2392,8 +2428,9 @@ def phase_trainer(profile: bool, card: str):
             real_sim = M.local_similarity
             if plain_similarity:
                 M.local_similarity = (
-                    lambda model, tf, vf, tm, vm, kernels=True:
-                    real_sim(model, tf, vf, tm, vm, False))
+                    lambda model, tf, vf, tm, vm, kernels=True,
+                    sim_dtype="float32":
+                    real_sim(model, tf, vf, tm, vm, False, sim_dtype))
             try:
                 t0 = time.perf_counter()
                 st, _ = LOOP.run_training(
@@ -2963,7 +3000,7 @@ def dp_run(cfg, n_steps: int, mesh=None, replay=None, seed0: int = 100):
     on this process's block of each global batch → record: per step the
     metrics, ms and decisions; launch counts; the final parameters, the
     compared parameters' first moments and the bank on the host; a hash of
-    the parameters."""
+    the parameters; the bf16 forms' launch counts."""
     import hashlib
 
     from neighborretr_tpu_torch.models.weights_io import init_model
@@ -3012,6 +3049,7 @@ def dp_run(cfg, n_steps: int, mesh=None, replay=None, seed0: int = 100):
 
     torch.cuda.reset_peak_memory_stats()
     state, rec["counts"] = counted(run)
+    rec["bf16"] = bf16_counts()
     rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     params = dict(model.named_parameters())
     rec["params"] = {n: p.detach().cpu() for n, p in params.items()}
@@ -3024,6 +3062,17 @@ def dp_run(cfg, n_steps: int, mesh=None, replay=None, seed0: int = 100):
     del model, state, params
     torch.cuda.empty_cache()
     return rec
+
+
+# each two-rank form of phase 17 → the one-process run it is held to
+DP_PLAN = {"gathered": "short", "explicit": "short",
+           "long_explicit": "long", "explicit_bf16": "short_bf16"}
+
+
+def dp_bf16(cfg):
+    """cfg with sim_dtype="bfloat16"."""
+    import dataclasses as dc
+    return dc.replace(cfg, model=dc.replace(cfg.model, sim_dtype="bfloat16"))
 
 
 def dp_rank_worker(rank: int, port: int, work: str) -> None:
@@ -3046,14 +3095,15 @@ def dp_rank_worker(rank: int, port: int, work: str) -> None:
     out = {}
     for form, cfg, steps in (("gathered", short, DP_STEPS),
                              ("explicit", short, DP_STEPS),
-                             ("long_explicit", long, DP_LONG_STEPS)):
+                             ("long_explicit", long, DP_LONG_STEPS),
+                             ("explicit_bf16", dp_bf16(short), DP_STEPS)):
         cfg = dc.replace(cfg, train=dc.replace(
             cfg.train, explicit_spmd=form != "gathered"))
-        rec = dp_run(cfg, steps, mesh, plan["long" if form == "long_explicit"
-                                            else "short"])
+        rec = dp_run(cfg, steps, mesh, plan[DP_PLAN[form]])
         rec.pop("decisions")
         if rank:
-            rec = {k: rec[k] for k in ("counts", "hash", "ms", "metrics")}
+            rec = {k: rec[k] for k in ("counts", "bf16", "hash", "ms",
+                                       "metrics")}
         out[form] = rec
     torch.save(out, os.path.join(work, f"rank{rank}.pt"))
     dist.destroy_process_group()
@@ -3181,8 +3231,9 @@ def dp_held(label, got, want, start, bars=DP_BARS, phase=17, floor=None,
 
 def phase_data_parallel(card: str, train_ms=None, train_peak=None):
     """(a) the train CLI at --num_devices 1 over NCCL, (b) two ranks on the
-    card in both forms against one process, (c) the long recipe's explicit
-    form the same way, (d) a two-shard Searcher against one shard →
+    card in both forms against one process, and the explicit form in bf16
+    against one process's gathered form in bf16, (c) the long recipe's
+    explicit form the same way, (d) a two-shard Searcher against one shard →
     launch counts by path.  train_ms / train_peak: phase 8's step time and
     peak memory, printed beside (a)'s (None when phase 8 did not run)."""
     print("== phase 17: data parallel (torch.distributed; ViT-B/32 width, "
@@ -3273,8 +3324,9 @@ def phase_data_parallel(card: str, train_ms=None, train_peak=None):
     start = {n: p.detach().cpu() for n, p in init_model(
         short.model, 0, "cuda").named_parameters()}
     torch.cuda.empty_cache()
-    ref = {"short": dp_run(short, DP_STEPS), "long": dp_run(long,
-                                                            DP_LONG_STEPS)}
+    ref = {"short": dp_run(short, DP_STEPS),
+           "long": dp_run(long, DP_LONG_STEPS),
+           "short_bf16": dp_run(dp_bf16(short), DP_STEPS)}
     long_start = {n: p.detach().cpu() for n, p in init_model(
         long.model, 0, "cuda").named_parameters()}
     torch.cuda.empty_cache()
@@ -3285,14 +3337,21 @@ def phase_data_parallel(card: str, train_ms=None, train_peak=None):
     wl.update({"K1": (DP_FILL + DP_LONG_STEPS) * layers,
                "K3": DP_LONG_STEPS * layers, "K6": 3 * DP_LONG_STEPS,
                "K7": 3 * DP_LONG_STEPS})
-    for key, want in (("short", wb), ("long", wl)):
+    # the bf16 forms' launches: all of K4/K5's in the bf16 run, none in
+    # the others
+    no_bf16 = dict.fromkeys(("K2", "K4", "K5", "K6", "K7"), 0)
+    for key, want, want_bf16 in (
+            ("short", wb, no_bf16), ("long", wl, no_bf16),
+            ("short_bf16", wb, dict(no_bf16, K4=wb["K4"], K5=wb["K5"]))):
         r = ref[key]
         print(f"  one process, {key}: fill {r['fill_s']:.2f} s, steps "
               f"{' / '.join(f'{t:.1f}' for t in r['ms'])} ms, peak "
-              f"{r['peak_gib']:.2f} GiB, launches {r['counts']}")
-        if r["counts"] != want:
+              f"{r['peak_gib']:.2f} GiB, launches {r['counts']}, bf16 forms "
+              f"{r['bf16']}")
+        if r["counts"] != want or r["bf16"] != want_bf16:
             raise SystemExit(f"phase 17: the one-process {key} run's "
-                             f"launches, expected {want}")
+                             f"launches, expected {want}, bf16 forms "
+                             f"{want_bf16}")
     work = tempfile.mkdtemp(prefix="chip_smoke_dp_ranks_")
     procs = []
     try:
@@ -3317,7 +3376,7 @@ def phase_data_parallel(card: str, train_ms=None, train_peak=None):
             if p.returncode != 0:
                 raise SystemExit(f"phase 17: rank {r} failed:\n{log[-4000:]}")
         print(f"  two ranks (two processes on {card}, gloo with the tensors "
-              f"on the card) ran all three forms in "
+              f"on the card) ran all four forms in "
               f"{time.perf_counter() - t0:.1f} s, processes included")
         ranks = [torch.load(os.path.join(work, f"rank{r}.pt"),
                             weights_only=False) for r in range(2)]
@@ -3329,19 +3388,27 @@ def phase_data_parallel(card: str, train_ms=None, train_peak=None):
         shutil.rmtree(work, ignore_errors=True)
 
     we = dict(wb, K4=0, K2=2 * DP_STEPS)
-    for form, want, key, st in (
-            ("gathered", wb, "short", start),
-            ("explicit", we, "short", start),
-            ("long_explicit", wl, "long", long_start)):
+    # the explicit form in bf16: its bank rows' K2 and their K5, all bf16
+    we_bf16 = dict(no_bf16, K2=we["K2"], K5=we["K5"])
+    for form, want, want_bf16, st in (
+            ("gathered", wb, no_bf16, start),
+            ("explicit", we, no_bf16, start),
+            ("long_explicit", wl, no_bf16, long_start),
+            ("explicit_bf16", we, we_bf16, start)):
+        key = DP_PLAN[form]
         r0, r1 = ranks[0][form], ranks[1][form]
         label = {"gathered": "(b) gathered", "explicit": "(b) explicit",
-                 "long_explicit": "(c) long explicit"}[form]
+                 "long_explicit": "(c) long explicit",
+                 "explicit_bf16": "(b) explicit bf16"}[form]
         print(f"  {label}: launches per rank {r0['counts']} / {r1['counts']}"
-              f" (expected {want}); steps {' / '.join(f'{t:.1f}' for t in r0['ms'])}"
+              f" (expected {want}), bf16 forms {r0['bf16']} / {r1['bf16']} "
+              f"(expected {want_bf16}); steps "
+              f"{' / '.join(f'{t:.1f}' for t in r0['ms'])}"
               f" ms on rank 0 of two on one card: not a scale-out number; "
               f"fill {r0['fill_s']:.2f} s; peak {r0['peak_gib']:.2f} GiB a "
               "rank")
-        if r0["counts"] != want or r1["counts"] != want:
+        if r0["counts"] != want or r1["counts"] != want or \
+                r0["bf16"] != want_bf16 or r1["bf16"] != want_bf16:
             raise SystemExit(f"phase 17 {label}: launch counts")
         if r0["hash"] != r1["hash"]:
             raise SystemExit(f"phase 17 {label}: the ranks' parameters or "
@@ -3850,6 +3917,12 @@ SH_STRATEGIES = {     # world → [(name, mesh shape, axes, fsdp, pipeline)]
     4: [("pipeline_tensor", (1, 2, 2), ("data", "stage", "model"), False,
          True)],
 }
+# phase 21 (c): tensor parallelism over three ranks, uneven heads (ViT-B/32:
+# vision 12 heads 4 / 4 / 4, text and temporal 8 heads 3 / 3 / 2, their
+# 2048-wide MLPs 683 / 683 / 682)
+SHARDED_RUNS = {**SH_STRATEGIES,
+                3: [("tp3", (1, 3), ("data", "model"), False, False)]}
+TP_EVALS = (2, 3)        # worlds whose ranks also run the eval under TP
 
 
 def sharded_config(fsdp=False, pipeline=False, fused=False):
@@ -3966,7 +4039,7 @@ def sharded_rank_worker(world: int, rank: int, port: int, work: str
     out = {}
     runs = [(name, sharded_config(fsdp, pipeline), pmesh.make_mesh(
         "cuda:0", shape, axes), SH_STEPS)
-        for name, shape, axes, fsdp, pipeline in SH_STRATEGIES[world]]
+        for name, shape, axes, fsdp, pipeline in SHARDED_RUNS[world]]
     if world == 2:              # (a) on the fused route
         runs.append(("tp_fused", sharded_config(fused=True),
                      pmesh.make_mesh("cuda:0", (1, 2), ("data", "model")),
@@ -3978,8 +4051,8 @@ def sharded_rank_worker(world: int, rank: int, port: int, work: str
             rec.pop("params")
             rec.pop("moments")
         out[name] = rec
-    if world == 2:
-        out["tp_eval"] = sharded_eval(["--tensor_parallel", "2"],
+    if world in TP_EVALS:
+        out["tp_eval"] = sharded_eval(["--tensor_parallel", str(world)],
                                       rank=rank, world=world)
     dist.destroy_process_group()
     torch.save(out, os.path.join(work, f"w{world}rank{rank}.pt"))
@@ -4024,6 +4097,85 @@ TP_BARS = (TP_LOSS_RTOL, TP_GRAD_NORM_RTOL, DP_MOMENT_REL_L2,
            DP_UPDATE_REL_L2, DP_BANK_REL_L2)
 
 
+# one process's runs that phase 19's ranks (and phase 21 (c)'s) are held
+# to, made once a process
+_SHARDED_REF: dict = {}
+
+
+def sharded_reference() -> dict:
+    """One process on the block route (the reference, its discrete
+    decisions the plan every rank replays) and on the fused route (the
+    witness: the same computation rounded at other points, whose readings
+    against the reference are the floor of the TP bars), and one process's
+    eval and its fused-route witness → {start, ref, plan, floor, one_eval,
+    eval_floor}; computed once a process."""
+    if _SHARDED_REF:
+        return _SHARDED_REF
+    from neighborretr_tpu_torch.models.weights_io import init_model
+    cfg = sharded_config()
+    start = {n: p.detach().cpu() for n, p in init_model(
+        cfg.model, 0, "cuda").named_parameters()}
+    torch.cuda.empty_cache()
+    ref = {"block": sharded_run(cfg)}
+    plan = ref["block"]["decisions"]
+    ref["fused"] = sharded_run(sharded_config(fused=True), replay=plan)
+    _SHARDED_REF.update(
+        start=start, ref=ref, plan=plan,
+        floor=held_readings(ref["fused"], ref["block"], start),
+        one_eval=sharded_eval(["--device", "cuda"]),
+        eval_floor=sharded_eval(["--device", "cuda", "--attention_impl",
+                                 "fused"])["sim"])
+    return _SHARDED_REF
+
+
+def spawn_sharded_ranks(world: int, plan, card: str, phase: int) -> list:
+    """`world` processes of sharded_rank_worker sharing the card over
+    gloo, each replaying `plan` → their records, rank by rank."""
+    import shutil
+    import socket
+    import tempfile
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    work = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    try:
+        torch.save(plan, os.path.join(work, "plan.pt"))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sharded-rank",
+             str(world), str(r), str(port), work],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+        try:
+            logs = []
+            for p in procs:
+                try:
+                    logs.append(p.communicate(timeout=SH_TIMEOUT)[0])
+                except subprocess.TimeoutExpired:
+                    raise SystemExit(f"phase {phase}: a rank of {world} did "
+                                     f"not finish in {SH_TIMEOUT} s")
+            for r, (p, log) in enumerate(zip(procs, logs)):
+                if p.returncode != 0:
+                    raise SystemExit(f"phase {phase}: rank {r} of {world} "
+                                     f"failed:\n{log[-4000:]}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        names = [x[0] for x in SHARDED_RUNS[world]]
+        print(f"  {world} ranks (processes on {card}, gloo with the tensors "
+              f"on the card) ran {', '.join(names)}"
+              f"{', the fused step' if world == 2 else ''}"
+              f"{' and the eval' if world in TP_EVALS else ''} in "
+              f"{time.perf_counter() - t0:.1f} s, processes included")
+        return [torch.load(os.path.join(work, f"w{world}rank{r}.pt"),
+                           weights_only=False) for r in range(world)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def phase_sharded(card: str):
     """(a) tensor parallelism, data 1 x model 2, on the block and on the
     fused route; (b) FSDP2 over 2 ranks; (c) the pipeline, stage 2 x M 4;
@@ -4034,30 +4186,20 @@ def phase_sharded(card: str):
     print("== phase 19: model-sharded strategies (torch.distributed over "
           "gloo, ranks sharing one card; ViT-B/32 width, bf16, depth not "
           "cut, 24 words x 12 frames, global batch 32, bank 2 x 32)")
-    import shutil
-    import socket
-    import tempfile
-
-    from neighborretr_tpu_torch.models.weights_io import init_model
     t_phase = time.perf_counter()
     cfg = sharded_config()
     m = cfg.model
     layers = (m.clip.vision_layers + m.clip.transformer_layers
               + m.temporal_layers)
-    start = {n: p.detach().cpu() for n, p in init_model(
-        m, 0, "cuda").named_parameters()}
-    torch.cuda.empty_cache()
-    ref = {"block": sharded_run(cfg)}
-    plan = ref["block"]["decisions"]
-    ref["fused"] = sharded_run(sharded_config(fused=True), replay=plan)
+    base = sharded_reference()
+    start, ref, plan, floor = (base[k] for k in ("start", "ref", "plan",
+                                                 "floor"))
     one_bytes, one_peak = ref["block"]["bytes"], ref["block"]["peak_gib"]
     for route, r in ref.items():
         print(f"  one process, {route} route: steps "
               f"{' / '.join(f'{t:.1f}' for t in r['ms'])} ms, peak "
               f"{r['peak_gib']:.2f} GiB, parameters + moments "
               f"{r['bytes'] / 2 ** 30:.3f} GiB, launches {r['counts']}")
-    # the witness: the same computation rounded at other points
-    floor = held_readings(ref["fused"], ref["block"], start)
     for kind in ("loss", "grad_norm", "moment", "update", "bank"):
         q = max((q for q in floor[0] if q[0] == kind), key=floor[0].get)
         print(f"  witness, one process's fused route against its block "
@@ -4076,54 +4218,9 @@ def phase_sharded(card: str):
           f"{floor[0][q]:.3g}); at the TP bars "
           f"{'caught: ' + caught if caught else 'NOT caught'}")
     del fault
-    one_eval = sharded_eval(["--device", "cuda"])
-    eval_floor = sharded_eval(["--device", "cuda", "--attention_impl",
-                               "fused"])["sim"]
-
-    def free_port():
-        with socket.socket() as s:
-            s.bind(("localhost", 0))
-            return s.getsockname()[1]
-
-    work = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
-    ranks = {}
-    try:
-        torch.save(plan, os.path.join(work, "plan.pt"))
-        for world in (2, 4):
-            port = free_port()
-            t0 = time.perf_counter()
-            procs = [subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--sharded-rank",
-                 str(world), str(r), str(port), work],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                for r in range(world)]
-            try:
-                logs = []
-                for p in procs:
-                    try:
-                        logs.append(p.communicate(timeout=SH_TIMEOUT)[0])
-                    except subprocess.TimeoutExpired:
-                        raise SystemExit(f"phase 19: a rank of {world} did "
-                                         f"not finish in {SH_TIMEOUT} s")
-                for r, (p, log) in enumerate(zip(procs, logs)):
-                    if p.returncode != 0:
-                        raise SystemExit(f"phase 19: rank {r} of {world} "
-                                         f"failed:\n{log[-4000:]}")
-            finally:
-                for p in procs:
-                    if p.poll() is None:
-                        p.kill()
-                        p.wait()
-            print(f"  {world} ranks (processes on {card}, gloo with the "
-                  f"tensors on the card) ran "
-                  f"{', '.join(s[0] for s in SH_STRATEGIES[world])}"
-                  f"{', the fused step and the eval' if world == 2 else ''} "
-                  f"in {time.perf_counter() - t0:.1f} s, processes included")
-            ranks[world] = [torch.load(os.path.join(
-                work, f"w{world}rank{r}.pt"), weights_only=False)
-                for r in range(world)]
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    one_eval, eval_floor = base["one_eval"], base["eval_floor"]
+    ranks = {world: spawn_sharded_ranks(world, plan, card, 19)
+             for world in (2, 4)}
 
     zero = dict.fromkeys(kernel_wrappers(), 0)
     per_stage = layers // 2      # every tower's depth divides by 2 stages
@@ -4342,6 +4439,21 @@ def h2d_line(h: dict) -> str:
             f"({rate(h['upload_ms']):.2f} GB/s)")
 
 
+@contextlib.contextmanager
+def loop_before_prefetch():
+    """The train loop as it was before the prefetch: every batch moved by
+    to_device when the loop wants it."""
+    from neighborretr_tpu_torch.train import loop as LOOP
+    from neighborretr_tpu_torch.train import step as TS
+    real_prefetch = LOOP.prefetch_to_device
+    LOOP.prefetch_to_device = (lambda it, size=2, device=None, mesh=None:
+                               (TS.to_device(b, device) for b in it))
+    try:
+        yield
+    finally:
+        LOOP.prefetch_to_device = real_prefetch
+
+
 def phase_host_memory(card: str, block_ms=None):
     """The trainer's host-memory paths at the MSR-VTT recipe: (a) one
     batch's upload, pageable against the prefetch's; (b) the four
@@ -4496,10 +4608,7 @@ def phase_host_memory(card: str, block_ms=None):
     print(f"  (c) {' '.join(argv)}, through the prefetch, then with every "
           "batch moved by to_device when the loop wants it (the loop before "
           "the prefetch), then through the prefetch again:")
-    real_step, real_prefetch = LOOP.train_step, LOOP.prefetch_to_device
-
-    def synchronous(iterator, size=2, device=None, mesh=None):
-        return (TS.to_device(b, device) for b in iterator)
+    real_step = LOOP.train_step
 
     def cli_run(prefetch: bool):
         out_dir = tempfile.mkdtemp(prefix="chip_smoke_prefetch_")
@@ -4515,16 +4624,16 @@ def phase_host_memory(card: str, block_ms=None):
             return out
 
         LOOP.train_step = timed_step
-        if not prefetch:
-            LOOP.prefetch_to_device = synchronous
         try:
-            (state, _), counts = counted(
-                lambda: cli.main(argv + ["--output_dir", out_dir]))
+            with (contextlib.nullcontext() if prefetch
+                  else loop_before_prefetch()):
+                (state, _), counts = counted(
+                    lambda: cli.main(argv + ["--output_dir", out_dir]))
             with open(os.path.join(out_dir, "metrics.jsonl")) as f:
                 rows_ = list(map(json.loads, f))
             has_best = os.path.exists(os.path.join(out_dir, "best.npz"))
         finally:
-            LOOP.train_step, LOOP.prefetch_to_device = real_step, real_prefetch
+            LOOP.train_step = real_step
             shutil.rmtree(out_dir, ignore_errors=True)
         ev = [r for r in rows_ if r["kind"] == "eval"]
         train_rows = [r for r in rows_ if r["kind"] == "train"]
@@ -4602,8 +4711,8 @@ def phase_host_memory(card: str, block_ms=None):
     print(f"  (d) cli.train --debug_nans, a NaN planted in {NAN_LEAF} before "
           f"step 2: {'FloatingPointError: ' + raised if raised else 'no error'}"
           f"; the clean step 1 under the flag took "
-          f"{' / '.join(f'{t:.1f}' for t in rec['ms'])} ms (autograd's "
-          f"anomaly mode and the finiteness checks) "
+          f"{' / '.join(f'{t:.1f}' for t in rec['ms'])} ms (the finiteness "
+          f"checks) "
           f"{'ok' if ok else 'FAILED'}")
     if not ok:
         raise SystemExit("--debug_nans did not name the planted NaN")
@@ -4625,13 +4734,545 @@ def phase_host_memory(card: str, block_ms=None):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 21: sim_dtype="bfloat16" (K2, K4-K7 on bf16 operands), uneven
+# tensor-parallel heads, --debug_nans at JAX's cost, the prefetch's loader
+# wait
+# ---------------------------------------------------------------------------
+
+# the bf16 kernels against their plain bf16 versions: both multiply the
+# same rounded operands (products exact in fp32) and differ only in the
+# order of their fp32 sums
+BF16_TOL = (1e-6, 1e-5)
+# (c): phase 19's TP case over three ranks (uneven heads)
+UNEVEN_WORLD = 3
+# (e): the long recipe's loop, cut to one fill batch (bank 128) and six
+# steps, through the prefetch and with to_device, in one process, its
+# config's sim_dtype set to bfloat16 (the loop's bf16 run on the card) and
+# no checkpoint files written
+LOADER_AB_ARGV = TRAINER_ARGV + ["--mb_batch", "1", "--synthetic_size",
+                                 "768", "--batch_size_val", "32"]
+
+
+def bf16_counts():
+    """The bf16 launch counts of the five similarity wrappers."""
+    w = kernel_wrappers()
+    return {k: w[k].launches_bf16 for k in ("K2", "K4", "K5", "K6", "K7")}
+
+
+def f64_distances(got, s64_rounded, s64_fp32):
+    """(max |got - float64 of the rounded operands|, max |got - float64 of
+    the fp32 operands|)."""
+    return ((got.double() - s64_rounded).abs().max().item(),
+            (got.double() - s64_fp32).abs().max().item())
+
+
+def bf16_row(tag, err, ms, plain_ms, flops, nb, f32_ms, f32_nb, dist=None,
+             dist32=None):
+    """Prints a bf16 kernel's row beside its 3xTF32 form's → (err, ms,
+    plain_ms, bound_ms, bound_by, None, extra)."""
+    b = bound(flops, PEAK_BF16, nb)
+    b32 = bound(3 * flops, PEAK_TF32, f32_nb)
+    line = (f"  {tag} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {b[0]:.4f} ms ({b[1]}, {100 * b[0] / ms:.1f}% of it); "
+            f"3xTF32 {f32_ms:.4f} ms, bound {b32[0]:.4f} ms ({b32[1]}); "
+            f"{f32_ms / ms:.2f}x")
+    extra = {"tf32x3_ms": f32_ms, "tf32x3_bound_ms": b32[0]}
+    if dist is not None:
+        line += (f"; from float64 of the rounded operands {dist[0]:.3g}, of "
+                 f"the fp32 operands {dist[1]:.3g} (what bf16 costs), "
+                 f"3xTF32's {dist32:.3g}")
+        extra.update(f64_rounded=dist[0], f64_fp32=dist[1],
+                     tf32x3_f64=dist32)
+    print(line)
+    return (err, ms, plain_ms, b[0], b[1], None, extra)
+
+
+def bf16_kernels(g):
+    """(a) K2, K4 (both axes), K5 (both sides), K6 and K7 in bf16 at the
+    train step's shapes, each against its plain bf16 version, the
+    gradients from the kernels' own saved routing, timed beside the
+    3xTF32 form, with their distances from float64 → rows by kernel."""
+    from neighborretr_tpu_torch.ops import similarity as S
+    from neighborretr_tpu_torch.ops import similarity_blocked as SB
+    rows = {}
+
+    def cast(prep):
+        tn, vn, tw, vw = prep
+        return (*S.operands(tn, vn, "bfloat16", True), tw, vw)
+
+    # K2: the explicit form's bank rows at the MSR-VTT recipe on two ranks
+    # (a rank's 64 captions against the bank's 1920 videos, the bank's 1920
+    # captions against a rank's 64 videos) under autograd, on prepared
+    # inputs with the residual stores; K5 from K2's saved routing on the
+    # side the step asks for
+    for A, B, need in ((64, 1920, "text"), (1920, 64, "video")):
+        T, V, D = 24, 12, 512
+        prep = S._prepare(*_bank_inputs(g, A, T, B, V, D), True)
+        bf = cast(prep)
+        out, res = S._similarity_fwd(*bf, save=True)
+        torch.cuda.synchronize()
+        tag = f"A={A} T={T} B={B} V={V} D={D}"
+        err = compare(f"K2 bf16 {tag}", out, S._similarity_plain(
+            *(x.float() for x in bf)), BF16_TOL)
+        out32 = S._similarity_fwd(*prep, save=True)[0]
+        s64 = S._similarity_plain(*(x.double() for x in prep))
+        dist = f64_distances(out, S._similarity_plain(
+            *(x.double() for x in bf)), s64)
+        cot = torch.randn(A, B, generator=g, device="cuda") / B
+        side = dict(need_t=need == "text", need_v=need == "video")
+        got = S.fused_similarity_bwd(*bf, cot, *res, **side)
+        want = S.similarity_bwd_routed_plain(
+            *(x.float() for x in bf), cot, *res, rounding="each", **side)
+        k5_err = max(compare(f"K5 bf16 {tag} {n} (K2's routing)", a, b,
+                             BF16_TOL)
+                     for n, a, b in zip(("dtn", "dvn", "dtw", "dvw"), got,
+                                        want) if a is not None)
+        rows[f"K2 {need}"] = row = bf16_row(
+            f"K2 {tag}", err,
+            time_ms(lambda: S._similarity_fwd(*bf, save=True), 10),
+            time_ms(lambda: S._similarity_plain(*(x.float() for x in bf)), 3),
+            2 * A * T * B * V * D, nbytes(*bf, out, *res),
+            time_ms(lambda: S._similarity_fwd(*prep, save=True), 10),
+            nbytes(*prep, out, *res), dist,
+            (out32.double() - s64).abs().max().item())
+        row[6]["k5_from_k2_routing_max_abs_err"] = k5_err
+        del prep, bf, out, res, out32, s64, got, want, cot
+
+    # K4 and K5: the train step's two bank centralities and their
+    # backwards in the train step's form (one side, the rank-1 cotangent)
+    for A, T, B, V, D, axis in ((128, 24, 1920, 12, 512, 1),
+                                (1920, 24, 128, 12, 512, 0)):
+        need = "text" if axis == 1 else "video"
+        prep = S._prepare(*_bank_inputs(g, A, T, B, V, D), True)
+        bf = cast(prep)
+        out, res = S._mean_fwd(*bf, axis, save=True)
+        torch.cuda.synchronize()
+        tag = f"A={A} T={T} B={B} V={V} D={D} axis={axis}"
+        err = compare(f"K4 bf16 {tag}", out, S._similarity_plain(
+            *(x.float() for x in bf)).mean(dim=axis), BF16_TOL)
+        out32, res32 = S._mean_fwd(*prep, axis, save=True)
+        s64r = S._similarity_plain(*(x.double() for x in bf)).mean(dim=axis)
+        s64 = S._similarity_plain(*(x.double() for x in prep)).mean(dim=axis)
+        flops = 2 * A * T * B * V * D
+        rows[f"K4 axis={axis}"] = bf16_row(
+            f"K4 axis={axis}", err,
+            time_ms(lambda: S._mean_fwd(*bf, axis, save=True), 10),
+            time_ms(lambda: S._similarity_plain(
+                *(x.float() for x in bf)).mean(dim=axis), 3),
+            flops, nbytes(*bf, out, *res),
+            time_ms(lambda: S._mean_fwd(*prep, axis, save=True), 10),
+            nbytes(*prep, out, *res), f64_distances(out, s64r, s64),
+            (out32.double() - s64).abs().max().item())
+        n_red = B if axis == 1 else A
+        cot = torch.randn(A if axis == 1 else B, generator=g, device="cuda")
+        gmat = ((cot / n_red)[:, None] if axis == 1
+                else (cot / n_red)[None, :]).expand(A, B).contiguous()
+        side = dict(need_t=need == "text", need_v=need == "video")
+        got = S.fused_similarity_bwd(*bf, gmat, *res)
+        want = S.similarity_bwd_routed_plain(
+            *(x.float() for x in bf), gmat, *res, rounding="each")
+        err = max(compare(f"K5 bf16 {tag} {n} (K4's routing)", a, b,
+                          BF16_TOL)
+                  for n, a, b in zip(("dtn", "dvn", "dtw", "dvw"), got, want))
+        again = S.fused_similarity_bwd(*bf, gmat, *res)
+        one = S.fused_similarity_bwd(*bf, gmat, *res, **side)
+        k = 0 if need == "text" else 1
+        if not (all(torch.equal(a, b) for a, b in zip(got, again))
+                and torch.equal(one[k], got[k])):
+            raise SystemExit(f"K5 bf16 {tag}: two runs, or one side and "
+                             "both, differ in their bits")
+        ms = time_ms(lambda: S.fused_similarity_bwd(*bf, gmat, *res, **side),
+                     10)
+        ms32 = time_ms(lambda: S.fused_similarity_bwd(*prep, gmat, *res32,
+                                                      **side), 10)
+        plain_ms = time_ms(lambda: S.similarity_bwd_routed_plain(
+            *(x.float() for x in bf), gmat, *res, rounding="each", **side),
+            3)
+        outs = [o for o in one if o is not None]
+        b_ms, b_by, live = routed_bound(bf[2], bf[3], D, 1, *bf, gmat, *res,
+                                        *outs)
+        print(f"  K5 bf16 axis={axis} ({need} side, the train step's form): "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}; live tokens {100 * live:.1f}%), "
+              f"{100 * b_ms / ms:.1f}% of it; fp32 {ms32:.4f} ms; two runs "
+              f"and one side bit-equal to both")
+        rows[f"K5 axis={axis}"] = (err, ms, plain_ms, b_ms, b_by, None,
+                                   {"fp32_ms": ms32})
+        del prep, bf, out, res, out32, res32, got, want, again, one, gmat
+
+    # K6 and K7: the long recipe's bank matrix with the residual stores and
+    # the float64 re-pick of near-ties, K7 from its routing (text side, the
+    # train step's form); K6 at the eval's shape, no grad
+    A, T, B, V, D = 128, 64, 1920, 64, 512
+    prep = S._prepare(*_blocked_inputs(g, A, T, B, V, D, exact=False),
+                      False)
+    bf = cast(prep)
+    out, res = SB._blocked_fwd(*bf, save=True)
+    torch.cuda.synchronize()
+    want, wres = SB.similarity_blocked_routing_plain(*(x.float() for x in bf))
+    tag = f"A={A} T={T} B={B} V={V} D={D}"
+    err = compare(f"K6 bf16 {tag}", out, want, BF16_TOL)
+    s64r = SB.similarity_blocked_plain(*(x.double() for x in bf))
+    s64 = SB.similarity_blocked_plain(*(x.double() for x in prep))
+    out32 = SB._blocked_fwd(*prep, save=True)[0]
+    flops = 2 * A * T * B * V * D
+    rows["K6"] = bf16_row(
+        f"K6 {tag}", err, time_ms(lambda: SB._blocked_fwd(*bf, save=True), 10),
+        time_ms(lambda: SB.similarity_blocked_routing_plain(
+            *(x.float() for x in bf)), 3),
+        flops, nbytes(*bf, out, *res),
+        time_ms(lambda: SB._blocked_fwd(*prep, save=True), 10),
+        nbytes(*prep, out, *res), f64_distances(out, s64r, s64),
+        (out32.double() - s64).abs().max().item())
+    del want, wres, s64r, s64, out32
+    cot = torch.randn(A, B, generator=g, device="cuda") / B
+    got = SB.fused_blocked_similarity_bwd(*bf, cot, *res)
+    want = SB.similarity_blocked_bwd_routed_plain(
+        *(x.float() for x in bf), cot, *res, rounding="sum")
+    err = max(compare(f"K7 bf16 {tag} {n} (K6's routing)", a, b, BF16_TOL)
+              for n, a, b in zip(("dtn", "dvn", "dtw", "dvw"), got, want))
+    del want
+    res32 = SB._blocked_fwd(*prep, save=True)[1]
+    ms = time_ms(lambda: SB.fused_blocked_similarity_bwd(
+        *bf, cot, *res, need_v=False), 10)
+    ms32 = time_ms(lambda: SB.fused_blocked_similarity_bwd(
+        *prep, cot, *res32, need_v=False), 10)
+    plain_ms = time_ms(lambda: SB.similarity_blocked_bwd_routed_plain(
+        *(x.float() for x in bf), cot, *res, need_v=False, rounding="sum"),
+        3)
+    b_ms, b_by, live = routed_bound(bf[2], bf[3], D, 1, *bf, cot, *res,
+                                    got[0], got[2], got[3])
+    print(f"  K7 bf16 {tag} (text side, the train step's form): kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}; live tokens {100 * live:.1f}%), {100 * b_ms / ms:.1f}% "
+          f"of it; fp32 {ms32:.4f} ms")
+    rows["K7"] = (err, ms, plain_ms, b_ms, b_by, None, {"fp32_ms": ms32})
+    del prep, bf, out, res, res32, got, cot
+
+    A, T, B, V, D = 1024, 64, 1024, 64, 512
+    prep = S._prepare(*_blocked_inputs(g, A, T, B, V, D, exact=False),
+                      False)
+    bf = cast(prep)
+    out = SB._blocked_fwd(*bf, save=False)[0]
+    torch.cuda.synchronize()
+    err = compare(f"K6 bf16 eval shape {A}x{B}", out,
+                  SB.similarity_blocked_plain(*(x.float() for x in bf)),
+                  BF16_TOL)
+    rows["K6 eval"] = bf16_row(
+        f"K6 eval {A}x{B}", err,
+        time_ms(lambda: SB._blocked_fwd(*bf, save=False), 5),
+        time_ms(lambda: SB.similarity_blocked_plain(
+            *(x.float() for x in bf)), 3),
+        2 * A * T * B * V * D, nbytes(*bf, out),
+        time_ms(lambda: SB._blocked_fwd(*prep, save=False), 5),
+        nbytes(*prep, out))
+    del prep, bf, out
+    torch.cuda.empty_cache()
+    return rows
+
+
+def bf16_recipes(card: str, block_ms=None):
+    """(b) the MSR-VTT recipe (batch 128, bank 1920) and the long one (64 x
+    64, batch 128 as 8 micro-batches, bank 1920) at full width with
+    sim_dtype="bfloat16": bank fill and 3 / 2 steps through the bf16
+    kernels → launch counts by path."""
+    import dataclasses as dc
+    short, long = dp_configs()
+    short = dc.replace(short, model=dc.replace(short.model,
+                                               sim_dtype="bfloat16"))
+    long = dc.replace(long, model=dc.replace(long.model,
+                                             sim_dtype="bfloat16"),
+                      train=dc.replace(long.train, batch_size=128,
+                                       micro_batches=8))
+    paths, failed = {}, []
+    zero = dict.fromkeys(kernel_wrappers(), 0)
+    for name, cfg, n_steps, sim in (("bf16_train", short, 3, ("K4", "K5")),
+                                    ("bf16_long_train", long, 2,
+                                     ("K6", "K7"))):
+        m = cfg.model
+        layers = (m.clip.vision_layers + m.clip.transformer_layers
+                  + m.temporal_layers)
+        rec = dp_run(cfg, n_steps)
+        bf = rec["bf16"]
+        per_step = 2 if name == "bf16_train" else 3
+        want = {k: per_step * n_steps for k in sim}
+        got = {k: rec["counts"][k] for k in sim}
+        finite = all(np.isfinite(v) for met in rec["metrics"]
+                     for v in met.values())
+        ok = (got == want and {k: bf[k] for k in sim} == want and finite
+              and all(rec["counts"][k] == 0 for k in zero
+                      if k not in sim and k not in ("K1", "K3")))
+        ms = statistics.median(rec["ms"])
+        print(f"  (b) {name}: {m.max_words} words x {m.max_frames} frames, "
+              f"batch {cfg.train.batch_size}"
+              f"{f' as {cfg.train.micro_batches} micro-batches' if cfg.train.micro_batches > 1 else ''}"
+              f", bank {cfg.train.memory_bank_capacity}, sim_dtype "
+              f"{m.sim_dtype}: steps {' / '.join(f'{t:.1f}' for t in rec['ms'])}"
+              f" ms (median {ms:.1f}"
+              f"{f'; phase 8 float32 {block_ms:.1f}' if block_ms and name == 'bf16_train' else ''}"
+              f"), fill {rec['fill_s']:.1f} s, peak {rec['peak_gib']:.2f} "
+              f"GiB; losses {' / '.join(f'{x['loss']:.5f}' for x in rec['metrics'])}"
+              f"; launches {rec['counts']}, bf16 forms {bf} ({layers} "
+              f"sublayers a pass; expected {want} of the similarity "
+              f"kernels, all bf16) {'ok' if ok else 'FAILED'}")
+        if not ok:
+            failed.append(name)
+        paths[name] = rec["counts"]
+        del rec
+        torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"phase 21 (b) {failed}: launches or losses")
+    return paths
+
+
+def debug_nans_cost(card: str):
+    """(d) --debug_nans at the MSR-VTT recipe: clean steps with and without
+    the flag in turns, then a NaN planted in a parameter (named by the
+    incoming state's check) and one that arises in the step (found before
+    the update; the backward replayed under anomaly mode names the op), the
+    parameters, moments and bank left as they were → launch counts."""
+    from neighborretr_tpu_torch.losses import hubness
+    from neighborretr_tpu_torch.models.weights_io import init_model
+    from neighborretr_tpu_torch.train import memory_bank as MB
+    from neighborretr_tpu_torch.train import step as TS
+    short, _ = dp_configs()
+    m, B = short.model, short.train.batch_size
+    model = init_model(m, seed=0, device="cuda")
+    bank = MB.create(short.train.memory_bank_capacity, m.max_words,
+                     m.max_frames, m.width, device="cuda")
+    for i in range(DP_FILL):
+        bank = TS.fill_bank_step(model, bank, device_batch(m, B, 400 + i),
+                                 short, i * B)
+    state = TS.create_train_state(model, bank)
+    times = {False: [], True: []}
+
+    def steps():
+        nonlocal state
+        for i, debug in enumerate((False, True) * 3):
+            batch = device_batch(m, B, 420 + i)
+            gen = torch.Generator(device="cuda").manual_seed(i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with TS.debug_nans(debug):
+                state, _ = TS.train_step(state, batch, short, 30, gen)
+            torch.cuda.synchronize()
+            times[debug].append(1e3 * (time.perf_counter() - t0))
+
+    _, counts = counted(steps)
+    clean, flagged = (statistics.median(times[k][1:]) for k in (False, True))
+
+    def snapshot():
+        return ([p.detach().clone() for p in model.parameters()],
+                [t.clone() for t in state.opt.m.values()],
+                [t.clone() for t in state.opt.v.values()],
+                [t.clone() for t in state.bank])
+
+    def unchanged(before):       # bit for bit, a planted NaN included
+        now = snapshot()
+        return all(torch.equal(torch.isnan(a), torch.isnan(b))
+                   and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0))
+                   for x, y in zip(before, now) for a, b in zip(x, y))
+
+    raised, untouched = [], []
+    batch = device_batch(m, B, 430)
+    before = snapshot()
+    real_kl = hubness.kl_divergence_loss
+    hubness.kl_divergence_loss = (
+        lambda *a, **kw: real_kl(*a, **kw) * float("nan"))
+    try:
+        with TS.debug_nans(True):
+            TS.train_step(state, batch, short, 30,
+                          torch.Generator(device="cuda").manual_seed(9))
+    except FloatingPointError as e:
+        raised.append(str(e).splitlines()[0][:160])
+    finally:
+        hubness.kl_divergence_loss = real_kl
+    untouched.append(unchanged(before))
+    with torch.no_grad():
+        dict(model.named_parameters())[NAN_LEAF].view(-1)[0] = float("nan")
+    before = snapshot()
+    try:
+        with TS.debug_nans(True):
+            TS.train_step(state, batch, short, 30,
+                          torch.Generator(device="cuda").manual_seed(9))
+    except FloatingPointError as e:
+        raised.append(str(e))
+    untouched.append(unchanged(before))
+    ok = (len(raised) == 2 and "nan values" in raised[0]
+          and NAN_LEAF in raised[1] and all(untouched))
+    print(f"  (d) --debug_nans at the MSR-VTT recipe (float32 similarity), "
+          f"clean steps in turns: with the flag "
+          f"{' / '.join(f'{t:.1f}' for t in times[True])} ms, without "
+          f"{' / '.join(f'{t:.1f}' for t in times[False])} ms (medians after "
+          f"the first {flagged:.1f} / {clean:.1f}, {flagged / clean:.3f}x; "
+          f"target <= 1.2x) on {card}; a NaN arising in the step: "
+          f"FloatingPointError '{raised[0] if raised else None}'; a NaN "
+          f"planted in {NAN_LEAF}: '{raised[1] if len(raised) > 1 else None}'"
+          f"; parameters, moments and bank untouched: {untouched} "
+          f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise SystemExit("phase 21 (d): --debug_nans")
+    del model, state, bank
+    torch.cuda.empty_cache()
+    return {"debug_nans": counts}
+
+
+def uneven_tp(card: str):
+    """(c) phase 19's TP case at --tensor_parallel 3 over three gloo ranks
+    sharing the card (ViT-B/32: uneven heads in the text and temporal
+    towers), the steps and the eval, against one process at phase 19's
+    bars → launch counts by path, summed over the ranks."""
+    base = sharded_reference()
+    start, ref, plan, floor = (base[k] for k in ("start", "ref", "plan",
+                                                 "floor"))
+    m = sharded_config().model
+    layers = (m.clip.vision_layers + m.clip.transformer_layers
+              + m.temporal_layers)
+    ranks = spawn_sharded_ranks(UNEVEN_WORLD, plan, card, 21)
+    zero = dict.fromkeys(kernel_wrappers(), 0)
+    want = dict(zero, K10=(SH_FILL + SH_STEPS) * layers,
+                K11=SH_STEPS * layers, K4=2 * SH_STEPS, K5=2 * SH_STEPS)
+    recs = [r["tp3"] for r in ranks]
+    counts = [r["counts"] for r in recs]
+    same = len({r["replicated_hash"] for r in recs}) == 1
+    print(f"  (c) tensor parallel, data 1 x model {UNEVEN_WORLD} (vision "
+          f"12 heads 4 / 4 / 4; text and temporal 8 heads 3 / 3 / 2, MLPs "
+          f"683 / 683 / 682): K10 / K11 per rank "
+          f"{[(c['K10'], c['K11']) for c in counts]} (expected "
+          f"{(want['K10'], want['K11'])} each), launches {counts}; steps "
+          f"{' / '.join(f'{t:.1f}' for t in recs[0]['ms'])} ms on rank 0 "
+          f"of {UNEVEN_WORLD} sharing one card; parameters + moments "
+          f"{recs[0]['bytes'] / ref['block']['bytes']:.3f} x one process's"
+          f"; replicated parameters bit-equal across the ranks: {same}")
+    failed = []
+    if any(c != want for c in counts) or not same:
+        failed.append("launch counts or replicas")
+    try:
+        dp_held("(c) tensor parallel x 3", recs[0], ref["block"], start,
+                TP_BARS, 21, floor)
+    except SystemExit as e:
+        failed.append(str(e))
+    ev = [r["tp_eval"] for r in ranks]
+    want_eval = dict(zero, K10=layers, K2=1)
+    one_sim = base["one_eval"]["sim"]
+    sd = one_sim.std().item()
+    wit = (base["eval_floor"] - one_sim).abs().max().item() / sd
+    gap = max((e["sim"] - one_sim).abs().max().item() for e in ev)
+    print(f"  (c) cli.eval --tensor_parallel {UNEVEN_WORLD} on {SH_EVAL_N} "
+          f"videos: launches per rank {[e['counts'] for e in ev]} (expected "
+          f"{want_eval} each); similarity within {gap / sd:.3g} standard "
+          f"deviations of one process's (tolerance {FLOOR_FOLD * wit:.3g}, "
+          f"witness {wit:.3g})")
+    if any(e["counts"] != want_eval for e in ev) or \
+            gap / sd > FLOOR_FOLD * wit:
+        failed.append("the eval under tensor parallelism x 3")
+    if failed:
+        raise SystemExit("phase 21 (c): " + "\n".join(failed))
+    return {"uneven_tp": {k: sum(c[k] for c in counts) for k in zero},
+            "uneven_tp_eval": {k: sum(e["counts"][k] for e in ev)
+                               for k in zero}}
+
+
+def loader_wait_ab(card: str):
+    """(e) phase 10's loop (cli.train) at the long recipe's widths with
+    sim_dtype="bfloat16", cut to one fill batch and six steps, through the
+    prefetch and then with every batch moved by to_device (the loop before
+    the prefetch), same seed → the loader wait and ms of each step, launch
+    counts by path."""
+    import dataclasses as dc
+    import shutil
+    import tempfile
+
+    from neighborretr_tpu_torch.cli import train as cli
+    from neighborretr_tpu_torch.train import loop as LOOP
+    real_step, real_build = LOOP.train_step, cli.build_config
+
+    def bf16_config(args):      # and no checkpoint files: the wait is read
+        cfg = real_build(args)
+        return dc.replace(cfg, model=dc.replace(cfg.model,
+                                                sim_dtype="bfloat16"),
+                          train=dc.replace(cfg.train, save_checkpoints=False))
+
+    paths, waits = {}, {}
+    for label, prefetch in (("prefetch", True), ("to_device", False)):
+        out_dir = tempfile.mkdtemp(prefix="chip_smoke_loader_ab_")
+        ms = []
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_step(*a, **kw)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            return out
+
+        LOOP.train_step, cli.build_config = timed, bf16_config
+        try:
+            t0 = time.perf_counter()
+            with (contextlib.nullcontext() if prefetch
+                  else loop_before_prefetch()):
+                _, counts = counted(lambda: cli.main(
+                    LOADER_AB_ARGV + ["--output_dir", out_dir]))
+            seconds = time.perf_counter() - t0
+            bf = bf16_counts()
+            with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+                rows = [r for r in map(json.loads, f) if r["kind"] == "train"]
+        finally:
+            LOOP.train_step, cli.build_config = real_step, real_build
+            shutil.rmtree(out_dir, ignore_errors=True)
+        waits[label] = [r["data_wait_s"] for r in rows]
+        if len(rows) < 6 or not all(np.isfinite(r["loss"]) for r in rows):
+            raise SystemExit(f"phase 21 (e): the {label} run did not take "
+                             "six finite steps")
+        # three blocked similarities a step, each way, in bf16; the evals'
+        # K6 in float32
+        if bf["K6"] != 3 * len(rows) or bf["K7"] != 3 * len(rows) or \
+                counts["K7"] != bf["K7"]:
+            raise SystemExit(f"phase 21 (e): bf16 launches {bf}, all "
+                             f"launches {counts}")
+        paths[f"loader_ab_{label}"] = counts
+        print(f"  (e) {label}: loader wait before each logged step "
+              f"{' / '.join(f'{w:.3f}' for w in waits[label])} s (sum "
+              f"{sum(waits[label]):.3f}, after the first "
+              f"{sum(waits[label][1:]):.3f}); steps "
+              f"{' / '.join(f'{t:.1f}' for t in ms)} ms; run {seconds:.1f} s;"
+              f" sim_dtype bfloat16: K6 / K7 {bf['K6']} / {bf['K7']} in bf16 "
+              f"of {counts['K6']} / {counts['K7']} launches")
+    a, b = (sum(waits[k][1:]) for k in ("prefetch", "to_device"))
+    print(f"  (e) loader wait after the first step: {a:.3f} s through the "
+          f"prefetch against {b:.3f} s with to_device ({a - b:+.3f} s over "
+          f"{len(waits['prefetch']) - 1} steps) on {card}; phase 10's "
+          f"readings before the prefetch "
+          f"{' / '.join(f'{w:.3f}' for w in EARLIER_LONG_WAITS)} s")
+    return paths
+
+
+def phase_bf16(card: str, block_ms=None):
+    """Phase 21 → (launch counts by path, the bf16 kernel rows)."""
+    print("== phase 21: sim_dtype=bfloat16 (K2, K4-K7 on bf16 wgmma and "
+          "bf16 gathers), uneven tensor-parallel heads, --debug_nans, the "
+          "prefetch's loader wait (ViT-B/32 width, bf16 towers)")
+    t_phase = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(21)
+    rows = bf16_kernels(g)
+    print(f"  (a) took {time.perf_counter() - t_phase:.1f} s")
+    paths = bf16_recipes(card, block_ms)
+    paths.update(uneven_tp(card))
+    paths.update(debug_nans_cost(card))
+    paths.update(loader_wait_ab(card))
+    print(f"  phase 21 took {time.perf_counter() - t_phase:.1f} s")
+    return paths, rows
+
+
 def alone(argv):
     """`--alone 9 [--seeds S ...]`: phase 9 by itself once per generator
-    seed; `--alone 16` / `17` / `18` / `19` / `20`: that phase by itself.
+    seed; `--alone 16` ... `21`: that phase by itself.
     Prints no JSON lines."""
     import argparse
     ap = argparse.ArgumentParser()
-    ap.add_argument("--alone", choices=("9", "16", "17", "18", "19", "20"),
+    ap.add_argument("--alone", choices=("9", "16", "17", "18", "19", "20",
+                                        "21"),
                     required=True)
     ap.add_argument("--seeds", type=int, nargs="+", default=[0])
     args = ap.parse_args(argv)
@@ -4651,6 +5292,9 @@ def alone(argv):
         return
     if args.alone == "20":
         phase_host_memory(card)
+        return
+    if args.alone == "21":
+        phase_bf16(card)
         return
     for seed in args.seeds:
         print(f"-- phase 9 alone, generator seed {seed}")
@@ -4694,6 +5338,7 @@ def main():
     real_counts = phase_real_inputs(card)
     sharded_counts = phase_sharded(card)
     host_counts = phase_host_memory(card, block_ms)
+    bf16_counts_, bf16 = phase_bf16(card, block_ms)
 
     def kernel(name, source, replaces, launches, row, timed_at, **extra):
         err, ms, plain_ms, bound_ms, bound_by, *library_ms = row
@@ -4719,7 +5364,14 @@ def main():
                 **{path: c[k] for path, c in dp_counts.items()},
                 **{path: c[k] for path, c in real_counts.items()},
                 **{path: c[k] for path, c in sharded_counts.items()},
-                **{path: c[k] for path, c in host_counts.items()}}
+                **{path: c[k] for path, c in host_counts.items()},
+                **{path: c[k] for path, c in bf16_counts_.items()}}
+
+    def bf16_form(row, timed_at):       # phase 21 (a)'s row of a bf16 form
+        err, ms, plain_ms, bound_ms, bound_by, _, extra = row
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "timed_at": timed_at, **extra}
 
     def by_shape(rows):
         return {str(k): list(r[1:]) for k, r in rows.items()}
@@ -4738,7 +5390,12 @@ def main():
                paths("K2"), worst(k2, "Q=64"),
                "Q=64 T=24 N=10000 V=12 D=512 (bound: 3xTF32)",
                bound_fp32_simt_ms=k2["Q=64"][6],
-               ms_plain_bound_by_shape=by_shape(k2)),
+               ms_plain_bound_by_shape=by_shape(k2),
+               bf16=bf16_form(bf16["K2 text"], "A=64 T=24 B=1920 V=12 "
+                              "D=512 under autograd, the explicit form's "
+                              "text-to-bank rows (bound: bf16 tensor cores)"),
+               bf16_v2t=bf16_form(bf16["K2 video"], "A=1920 T=24 B=64 V=12 "
+                                  "D=512, the bank-to-video rows")),
         kernel("ln_attention_residual_bwd", "ln_attention_residual_bwd.cu",
                "pallas_block_attention.py:534",
                paths("K3"),
@@ -4749,27 +5406,39 @@ def main():
                paths("K4"), worst(k4, 1),
                "A=128 T=24 B=1920 V=12 D=512 axis=1 (no grad; bound: "
                "3xTF32)", bound_fp32_simt_ms=k4[1][6],
-               ms_plain_bound_by_shape=by_shape(k4)),
+               ms_plain_bound_by_shape=by_shape(k4),
+               bf16=bf16_form(bf16["K4 axis=1"], "A=128 T=24 B=1920 V=12 "
+                              "D=512 axis=1 with the residual stores"),
+               bf16_axis0=bf16_form(bf16["K4 axis=0"], "A=1920 T=24 B=128 "
+                                    "V=12 D=512 axis=0")),
         kernel("interaction_similarity_bwd", "interaction_similarity.cu",
                "pallas_similarity.py:336",
                paths("K5"), worst(k5, 1),
                "A=128 T=24 B=1920 V=12 D=512 (the axis=1 centrality's text "
                "side from K4's residuals, the train step's form)",
-               ms_plain_bound_by_shape=by_shape(k5)),
+               ms_plain_bound_by_shape=by_shape(k5),
+               bf16=bf16_form(bf16["K5 axis=1"], "A=128 T=24 B=1920 V=12 "
+                              "D=512, text side from the bf16 K4's routing"),
+               bf16_axis0=bf16_form(bf16["K5 axis=0"], "video side")),
         kernel("interaction_similarity_blocked",
                "interaction_similarity_blocked.cu",
                "pallas_similarity_blocked.py:172",
                paths("K6"), worst(k6, (128, 1920)),
                "A=128 T=64 B=1920 V=64 D=512, with the residual stores "
                "(bound: 3xTF32)", bound_fp32_simt_ms=k6[(128, 1920)][6],
-               ms_plain_bound_by_shape=by_shape(k6)),
+               ms_plain_bound_by_shape=by_shape(k6),
+               bf16=bf16_form(bf16["K6"], "A=128 T=64 B=1920 V=64 D=512 "
+                              "with the residual stores and the re-pick"),
+               bf16_eval=bf16_form(bf16["K6 eval"], "1024 x 1024, no grad")),
         kernel("interaction_similarity_blocked_bwd",
                "interaction_similarity_blocked.cu",
                "pallas_similarity_blocked.py:342",
                paths("K7"), worst(k7, (128, 1920)),
                "A=128 T=64 B=1920 V=64 D=512 (text side from K6's "
                "residuals, the train step's form)",
-               ms_plain_bound_by_shape=by_shape(k7)),
+               ms_plain_bound_by_shape=by_shape(k7),
+               bf16=bf16_form(bf16["K7"], "A=128 T=64 B=1920 V=64 D=512, "
+                              "text side from the bf16 K6's routing")),
         kernel("frame_attention", "frame_attention.cu",
                "pallas_attention.py:290",
                paths("K8"), worst(k8, "vision ViT-L/14@336px"),

@@ -36,6 +36,11 @@ def main(argv=None):
                    help="--datatype synthetic: corpus size (default "
                         "max(32, batch_size))")
     p.add_argument("--workers", type=int, default=8)
+    p.add_argument("--worker_mode", choices=["thread", "process"],
+                   default="thread",
+                   help="loader workers: threads (default) or forked "
+                        "processes (scales Python-level augment cost on "
+                        "many-core hosts)")
     p.add_argument("--num_devices", type=int, default=1,
                    help="shard each encode batch over this many devices "
                         "(data-parallel corpus ViT forwards; batch_size "
@@ -77,7 +82,8 @@ def main(argv=None):
     cfg = model_config(args, args.max_frames, vocab)
     ds = build_dataset(args, cfg)
     loader = BatchLoader(ds, args.batch_size, shuffle=False, drop_last=False,
-                         workers=args.workers, pad_to_batch=True)
+                         workers=args.workers, worker_mode=args.worker_mode,
+                         pad_to_batch=True)
     model = load_model(args, cfg, device, logger)
 
     existing = None

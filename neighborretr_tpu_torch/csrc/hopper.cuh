@@ -268,6 +268,78 @@ __device__ __forceinline__ void wgmma_tf32_rs<128>(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
+// bf16: d[64 x N] += A[64 x 16] · B[16 x N] with fp32 accumulation, A from
+// registers (per warp the m16n8k16 bf16 fragment: four 32-bit registers of
+// two bf16 each, a0 (row g, cols 2t, 2t + 1), a1 (g + 8, 2t ..), a2 (g,
+// 2t + 8 ..), a3 (g + 8, 2t + 8 ..)), B K-major from shared memory in the
+// 128-byte swizzle: a k-step of 16 advances the descriptor by 32 B, and
+// the fragments sit at the byte offsets of the TF32 form's.  acc = 0
+// discards d's old value: d = A · B.
+template <int N>
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int acc);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16_rs<32>(float (&d)[16],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}"
+      ", {%16,%17,%18,%19}, %20, p, 1, 1, 0;\n}\n"
+      : WG_OUT8(0), WG_OUT8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16_rs<64>(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,"
+      "%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}"
+      ", {%32,%33,%34,%35}, %36, p, 1, 1, 0;\n}\n"
+      : WG_OUT8(0), WG_OUT8(8), WG_OUT8(16), WG_OUT8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16_rs<96>(float (&d)[48],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,"
+      "%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,"
+      "%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47}"
+      ", {%48,%49,%50,%51}, %52, p, 1, 1, 0;\n}\n"
+      : WG_OUT8(0), WG_OUT8(8), WG_OUT8(16), WG_OUT8(24),
+        WG_OUT8(32), WG_OUT8(40)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16_rs<128>(float (&d)[64],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,"
+      "%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,"
+      "%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,"
+      "%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}"
+      ", {%64,%65,%66,%67}, %68, p, 1, 1, 0;\n}\n"
+      : WG_OUT8(0), WG_OUT8(8), WG_OUT8(16), WG_OUT8(24),
+        WG_OUT8(32), WG_OUT8(40), WG_OUT8(48), WG_OUT8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
 #undef WG_REGS32
 #undef WG_OUT8
 #undef WG_OUTS32

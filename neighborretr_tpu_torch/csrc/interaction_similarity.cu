@@ -46,6 +46,11 @@
 // it: the gathers' instructions per routed row, 2·D fp32 FLOP per live
 // (nonzero-weight) token of each pair, at most 2·A·B·(T+V)·D per side.
 
+// The bf16 forms' entries (the `_bf16` C functions) are compiled apart:
+// interaction_similarity_bf16.cu includes this file with
+// SIMILARITY_BF16_ENTRIES defined, so that each library instantiates only
+// the kernels of its own input type and the two build in parallel.
+
 #include "similarity_tile.cuh"
 
 namespace {
@@ -53,15 +58,20 @@ namespace {
 constexpr int VIDS = 8;             // videos a consumer warpgroup
 constexpr int BLOCK_VIDS = CONSUMERS * VIDS;
 
-template <int VP, int MT, bool SAVE>
+template <int VP, int MT, bool SAVE, typename In>
 __global__ void __launch_bounds__(THREADS, 1)
 similarity_kernel(const __grid_constant__ CUtensorMap tm_t,
                   const __grid_constant__ CUtensorMap tm_v,
                   const float* __restrict__ tw, const float* __restrict__ vw,
                   float* __restrict__ out, Routing res, int A, int B, int T,
                   int V, int D, int QB, int mode, int stages) {
-  similarity_tile<VIDS, VP, MT, SAVE>(&tm_t, &tm_v, tw, vw, out, res, A, B,
-                                      T, V, D, QB, mode, stages);
+  similarity_tile<VIDS, VP, MT, SAVE, float, false, In>(
+      &tm_t, &tm_v, tw, vw, out, res, A, B, T, V, D, QB, mode, stages);
+}
+
+inline bool bad_shape(int A, int B, int T, int V, int D) {
+  return T < 1 || T > 64 || V < 1 || V > 16 || D < DK || D % DK != 0 ||
+         A < 1 || B < 1;
 }
 
 // m-tiles a block at most: 3 up to VP = 12, 2 at VP = 16
@@ -69,16 +79,16 @@ constexpr int mt_max(int VP) { return VP <= 12 ? 3 : 2; }
 
 inline int rounded_v(int V) { return (V + 3) / 4 * 4; }
 
-template <int VP, int MT, bool SAVE>
-int launch(const float* tn, const float* vn, const float* tw, const float* vw,
+template <int VP, int MT, bool SAVE, typename In>
+int launch(const In* tn, const In* vn, const float* tw, const float* vw,
            float* out, const Routing& res, int A, int B, int T, int V, int D,
            int QB, int mode, cudaStream_t stream) {
   CUtensorMap tm_t, tm_v;
-  if (int e = tile_maps<VIDS, VP, MT>(&tm_t, &tm_v, tn, vn, A, B, T, V, D,
-                                      QB))
+  if (int e = tile_maps<VIDS, VP, MT, In>(&tm_t, &tm_v, tn, vn, A, B, T, V,
+                                          D, QB))
     return e;
-  using Smem = TileSmem<VIDS * VP, MT>;
-  auto kern = similarity_kernel<VP, MT, SAVE>;
+  using Smem = TileSmem<VIDS * VP, MT, In>;
+  auto kern = similarity_kernel<VP, MT, SAVE, In>;
   static const cudaError_t e = allow_smem(kern, Smem::bytes);
   if (e != cudaSuccess) return (int)e;
   kern<<<tile_blocks(A, B, QB, VIDS), THREADS, Smem::bytes, stream>>>(
@@ -86,10 +96,10 @@ int launch(const float* tn, const float* vn, const float* tw, const float* vw,
   return (int)cudaGetLastError();
 }
 
-template <int VP, bool SAVE>
-int launch_mt(const float* tn, const float* vn, const float* tw,
-              const float* vw, float* out, const Routing& r, int A, int B,
-              int T, int V, int D, int mode, cudaStream_t s) {
+template <int VP, bool SAVE, typename In>
+int launch_mt(const In* tn, const In* vn, const float* tw, const float* vw,
+              float* out, const Routing& r, int A, int B, int T, int V,
+              int D, int mode, cudaStream_t s) {
   const int qb = block_queries(A, T, mt_max(VP));
   switch ((qb * T + 63) / 64) {
     case 1:
@@ -106,10 +116,10 @@ int launch_mt(const float* tn, const float* vn, const float* tw,
   }
 }
 
-template <bool SAVE>
-int launch_vp(const float* tn, const float* vn, const float* tw,
-              const float* vw, float* out, const Routing& r, int A, int B,
-              int T, int V, int D, int mode, cudaStream_t s) {
+template <bool SAVE, typename In>
+int launch_vp(const In* tn, const In* vn, const float* tw, const float* vw,
+              float* out, const Routing& r, int A, int B, int T, int V,
+              int D, int mode, cudaStream_t s) {
   switch (rounded_v(V)) {
     case 4: return launch_mt<4, SAVE>(tn, vn, tw, vw, out, r, A, B, T, V, D, mode, s);
     case 8: return launch_mt<8, SAVE>(tn, vn, tw, vw, out, r, A, B, T, V, D, mode, s);
@@ -119,20 +129,43 @@ int launch_vp(const float* tn, const float* vn, const float* tw,
 }
 
 // the kernel with the residual stores when res.m1 is set, without otherwise
-int launch_v(const float* tn, const float* vn, const float* tw,
-             const float* vw, float* out, const Routing& r, int A, int B,
-             int T, int V, int D, int mode, cudaStream_t s) {
+template <typename In>
+int launch_v(const In* tn, const In* vn, const float* tw, const float* vw,
+             float* out, const Routing& r, int A, int B, int T, int V, int D,
+             int mode, cudaStream_t s) {
   return r.m1 != nullptr
              ? launch_vp<true>(tn, vn, tw, vw, out, r, A, B, T, V, D, mode, s)
              : launch_vp<false>(tn, vn, tw, vw, out, r, A, B, T, V, D, mode, s);
 }
 
-inline bool bad_shape(int A, int B, int T, int V, int D) {
-  return T < 1 || T > 64 || V < 1 || V > 16 || D < DK || D % DK != 0 ||
-         A < 1 || B < 1;
+template <typename In>
+int similarity_fwd(const In* tn, const In* vn, const float* tw,
+                   const float* vw, float* out, const Routing& r, int A,
+                   int B, int T, int V, int D, cudaStream_t s) {
+  if (bad_shape(A, B, T, V, D) || bad_routing(r))
+    return (int)cudaErrorInvalidValue;
+  return launch_v(tn, vn, tw, vw, out, r, A, B, T, V, D, STORE, s);
+}
+
+template <typename In>
+int mean_fwd(const In* tn, const In* vn, const float* tw, const float* vw,
+             float* part, float* out, const Routing& r, int A, int B, int T,
+             int V, int D, int axis, cudaStream_t s) {
+  if (bad_shape(A, B, T, V, D) || bad_routing(r) || (axis != 0 && axis != 1))
+    return (int)cudaErrorInvalidValue;
+  const int qb = block_queries(A, T, mt_max(rounded_v(V)));
+  const int rows = axis == 1 ? (B + BLOCK_VIDS - 1) / BLOCK_VIDS
+                             : (A + qb - 1) / qb;
+  const int err = launch_v(tn, vn, tw, vw, part, r, A, B, T, V, D,
+                           axis == 1 ? MEAN_ROWS : MEAN_COLS, s);
+  if (err != 0) return err;
+  return (int)(axis == 1 ? reduce_rows(part, out, rows, A, (float)B, s)
+                         : reduce_rows(part, out, rows, B, (float)A, s));
 }
 
 }  // namespace
+
+#ifndef SIMILARITY_BF16_ENTRIES
 
 // tn [A, T, D], vn [B, V, D], tw [A, T], vw [B, V], out [A, B]; all fp32,
 // contiguous, 16-byte aligned (TMA reads the features).  m1 [A, B, T] and
@@ -147,11 +180,8 @@ extern "C" int interaction_similarity_fwd(const float* tn, const float* vn,
                                           unsigned char* i1, float* m2,
                                           unsigned char* i2, int A, int B,
                                           int T, int V, int D, void* stream) {
-  const Routing r{m1, i1, m2, i2};
-  if (bad_shape(A, B, T, V, D) || bad_routing(r))
-    return (int)cudaErrorInvalidValue;
-  return launch_v(tn, vn, tw, vw, out, r, A, B, T, V, D, STORE,
-                  (cudaStream_t)stream);
+  return similarity_fwd(tn, vn, tw, vw, out, Routing{m1, i1, m2, i2}, A, B,
+                        T, V, D, (cudaStream_t)stream);
 }
 
 // The number of per-block partial rows interaction_mean_fwd writes for
@@ -171,18 +201,8 @@ extern "C" int interaction_mean_fwd(const float* tn, const float* vn,
                                     unsigned char* i1, float* m2,
                                     unsigned char* i2, int A, int B, int T,
                                     int V, int D, int axis, void* stream) {
-  const Routing r{m1, i1, m2, i2};
-  if (bad_shape(A, B, T, V, D) || bad_routing(r) || (axis != 0 && axis != 1))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int qb = block_queries(A, T, mt_max(rounded_v(V)));
-  const int rows = axis == 1 ? (B + BLOCK_VIDS - 1) / BLOCK_VIDS
-                             : (A + qb - 1) / qb;
-  const int err = launch_v(tn, vn, tw, vw, part, r, A, B, T, V, D,
-                           axis == 1 ? MEAN_ROWS : MEAN_COLS, s);
-  if (err != 0) return err;
-  return (int)(axis == 1 ? reduce_rows(part, out, rows, A, (float)B, s)
-                         : reduce_rows(part, out, rows, B, (float)A, s));
+  return mean_fwd(tn, vn, tw, vw, part, out, Routing{m1, i1, m2, i2}, A, B,
+                  T, V, D, axis, (cudaStream_t)stream);
 }
 
 // routed_gather_kernel launches made by this library so far.
@@ -208,7 +228,46 @@ extern "C" int interaction_similarity_bwd(
     const unsigned char* i2, float* part, float* dtn, float* dtw, float* dvn,
     float* dvw, int A, int B, int T, int V, int D, void* stream) {
   if (bad_shape(A, B, T, V, D)) return (int)cudaErrorInvalidValue;
-  return (int)routed_backward(tn, vn, tw, vw, g, m1, i1, m2, i2, part, dtn,
-                              dtw, dvn, dvw, A, B, T, V, D,
-                              (cudaStream_t)stream);
+  return (int)routed_backward<GATHER_FP32>(
+      tn, vn, tw, vw, g, m1, i1, m2, i2, part, dtn, dtw, dvn, dvw, A, B, T, V,
+      D, (cudaStream_t)stream);
 }
+
+#else  // the bf16 forms' entries
+
+// The same with tn, vn in bf16 (the train step's sim_dtype="bfloat16": the
+// features rounded once by the wrapper, one bf16 wgmma a k-step, fp32 sums).
+extern "C" int interaction_similarity_fwd_bf16(
+    const bf16* tn, const bf16* vn, const float* tw, const float* vw,
+    float* out, float* m1, unsigned char* i1, float* m2, unsigned char* i2,
+    int A, int B, int T, int V, int D, void* stream) {
+  return similarity_fwd(tn, vn, tw, vw, out, Routing{m1, i1, m2, i2}, A, B,
+                        T, V, D, (cudaStream_t)stream);
+}
+
+// The same with tn, vn in bf16.
+extern "C" int interaction_mean_fwd_bf16(
+    const bf16* tn, const bf16* vn, const float* tw, const float* vw,
+    float* part, float* out, float* m1, unsigned char* i1, float* m2,
+    unsigned char* i2, int A, int B, int T, int V, int D, int axis,
+    void* stream) {
+  return mean_fwd(tn, vn, tw, vw, part, out, Routing{m1, i1, m2, i2}, A, B,
+                  T, V, D, axis, (cudaStream_t)stream);
+}
+
+// The same from the bf16 features the bf16 forward read: each routed
+// coefficient is rounded to bf16 before it multiplies its row (↔ the TPU
+// backward's `d1_v` / `d2_t` cast to dot_dtype, each direction apart);
+// the outputs are fp32.
+extern "C" int interaction_similarity_bwd_bf16(
+    const bf16* tn, const bf16* vn, const float* tw, const float* vw,
+    const float* g, const float* m1, const unsigned char* i1, const float* m2,
+    const unsigned char* i2, float* part, float* dtn, float* dtw, float* dvn,
+    float* dvw, int A, int B, int T, int V, int D, void* stream) {
+  if (bad_shape(A, B, T, V, D)) return (int)cudaErrorInvalidValue;
+  return (int)routed_backward<GATHER_BF16_EACH>(
+      tn, vn, tw, vw, g, m1, i1, m2, i2, part, dtn, dtw, dvn, dvw, A, B, T, V,
+      D, (cudaStream_t)stream);
+}
+
+#endif  // SIMILARITY_BF16_ENTRIES

@@ -56,6 +56,11 @@
 // 2·D FLOP per live (nonzero-weight) token of each pair, at most
 // 2·A·B·(T+V)·D per side.
 
+// The bf16 forms' entries (the `_bf16` C functions) are compiled apart:
+// interaction_similarity_blocked_bf16.cu includes this file with
+// SIMILARITY_BF16_ENTRIES defined, so that each library instantiates only
+// the kernels of its own input type and the two build in parallel.
+
 #include "similarity_tile.cuh"
 
 namespace {
@@ -63,7 +68,7 @@ namespace {
 constexpr int MAX_TOKENS = 64;
 constexpr int MT_MAX = 2;           // m-tiles a block: N = 128 columns
 
-template <int VP, int MT, bool SAVE>
+template <int VP, int MT, bool SAVE, typename In>
 __global__ void __launch_bounds__(THREADS, 1)
 blocked_similarity_kernel(const __grid_constant__ CUtensorMap tm_t,
                           const __grid_constant__ CUtensorMap tm_v,
@@ -71,21 +76,21 @@ blocked_similarity_kernel(const __grid_constant__ CUtensorMap tm_t,
                           const float* __restrict__ vw,
                           float* __restrict__ out, Routing res, int A, int B,
                           int T, int V, int D, int QB, int stages) {
-  similarity_tile<MAX_N / VP, VP, MT, SAVE, double, SAVE>(
+  similarity_tile<MAX_N / VP, VP, MT, SAVE, double, SAVE, In>(
       &tm_t, &tm_v, tw, vw, out, res, A, B, T, V, D, QB, STORE, stages);
 }
 
-template <int VP, int MT, bool SAVE>
-int launch(const float* tn, const float* vn, const float* tw, const float* vw,
+template <int VP, int MT, bool SAVE, typename In>
+int launch(const In* tn, const In* vn, const float* tw, const float* vw,
            float* out, const Routing& res, int A, int B, int T, int V, int D,
            int QB, cudaStream_t stream) {
   constexpr int VIDS = MAX_N / VP;
   CUtensorMap tm_t, tm_v;
-  if (int e = tile_maps<VIDS, VP, MT>(&tm_t, &tm_v, tn, vn, A, B, T, V, D,
-                                      QB))
+  if (int e = tile_maps<VIDS, VP, MT, In>(&tm_t, &tm_v, tn, vn, A, B, T, V,
+                                          D, QB))
     return e;
-  using Smem = TileSmem<MAX_N, MT>;
-  auto kern = blocked_similarity_kernel<VP, MT, SAVE>;
+  using Smem = TileSmem<MAX_N, MT, In>;
+  auto kern = blocked_similarity_kernel<VP, MT, SAVE, In>;
   static const cudaError_t e = allow_smem(kern, Smem::bytes);
   if (e != cudaSuccess) return (int)e;
   kern<<<tile_blocks(A, B, QB, VIDS), THREADS, Smem::bytes, stream>>>(
@@ -93,10 +98,10 @@ int launch(const float* tn, const float* vn, const float* tw, const float* vw,
   return (int)cudaGetLastError();
 }
 
-template <int VP, bool SAVE>
-int launch_mt(const float* tn, const float* vn, const float* tw,
-              const float* vw, float* out, const Routing& r, int A, int B,
-              int T, int V, int D, cudaStream_t s) {
+template <int VP, bool SAVE, typename In>
+int launch_mt(const In* tn, const In* vn, const float* tw, const float* vw,
+              float* out, const Routing& r, int A, int B, int T, int V,
+              int D, cudaStream_t s) {
   const int qb = block_queries(A, T, MT_MAX);
   return (qb * T + 63) / 64 == 1
              ? launch<VP, 1, SAVE>(tn, vn, tw, vw, out, r, A, B, T, V, D, qb,
@@ -106,10 +111,10 @@ int launch_mt(const float* tn, const float* vn, const float* tw,
 }
 
 // V padded to 16, 32 or 64 token slots: 8, 4 or 2 videos a warpgroup
-template <bool SAVE>
-int launch_vp(const float* tn, const float* vn, const float* tw,
-              const float* vw, float* out, const Routing& r, int A, int B,
-              int T, int V, int D, cudaStream_t s) {
+template <bool SAVE, typename In>
+int launch_vp(const In* tn, const In* vn, const float* tw, const float* vw,
+              float* out, const Routing& r, int A, int B, int T, int V,
+              int D, cudaStream_t s) {
   if (V <= 16)
     return launch_mt<16, SAVE>(tn, vn, tw, vw, out, r, A, B, T, V, D, s);
   if (V <= 32)
@@ -122,7 +127,21 @@ inline bool bad_shape(int A, int B, int T, int V, int D) {
          D % 16 != 0 || A < 1 || B < 1;
 }
 
+template <typename In>
+int blocked_fwd(const In* tn, const In* vn, const float* tw, const float* vw,
+                float* out, const Routing& r, int A, int B, int T, int V,
+                int D, cudaStream_t st) {
+  if (bad_shape(A, B, T, V, D) || bad_routing(r) ||
+      (r.m1 != nullptr && (r.ct == nullptr || r.cv == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  return r.m1 != nullptr
+             ? launch_vp<true>(tn, vn, tw, vw, out, r, A, B, T, V, D, st)
+             : launch_vp<false>(tn, vn, tw, vw, out, r, A, B, T, V, D, st);
+}
+
 }  // namespace
+
+#ifndef SIMILARITY_BF16_ENTRIES
 
 // tn [A, T, D], vn [B, V, D], tw [A, T], vw [B, V], out [A, B]; all fp32,
 // contiguous, 16-byte aligned (TMA reads the features).  m1 [A, B, T] and
@@ -137,14 +156,8 @@ extern "C" int interaction_similarity_blocked_fwd(
     float* out, float* m1, unsigned char* i1, float* m2, unsigned char* i2,
     const unsigned char* ct, const unsigned char* cv, int A, int B, int T,
     int V, int D, void* stream) {
-  const Routing r{m1, i1, m2, i2, ct, cv};
-  if (bad_shape(A, B, T, V, D) || bad_routing(r) ||
-      (m1 != nullptr && (ct == nullptr || cv == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  return r.m1 != nullptr
-             ? launch_vp<true>(tn, vn, tw, vw, out, r, A, B, T, V, D, st)
-             : launch_vp<false>(tn, vn, tw, vw, out, r, A, B, T, V, D, st);
+  return blocked_fwd(tn, vn, tw, vw, out, Routing{m1, i1, m2, i2, ct, cv}, A,
+                     B, T, V, D, (cudaStream_t)stream);
 }
 
 // routed_gather_kernel launches made by this library so far.
@@ -170,7 +183,38 @@ extern "C" int interaction_similarity_blocked_bwd(
     const unsigned char* i2, float* part, float* dtn, float* dtw, float* dvn,
     float* dvw, int A, int B, int T, int V, int D, void* stream) {
   if (bad_shape(A, B, T, V, D)) return (int)cudaErrorInvalidValue;
-  return (int)routed_backward(tn, vn, tw, vw, g, m1, i1, m2, i2, part, dtn,
-                              dtw, dvn, dvw, A, B, T, V, D,
-                              (cudaStream_t)stream);
+  return (int)routed_backward<GATHER_FP32>(
+      tn, vn, tw, vw, g, m1, i1, m2, i2, part, dtn, dtw, dvn, dvw, A, B, T, V,
+      D, (cudaStream_t)stream);
 }
+
+#else  // the bf16 forms' entries
+
+// The same with tn, vn in bf16 (the train step's sim_dtype="bfloat16": one
+// bf16 wgmma a k-step, fp32 sums; ct / cv of the bf16 tokens).
+extern "C" int interaction_similarity_blocked_fwd_bf16(
+    const bf16* tn, const bf16* vn, const float* tw, const float* vw,
+    float* out, float* m1, unsigned char* i1, float* m2, unsigned char* i2,
+    const unsigned char* ct, const unsigned char* cv, int A, int B, int T,
+    int V, int D, void* stream) {
+  return blocked_fwd(tn, vn, tw, vw, out, Routing{m1, i1, m2, i2, ct, cv}, A,
+                     B, T, V, D, (cudaStream_t)stream);
+}
+
+// The same from the bf16 features the bf16 forward read: where a logit is
+// routed both ways (i1[a,b,t] = v and i2[a,b,v] = t) its two coefficients
+// are added in fp32 before the one rounding to bf16, elsewhere each is
+// rounded alone (↔ the TPU backward's `(d1 + d2).astype(dot_dtype)`); the
+// outputs are fp32.
+extern "C" int interaction_similarity_blocked_bwd_bf16(
+    const bf16* tn, const bf16* vn, const float* tw, const float* vw,
+    const float* g, const float* m1, const unsigned char* i1, const float* m2,
+    const unsigned char* i2, float* part, float* dtn, float* dtw, float* dvn,
+    float* dvw, int A, int B, int T, int V, int D, void* stream) {
+  if (bad_shape(A, B, T, V, D)) return (int)cudaErrorInvalidValue;
+  return (int)routed_backward<GATHER_BF16_SUM>(
+      tn, vn, tw, vw, g, m1, i1, m2, i2, part, dtn, dtw, dvn, dvw, A, B, T, V,
+      D, (cudaStream_t)stream);
+}
+
+#endif  // SIMILARITY_BF16_ENTRIES

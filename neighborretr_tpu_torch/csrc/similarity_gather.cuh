@@ -51,8 +51,21 @@
 // Every output element is one fixed sequence of fp32 additions (no float
 // atomics): two runs give the same bits, and a one-side run the bits of
 // the both-side run's side.
+//
+// bf16 (the train step's sim_dtype="bfloat16"): the partner rows are the
+// bf16 features the bf16 forward read (half the staged bytes), and each
+// routed coefficient 0.5·g·w is rounded to bf16 (to nearest even) before
+// its fmaf, as the TPU backward casts its routed cotangents to the dot
+// dtype; a product of two bf16 values is exact in fp32.  The short
+// kernel's backward (K5, GATHER_BF16_EACH) rounds the two directions' coef-
+// ficients apart; the blocked one's (K7, GATHER_BF16_SUM) adds a logit's
+// two coefficients in fp32 first where it is routed both ways (owner token
+// j's max routed to partner token r, and r's to j), so (a) takes that row
+// with the sum and (b) skips it.
 
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -65,10 +78,13 @@ constexpr int GMAX_TOKENS = 64;
 
 __host__ __device__ inline int pad16(int n) { return (n + 15) & ~15; }
 
+// what a gather reads and how it rounds (see the header)
+constexpr int GATHER_FP32 = 0, GATHER_BF16_EACH = 1, GATHER_BF16_SUM = 2;
+
 // one side's gather: owners o (NO of them, TO tokens) walk partners p (NP,
 // TP tokens); the pair (o, p) is entry o*so + p*sp of g and of the routing
 struct RoutedSide {
-  const float* pf;            // partner features [NP, TP, D]
+  const void* pf;             // partner features [NP, TP, D], fp32 or bf16
   const float* wo;            // owner token weights [NO, TO]
   const float* wp;            // partner token weights [NP, TP]
   const float* g;             // cotangent, pair-indexed
@@ -95,12 +111,13 @@ __device__ __forceinline__ void cp_async_4(void* dst, const void* src,
                "l"(src), "r"(valid ? 4 : 0));
 }
 
-// bytes of one ring stage, and the offsets of its parts
+// bytes of one ring stage, and the offsets of its parts (partner rows of
+// `esize`-byte elements)
 struct StageLayout {
   int rows, wp, g, ro, rp, bytes;
-  __host__ __device__ StageLayout(int TO, int TP, int QA) {
-    rows = 0;                                     // [TP][GW] fp32
-    wp = rows + TP * GW * 4;                      // [pad4(TP)] fp32
+  __host__ __device__ StageLayout(int TO, int TP, int QA, int esize) {
+    rows = 0;                                     // [TP][GW]
+    wp = rows + TP * GW * esize;                  // [pad4(TP)] fp32
     g = wp + ((TP + 3) & ~3) * 4;                 // [pad4(QA)] fp32
     ro = g + ((QA + 3) & ~3) * 4;                 // [QA][pad16(TO)]
     rp = ro + QA * pad16(TO);                     // [QA][pad16(TP)]
@@ -108,20 +125,40 @@ struct StageLayout {
   }
 };
 
+// four consecutive staged elements as fp32
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);     // one 8-byte load
+  const float2 a =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// a routed coefficient as the gather of MODE multiplies it
+template <int MODE>
+__device__ __forceinline__ float coef(float c) {
+  return MODE == GATHER_FP32 ? c : __bfloat162float(__float2bfloat16_rn(c));
+}
+
 // acc += gab·wps[v]·rows[v] for the partner tokens v = base + the set bits
 // of m, ascending; two rows per round, so that their loads overlap
+template <int MODE, typename F>
 __device__ __forceinline__ void add_routed(float4& acc, unsigned m, int base,
                                            float gab, const float* wps,
-                                           const float* rows) {
+                                           const F* rows) {
   while (m) {
     const int v = base + __ffs(m) - 1;
     m &= m - 1;
     const bool two = m != 0;
     const int v2 = two ? base + __ffs(m) - 1 : v;
     m &= m - 1;
-    const float c = gab * wps[v], c2 = gab * wps[v2];
-    const float4 x = *reinterpret_cast<const float4*>(rows + v * GW);
-    const float4 x2 = *reinterpret_cast<const float4*>(rows + v2 * GW);
+    const float c = coef<MODE>(gab * wps[v]), c2 = coef<MODE>(gab * wps[v2]);
+    const float4 x = load4(rows + v * GW);
+    const float4 x2 = load4(rows + v2 * GW);
     acc.x = fmaf(c, x.x, acc.x);
     acc.y = fmaf(c, x.y, acc.y);
     acc.z = fmaf(c, x.z, acc.z);
@@ -137,11 +174,14 @@ __device__ __forceinline__ void add_routed(float4& acc, unsigned m, int base,
 
 // grid (owner tiles, slabs, partner ranges of `per`); blockDim QA·NG·32;
 // PT partners per ring stage
-template <int TG>
+template <int TG, int MODE>
 __global__ void __launch_bounds__(GWARPS * 32)
 routed_gather_kernel(RoutedSide s, int QA, int NG, int per, int PT) {
+  using F = typename std::conditional<MODE == GATHER_FP32, float, bf16>::type;
+  constexpr int EPC = 16 / sizeof(F);      // elements a 16-byte copy
   extern __shared__ __align__(16) unsigned char gsm[];
-  const StageLayout L(s.TO, s.TP, QA);
+  const StageLayout L(s.TO, s.TP, QA, sizeof(F));
+  const F* pf = static_cast<const F*>(s.pf);
   const int TOP = pad16(s.TO), TPP = pad16(s.TP);
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -155,12 +195,11 @@ routed_gather_kernel(RoutedSide s, int QA, int NG, int per, int PT) {
 
   const int SB = PT * L.bytes;   // one stage: PT partner layouts
   auto load1 = [&](unsigned char* st, int p) {
-    for (int i = tid; i < s.TP * (GW / 4); i += nthreads) {
-      const int r = i / (GW / 4), c = (i % (GW / 4)) * 4;
+    for (int i = tid; i < s.TP * (GW / EPC); i += nthreads) {
+      const int r = i / (GW / EPC), c = (i % (GW / EPC)) * EPC;
       const bool ok = c0 + c < s.D;
-      cp_async_16(st + L.rows + (r * GW + c) * 4,
-                  ok ? s.pf + ((size_t)p * s.TP + r) * s.D + c0 + c : s.pf,
-                  ok);
+      cp_async_16(st + L.rows + (r * GW + c) * sizeof(F),
+                  ok ? pf + ((size_t)p * s.TP + r) * s.D + c0 + c : pf, ok);
     }
     for (int i = tid; i < s.TP; i += nthreads)
       cp_async_4(st + L.wp + i * 4, s.wp + (size_t)p * s.TP + i, true);
@@ -220,8 +259,7 @@ routed_gather_kernel(RoutedSide s, int QA, int NG, int per, int PT) {
     if (!live) continue;
     for (int pt = 0; pt < PT && i * PT + pt < n; ++pt) {
       const unsigned char* st = gsm + (i % GSTAGES) * SB + pt * L.bytes;
-      const float* rows =
-          reinterpret_cast<const float*>(st + L.rows) + lane * 4;
+      const F* rows = reinterpret_cast<const F*>(st + L.rows) + lane * 4;
       const float* wps = reinterpret_cast<const float*>(st + L.wp);
       const float gab = 0.5f * reinterpret_cast<const float*>(st + L.g)[q];
       const unsigned* ro =
@@ -239,12 +277,19 @@ routed_gather_kernel(RoutedSide s, int QA, int NG, int per, int PT) {
         float4 x[4];
 #pragma unroll
         for (int u = 0; u < 4; ++u)
-          x[u] = *reinterpret_cast<const float4*>(
-              rows + min((int)(w >> (8 * u)) & 0xff, s.TP - 1) * GW);
+          x[u] = load4(rows + min((int)(w >> (8 * u)) & 0xff, s.TP - 1) * GW);
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           float4& a = acc[j4 * 4 + u];
-          const float c = gab * wo[j4 * 4 + u];
+          // GATHER_BF16_SUM: where the partner token r this owner token's max
+          // routed to routes back to it, the two coefficients' sum, which
+          // (b) then skips
+          const int r = (w >> (8 * u)) & 0xff;
+          float c = gab * wo[j4 * 4 + u];
+          if (MODE == GATHER_BF16_SUM && c != 0.f && r < s.TP &&
+              rp[r] == tok(j4 * 4 + u))
+            c += gab * wps[r];
+          c = coef<MODE>(c);
           a.x = fmaf(c, x[u].x, a.x);
           a.y = fmaf(c, x[u].y, a.y);
           a.z = fmaf(c, x[u].z, a.z);
@@ -258,7 +303,11 @@ routed_gather_kernel(RoutedSide s, int QA, int NG, int per, int PT) {
       auto slot = [&](int v) {
         if (v >= s.TP || wps[v] == 0.f) return -1;
         const int t = rp[v], k = (t >> 2) - grp;   // quad grp + NG·k
-        return k == 0 ? (t & 3) : k == NG && TG > 4 ? 4 + (t & 3) : -1;
+        const int j = k == 0 ? (t & 3) : k == NG && TG > 4 ? 4 + (t & 3) : -1;
+        if (MODE == GATHER_BF16_SUM && j >= 0 && gab * wo[j] != 0.f &&
+            reinterpret_cast<const unsigned char*>(ro)[t] == v)
+          return -1;                               // (a) added it
+        return j;
       };
       const int j0 = slot(lane), j1 = slot(lane + 32);
       const unsigned hit0 = __reduce_or_sync(~0u, j0 < 0 ? 0u : 1u << j0);
@@ -267,9 +316,11 @@ routed_gather_kernel(RoutedSide s, int QA, int NG, int per, int PT) {
 #pragma unroll
       for (int j = 0; j < TG; ++j) {
         if (hit0 >> j & 1)
-          add_routed(acc[j], __ballot_sync(~0u, j0 == j), 0, gab, wps, rows);
+          add_routed<MODE>(acc[j], __ballot_sync(~0u, j0 == j), 0, gab, wps,
+                           rows);
         if (hit1 >> j & 1)
-          add_routed(acc[j], __ballot_sync(~0u, j1 == j), 32, gab, wps, rows);
+          add_routed<MODE>(acc[j], __ballot_sync(~0u, j1 == j), 32, gab, wps,
+                           rows);
       }
     }
   }
@@ -310,7 +361,8 @@ struct GatherPlan {
   int NG, TG, QA, tiles, slabs, splits, per, PT, smem;
 };
 
-inline GatherPlan plan_gather(int NO, int NP, int TO, int TP, int D) {
+inline GatherPlan plan_gather(int NO, int NP, int TO, int TP, int D,
+                              int esize = 4) {
   GatherPlan P;
   P.NG = (TO + 7) / 8;                              // token groups per owner
   P.TG = (((TO + P.NG - 1) / P.NG) + 3) & ~3;       // 4 or 8
@@ -327,7 +379,7 @@ inline GatherPlan plan_gather(int NO, int NP, int TO, int TP, int D) {
   P.per = (NP + P.splits - 1) / P.splits;
   P.splits = (NP + P.per - 1) / P.per;
   // about 32 KB of partners per ring stage (at most 6 x 33.6 KB)
-  const int one = StageLayout(TO, TP, P.QA).bytes;
+  const int one = StageLayout(TO, TP, P.QA, esize).bytes;
   P.PT = 32768 / one;
   P.PT = P.PT < 1 ? 1 : P.PT > 8 ? 8 : P.PT;
   P.smem = GSTAGES * P.PT * one + GWARPS * 8 * 4;   // + token weights
@@ -381,10 +433,12 @@ inline size_t routed_scratch(int A, int B, int T, int V, int D, int need) {
 // tests that need the number of kernels a call launched
 long long g_gather_launches = 0;
 
-inline cudaError_t launch_gather(const RoutedSide& s0, float* out,
-                                 float* part, cudaStream_t st) {
+template <int MODE>
+cudaError_t launch_gather(const RoutedSide& s0, float* out, float* part,
+                          cudaStream_t st) {
   RoutedSide s = s0;
-  const GatherPlan P = plan_gather(s.NO, s.NP, s.TO, s.TP, s.D);
+  const GatherPlan P = plan_gather(s.NO, s.NP, s.TO, s.TP, s.D,
+                                   MODE == GATHER_FP32 ? 4 : 2);
   s.out = P.splits > 1 ? part : out;
   const int smem = P.smem;
   const dim3 grid(P.tiles, P.slabs, P.splits);
@@ -400,9 +454,9 @@ inline cudaError_t launch_gather(const RoutedSide& s0, float* out,
                                                __ATOMIC_RELAXED);
   };
   if (P.TG == 4)
-    go(routed_gather_kernel<4>);
+    go(routed_gather_kernel<4, MODE>);
   else
-    go(routed_gather_kernel<8>);
+    go(routed_gather_kernel<8, MODE>);
   if (err != cudaSuccess || P.splits == 1) return err;
   return reduce_rows(part, out, P.splits, s.NO * s.TO * s.D, 1.f, st);
 }
@@ -420,12 +474,14 @@ inline cudaError_t launch_weight(const float* g, const float* m, float* out,
   return reduce_rows(part, out, W.splits, NO * K, 2.f, st);
 }
 
-// The backward from the routing: tn [A, T, D], vn [B, V, D], tw [A, T],
-// vw [B, V], g [A, B], the residuals as above; each of dtn [A, T, D],
-// dvn [B, V, D], dtw [A, T], dvw [B, V] is computed when its pointer is
-// not null.  part holds routed_scratch(..., need) floats.
-inline cudaError_t routed_backward(
-    const float* tn, const float* vn, const float* tw, const float* vw,
+// The backward from the routing: tn [A, T, D], vn [B, V, D] (fp32, or bf16
+// under a bf16 MODE), tw [A, T], vw [B, V], g [A, B], the residuals as
+// above; each of dtn [A, T, D], dvn [B, V, D], dtw [A, T], dvw [B, V]
+// (fp32) is computed when its pointer is not null.  part holds
+// routed_scratch(..., need) floats.
+template <int MODE>
+cudaError_t routed_backward(
+    const void* tn, const void* vn, const float* tw, const float* vw,
     const float* g, const float* m1, const unsigned char* i1, const float* m2,
     const unsigned char* i2, float* part, float* dtn, float* dtw, float* dvn,
     float* dvw, int A, int B, int T, int V, int D, cudaStream_t st) {
@@ -434,14 +490,14 @@ inline cudaError_t routed_backward(
   cudaError_t err = cudaSuccess;
   if (dtn != nullptr) {   // captions own, videos are the partners
     const RoutedSide s{vn, tw, vw, g, i1, i2, nullptr, A, B, T, V, D, B, 1};
-    err = launch_gather(s, dtn, part, st);
+    err = launch_gather<MODE>(s, dtn, part, st);
     if (err != cudaSuccess) return err;
     const GatherPlan P = plan_gather(A, B, T, V, D);
     if (P.splits > 1) part += (size_t)P.splits * A * T * D;
   }
   if (dvn != nullptr) {   // videos own, captions are the partners
     const RoutedSide s{tn, vw, tw, g, i2, i1, nullptr, B, A, V, T, D, 1, B};
-    err = launch_gather(s, dvn, part, st);
+    err = launch_gather<MODE>(s, dvn, part, st);
     if (err != cudaSuccess) return err;
     const GatherPlan P = plan_gather(B, A, V, T, D);
     if (P.splits > 1) part += (size_t)P.splits * B * V * D;

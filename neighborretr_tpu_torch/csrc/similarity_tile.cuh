@@ -25,6 +25,14 @@
 //   tools/similarity_probe.py's accuracy report).
 //   ops/similarity.py::similarity_tf32x3 is the split written out in
 //   PyTorch.
+// - bf16 operands (In = bf16, the train step's sim_dtype="bfloat16", ↔ the
+//   TPU kernel's dot_dtype: `_tile_logits` casts each tile to bf16 and
+//   accumulates in fp32): the wrapper rounds the features once (to
+//   nearest even), TMA brings 64-column k-chunks (still 128-byte rows),
+//   and each k-step is ONE wgmma m64nNk16 (bf16 in, fp32 accumulate): no
+//   split, no lo tile.  Products of bf16 values are exact in fp32, so the
+//   logits are the float64 logits of the rounded operands up to fp32
+//   summation order; the chunking and the epilogue are the TF32 form's.
 // - Tiles: two consumer warpgroups take VIDS videos each, and one thread
 //   streams 32-column k-chunks of both sides through a ring of shared-
 //   memory stages with TMA (fp32 boxes of 128-byte rows in the 128-byte
@@ -141,7 +149,7 @@ __device__ __forceinline__ unsigned char routed_index(int ix, float m,
 
 
 template <int VIDS, int VP, int MT, bool SAVE, typename Sum = float,
-          bool TIES = false>
+          bool TIES = false, typename In = float>
 __device__ __forceinline__ void similarity_tile(
     const CUtensorMap* tm_t, const CUtensorMap* tm_v,
     const float* __restrict__ tw, const float* __restrict__ vw,
@@ -153,6 +161,8 @@ __device__ __forceinline__ void similarity_tile(
   constexpr int VB = N * 128;             // one warpgroup's video tile
   constexpr int SB = stage_bytes(N, MT);
   constexpr int LS = N + 8;               // logits row stride (floats)
+  constexpr bool BF16 = sizeof(In) == 2;
+  constexpr int KC = 128 / sizeof(In);    // columns of a k-chunk
   static_assert(VIDS <= 8 && N <= MAX_N && MT * 64 <= MAX_ROWS,
                 "the epilogue's padding and static arrays");
   extern __shared__ uint8_t smem_raw[];
@@ -173,7 +183,7 @@ __device__ __forceinline__ void similarity_tile(
   const int qg = nq <= nv ? tile % nq : tile / nv;
   const int vt = nq <= nv ? tile / nq : tile % nv;
   const int a0 = qg * QB, b0 = vt * BV;
-  const int nk = (D + DK - 1) / DK;
+  const int nk = (D + KC - 1) / KC;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
@@ -206,9 +216,9 @@ __device__ __forceinline__ void similarity_tile(
     const int s = c % stages;
     uint8_t* st = ring + s * SB;
     bar_arrive_tx(&full[s], SB);
-    tma_load3(st, tm_t, &full[s], c * DK, a0, 0);
-    tma_load3(st + TB, tm_v, &full[s], c * DK, b0, 0);
-    tma_load3(st + TB + VB, tm_v, &full[s], c * DK, b0 + VIDS, 0);
+    tma_load3(st, tm_t, &full[s], c * KC, a0, 0);
+    tma_load3(st + TB, tm_v, &full[s], c * KC, b0, 0);
+    tma_load3(st + TB + VB, tm_v, &full[s], c * KC, b0 + VIDS, 0);
   };
   if (threadIdx.x == 0)
     for (int c = 0; c < stages && c < nk; ++c) load(c);
@@ -239,10 +249,10 @@ __device__ __forceinline__ void similarity_tile(
     uint8_t* st = ring + s * SB;
     float4* vh = reinterpret_cast<float4*>(st + TB + wg * VB);
     // every warp's products of the previous chunk are done: lo is free
-    named_sync(1 + wg, 128);
+    if constexpr (!BF16) named_sync(1 + wg, 128);
     // split this warpgroup's video tile: hi in place, lo beside it
 #pragma unroll
-    for (int i = tid; i < VB / 16; i += 128) {
+    for (int i = tid; i < (BF16 ? 0 : VB / 16); i += 128) {
       const float4 x = vh[i];
       float4 h, l;
       h.x = __uint_as_float(tf32_rna(x.x));
@@ -256,8 +266,10 @@ __device__ __forceinline__ void similarity_tile(
       vh[i] = h;
       reinterpret_cast<float4*>(lo)[i] = l;
     }
-    fence_proxy_async();
-    named_sync(1 + wg, 128);
+    if constexpr (!BF16) {
+      fence_proxy_async();
+      named_sync(1 + wg, 128);
+    }
     const uint64_t dh = desc(vh), dl = desc(lo);
     // text fragments of m-tile i, k-step kk, split: rows i·64 + 16w + g
     // (+ 8), columns 8kk + tq (+ 4), in the 128-byte swizzle (16-byte chunk
@@ -270,6 +282,13 @@ __device__ __forceinline__ void similarity_tile(
       const int c0 = ((2 * kk) ^ g) * 16 + tq * 4;
       const int c1 = ((2 * kk + 1) ^ g) * 16 + tq * 4;
       const uint8_t* r0 = st + (i * 64 + 16 * w + g) * 128;
+      if constexpr (BF16) {      // two bf16 a register, as they lie
+        const int off[4] = {c0, 1024 + c0, c1, 1024 + c1};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ah[bi][e] = *reinterpret_cast<const uint32_t*>(r0 + off[e]);
+        return;
+      }
       const float x[4] = {*reinterpret_cast<const float*>(r0 + c0),
                           *reinterpret_cast<const float*>(r0 + 1024 + c0),
                           *reinterpret_cast<const float*>(r0 + c1),
@@ -291,9 +310,13 @@ __device__ __forceinline__ void similarity_tile(
       for (int kk = 0; kk < DK / 8; ++kk) {
         const int bi = kk & 1;
         wg_fence();
-        wgmma_tf32_rs<N>(acc, ah[bi], dl + 2 * kk, kk > 0);
-        wgmma_tf32_rs<N>(acc, al[bi], dh + 2 * kk, 1);
-        wgmma_tf32_rs<N>(acc, ah[bi], dh + 2 * kk, 1);
+        if constexpr (BF16) {
+          wgmma_bf16_rs<N>(acc, ah[bi], dh + 2 * kk, kk > 0);
+        } else {
+          wgmma_tf32_rs<N>(acc, ah[bi], dl + 2 * kk, kk > 0);
+          wgmma_tf32_rs<N>(acc, al[bi], dh + 2 * kk, 1);
+          wgmma_tf32_rs<N>(acc, ah[bi], dh + 2 * kk, 1);
+        }
         wg_commit();
         if (kk + 1 < DK / 8) {
           wg_wait1();
@@ -471,11 +494,11 @@ __host__ __device__ inline int block_queries(int A, int T, int mt_max) {
 }
 
 // The ring's depth and the dynamic shared memory of a tile of N = VIDS·VP
-// columns and MT m-tiles: the ring and the split video tiles, or the
-// epilogue's, whichever is larger
-template <int N, int MT>
+// columns and MT m-tiles: the ring and the split video tiles (fp32 only),
+// or the epilogue's, whichever is larger
+template <int N, int MT, typename In = float>
 struct TileSmem {
-  static constexpr int lo_bytes = CONSUMERS * N * 128;
+  static constexpr int lo_bytes = sizeof(In) == 4 ? CONSUMERS * N * 128 : 0;
   static constexpr int fit =
       (SMEM_LIMIT - 1024 - STATIC_SMEM - lo_bytes) / stage_bytes(N, MT);
   static constexpr int stages = fit < MAX_STAGES ? fit : MAX_STAGES;
@@ -489,23 +512,26 @@ struct TileSmem {
 
 // The tile's tensor maps: text [A, T, D] as [D, A, T], a box of QB queries
 // x MT·64/QB tokens (rows t·QB + q); video [B, V, D] as [D, B, V], a box of
-// VIDS videos x VP tokens (rows v·VIDS + video) → 0 or an error code
-template <int VIDS, int VP, int MT>
-int tile_maps(CUtensorMap* tm_t, CUtensorMap* tm_v, const float* tn,
-              const float* vn, int A, int B, int T, int V, int D, int QB) {
+// VIDS videos x VP tokens (rows v·VIDS + video); a box row is 128 bytes
+// (32 fp32 or 64 bf16) → 0 or an error code
+template <int VIDS, int VP, int MT, typename In = float>
+int tile_maps(CUtensorMap* tm_t, CUtensorMap* tm_v, const In* tn,
+              const In* vn, int A, int B, int T, int V, int D, int QB) {
+  constexpr cuuint64_t E = sizeof(In);
+  constexpr cuuint32_t KC = 128 / sizeof(In);
+  constexpr CUtensorMapDataType type = sizeof(In) == 4
+                                           ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   {
     const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)A, (cuuint64_t)T};
-    const cuuint64_t strides[2] = {(cuuint64_t)T * D * 4, (cuuint64_t)D * 4};
-    const cuuint32_t box[3] = {DK, (cuuint32_t)QB, (cuuint32_t)(MT * 64 / QB)};
-    if (int e = encode_map(tm_t, tn, 3, dims, strides, box,
-                           CU_TENSOR_MAP_DATA_TYPE_FLOAT32))
-      return e;
+    const cuuint64_t strides[2] = {(cuuint64_t)T * D * E, (cuuint64_t)D * E};
+    const cuuint32_t box[3] = {KC, (cuuint32_t)QB, (cuuint32_t)(MT * 64 / QB)};
+    if (int e = encode_map(tm_t, tn, 3, dims, strides, box, type)) return e;
   }
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)B, (cuuint64_t)V};
-  const cuuint64_t strides[2] = {(cuuint64_t)V * D * 4, (cuuint64_t)D * 4};
-  const cuuint32_t box[3] = {DK, VIDS, VP};
-  return encode_map(tm_v, vn, 3, dims, strides, box,
-                    CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+  const cuuint64_t strides[2] = {(cuuint64_t)V * D * E, (cuuint64_t)D * E};
+  const cuuint32_t box[3] = {KC, VIDS, VP};
+  return encode_map(tm_v, vn, 3, dims, strides, box, type);
 }
 
 // blocks of the grid: query groups x video tiles

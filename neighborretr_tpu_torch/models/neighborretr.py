@@ -187,28 +187,49 @@ def similarity_kernels(cfg: ModelConfig, kernels: bool = True) -> bool:
     """Whether the similarity family (K2, K4–K7) may run its kernels:
     `use_pallas="off"` sends it to the plain forms on any device, as the
     JAX package's "off" sends it to XLA; "auto" and "on" leave the choice
-    to the tensor's device.  The towers' attention kernels do not read it."""
+    to the tensor's device.  The towers' attention kernels do not read it.
+
+    `sim_dtype` follows the same rule (`similarity_dtype`): under "off" the
+    family multiplies in float32, as JAX's XLA forms do whatever sim_dtype
+    says; under "auto" and "on" its kernels on CUDA and their plain
+    versions elsewhere round to `sim_dtype`.  So on the CPU the port's
+    "auto" rounds where the JAX package's does not (its "auto" takes Pallas
+    on a TPU only); the two agree under "on" (JAX in interpret mode) and
+    under "off"."""
     if cfg.use_pallas not in ("auto", "on", "off"):
         raise ValueError(f"use_pallas must be one of auto, on, off; got "
                          f"{cfg.use_pallas!r}")
     return kernels and cfg.use_pallas != "off"
 
 
+def similarity_dtype(cfg: ModelConfig) -> str:
+    """The operand dtype of the similarity family on the training path:
+    `cfg.sim_dtype`, or float32 under use_pallas="off" (see
+    `similarity_kernels`)."""
+    return cfg.sim_dtype if cfg.use_pallas != "off" else "float32"
+
+
 def local_similarity(model: NeighborRetr, t_feat, v_feat, t_mask, v_mask,
-                     kernels: bool = True) -> torch.Tensor:
+                     kernels: bool = True,
+                     sim_dtype: str = "float32") -> torch.Tensor:
     """The reference's local_level: S [A, B] with v2t = S.T.  Long-token
     shapes (T·V >= 2048, the 64-word / 64-frame recipes) take the blocked
     form, which never builds the whole [A, T, B, V] logits: its kernels on
     a CUDA tensor, its plain chunked version on the CPU or under
-    `kernels=False`."""
+    `kernels=False`.  sim_dtype: the products' operand dtype (↔ the JAX
+    package's, passed to its kernels): "bfloat16" on the training path,
+    float32 in the eval and serving."""
     tw = token_weights(model.text_weight_fc, t_feat, t_mask)
     vw = token_weights(model.video_weight_fc, v_feat, v_mask)
     T, V = t_feat.shape[1], v_feat.shape[1]
     if T * V >= 2048:
         return fused_interaction_similarity_blocked(
-            t_feat, v_feat, t_mask, v_mask, tw, vw, kernels=kernels)
-    sim = fused_interaction_similarity if kernels else interaction_similarity
-    return sim(t_feat, v_feat, t_mask, v_mask, tw, vw)
+            t_feat, v_feat, t_mask, v_mask, tw, vw, kernels=kernels,
+            sim_dtype=sim_dtype)
+    if kernels or sim_dtype != "float32":
+        return fused_interaction_similarity(t_feat, v_feat, t_mask, v_mask,
+                                            tw, vw, kernels, sim_dtype)
+    return interaction_similarity(t_feat, v_feat, t_mask, v_mask, tw, vw)
 
 
 def bank_fusion_supported(cfg: ModelConfig) -> bool:

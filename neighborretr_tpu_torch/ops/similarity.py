@@ -33,6 +33,20 @@ halves written out, first-index routing included: ties are the normal case
 (masked tokens are zero rows), and `torch.max` on CUDA does not promise the
 first index, so autograd of the plain forward is no reference there.
 
+`sim_dtype="bfloat16"` (the train step's `model.sim_dtype`, ↔ the TPU
+kernels' `compute_dtype`) is the operand dtype of the products: the
+normalised, masked features are rounded to bf16 (to nearest even) and
+multiplied with fp32 sums, so S is the float64 S of the rounded operands
+up to fp32 summation order.  The kernels read bf16 copies (one bf16 wgmma
+a k-step: csrc/similarity_tile.cuh); the plain versions multiply the
+rounded values in fp32.  The backward is taken with respect to the fp32
+features (straight through the rounding, as the TPU kernel's custom VJP):
+each routed coefficient 0.5·g·w is rounded to bf16 before it multiplies
+the rounded partner feature, the two directions apart
+(`similarity_bwd_routed_plain(rounding="each")`; the blocked form rounds a
+logit's two coefficients' fp32 sum, `rounding="sum"`, as the TPU kernels
+do), and dtw / dvw come from the fp32 maxima.
+
 `global_similarity` (↔ ops/similarity.py::global_similarity) is the
 unmasked, unnormalised form over the merged global tokens.
 
@@ -51,6 +65,32 @@ import ctypes
 import torch
 
 from . import _build
+
+
+SIM_DTYPES = ("float32", "bfloat16")
+
+
+def check_sim_dtype(sim_dtype: str) -> None:
+    if sim_dtype not in SIM_DTYPES:
+        raise ValueError(f"sim_dtype must be one of {SIM_DTYPES}; got "
+                         f"{sim_dtype!r}")
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (to nearest even, as JAX's astype), in fp32."""
+    return x.to(torch.bfloat16).float()
+
+
+def operands(tn, vn, sim_dtype: str, kernels: bool):
+    """The features the products take: the prepared fp32 ones, or under
+    bf16 their rounded values: bf16 tensors for a kernel launch, fp32 ones
+    for the plain version."""
+    if sim_dtype == "float32":
+        return tn, vn
+    if kernels:
+        return (tn.to(torch.bfloat16).contiguous(),
+                vn.to(torch.bfloat16).contiguous())
+    return round_bf16(tn), round_bf16(vn)
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1,
@@ -226,12 +266,16 @@ def similarity_tf32x3(tn, vn, tw, vw):
 
 
 def similarity_bwd_routed_plain(tn, vn, tw, vw, g, m1, i1, m2, i2,
-                                need_t: bool = True, need_v: bool = True):
+                                need_t: bool = True, need_v: bool = True,
+                                rounding: str = "none"):
     """Backward of S for the cotangent g [A, B] from the forward's routing
     (`similarity_routing_plain`'s, or the kernels' residuals, whose index
     rows are padded): each max's gradient goes to its saved index.  Returns
     (dtn or None, dvn or None, dtw, dvw): a feature gradient not asked for
-    is not computed."""
+    is not computed.  `rounding` (sim_dtype="bfloat16", tn / vn holding the
+    rounded features): "each" rounds every routed coefficient to bf16 (the
+    short kernels' backward), "sum" the fp32 sum of a logit's two (the
+    blocked ones'); "none" multiplies them as they are."""
     A, T, D = tn.shape
     B, V, _ = vn.shape
     half_g = 0.5 * g.float()
@@ -243,12 +287,23 @@ def similarity_bwd_routed_plain(tn, vn, tw, vw, g, m1, i1, m2, i2,
     c2 = half_g[:, :, None] * vw[None, :, :]                  # [A, B, V]
     r1 = i1[..., :T].long().transpose(1, 2)[..., None]        # [A, T, B, 1]
     r2 = i2[..., :V].long()[:, None]                          # [A, 1, B, V]
-    dlogits = torch.zeros((A, T, B, V), dtype=tn.dtype, device=tn.device)
-    dlogits.scatter_(3, r1, c1[..., None])
-    dlogits.scatter_add_(1, r2, c2[:, None])
-    dl = dlogits.reshape(A * T, B * V)
-    dtn = (dl @ vn.reshape(B * V, D)).reshape(A, T, D) if need_t else None
-    dvn = (dl.T @ tn.reshape(A * T, D)).reshape(B, V, D) if need_v else None
+    zeros = torch.zeros((A, T, B, V), dtype=tn.dtype, device=tn.device)
+    if rounding == "each":
+        parts = (round_bf16(zeros.scatter(3, r1, c1[..., None])),
+                 round_bf16(zeros.scatter(1, r2, c2[:, None])))
+    else:
+        dlogits = zeros.scatter_(3, r1, c1[..., None])
+        dlogits.scatter_add_(1, r2, c2[:, None])
+        parts = (round_bf16(dlogits) if rounding == "sum" else dlogits,)
+    dtn = dvn = None
+    for d in parts:
+        dl = d.reshape(A * T, B * V)
+        if need_t:
+            x = (dl @ vn.reshape(B * V, D)).reshape(A, T, D)
+            dtn = x if dtn is None else dtn + x
+        if need_v:
+            x = (dl.T @ tn.reshape(A * T, D)).reshape(B, V, D)
+            dvn = x if dvn is None else dvn + x
     return dtn, dvn, dtw, dvw
 
 
@@ -259,6 +314,8 @@ def similarity_bwd_plain(tn, vn, tw, vw, g):
     return similarity_bwd_routed_plain(tn, vn, tw, vw, g, *res)
 
 
+# bf16 forms: the entry's name with `_bf16` (bf16 features, same
+# arguments), in the library of the same name with `_bf16`
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _MEAN_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -281,9 +338,26 @@ def residual_buffers(A, T, B, V, device):
             torch.empty((A, B, _pad16(V)), dtype=torch.uint8, device=device))
 
 
+def entry(lib: str, name: str, features: torch.Tensor):
+    """(library, C entry) of `name` for `features`: the bf16 form, of the
+    `_bf16` library, for bf16 features."""
+    if features.dtype == torch.bfloat16:
+        return lib + "_bf16", name + "_bf16"
+    return lib, name
+
+
+def count_launch(wrapper, features: torch.Tensor) -> None:
+    """One launch on `wrapper`'s counts: `.launches`, and `.launches_bf16`
+    for the bf16 form."""
+    wrapper.launches += 1
+    if features.dtype == torch.bfloat16:
+        wrapper.launches_bf16 += 1
+
+
 def routed_bwd_call(lib, name, tn, vn, tw, vw, g, res, need_t, need_v):
-    """One call of a library's backward entry from the residuals `res`:
-    (dtn or None, dvn or None, dtw, dvw)."""
+    """One call of a library's backward entry from the residuals `res`
+    (the bf16 entry for bf16 features): (dtn or None, dvn or None, dtw,
+    dvw), fp32."""
     A, T, D = tn.shape
     B, V, _ = vn.shape
     g = g.float().contiguous()
@@ -298,10 +372,11 @@ def routed_bwd_call(lib, name, tn, vn, tw, vw, g, res, need_t, need_v):
                              ctypes.c_longlong)(A, B, T, V, D, need)
     dev = tn.device
     part = torch.empty((max(n_part, 1),), dtype=torch.float32, device=dev)
-    dtn = torch.empty_like(tn) if need_t else None
-    dvn = torch.empty_like(vn) if need_v else None
+    dtn = torch.empty(tn.shape, device=dev) if need_t else None
+    dvn = torch.empty(vn.shape, device=dev) if need_v else None
     dtw, dvw = torch.empty_like(tw), torch.empty_like(vw)
     P = _build.ptr
+    lib, name = entry(lib, name, tn)
     fn = _build.function(lib, name, _BWD_ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(P(tn), P(vn), P(tw), P(vw), P(g), *map(P, res), P(part),
@@ -343,7 +418,8 @@ def _prepare(t_feat, v_feat, t_mask, v_mask, t_weight, v_weight,
              kernels: bool):
     """What the kernels take: masks folded into the normalised fp32
     features and fp32 weights, contiguous (differentiable).  For a kernel
-    launch also: one CUDA device, T <= 64, V <= 16, D % 32 == 0."""
+    launch also: one CUDA device, T <= 64, V <= 16, D % 32 == 0.  Under
+    bf16 the features are rounded after this (`operands`)."""
     tn = _normalize_masked(t_feat, t_mask)
     vn = _normalize_masked(v_feat, v_mask)
     tw = t_weight.float().contiguous()
@@ -374,24 +450,27 @@ def _similarity_plain(tn, vn, tw, vw) -> torch.Tensor:
 
 
 def _similarity_fwd(tn, vn, tw, vw, save: bool = False):
-    """K2 on prepared CUDA inputs → (S, residuals or ())."""
+    """K2 on prepared CUDA inputs (fp32 features, or their bf16
+    `operands`) → (S, residuals or ())."""
     A, T, D = tn.shape
     B, V, _ = vn.shape
     out = torch.empty((A, B), dtype=torch.float32, device=tn.device)
     res = residual_buffers(A, T, B, V, tn.device) if save else ()
     P = _build.ptr
-    fn = _build.function(_LIB, "interaction_similarity_fwd", _ARGTYPES)
+    lib, name = entry(_LIB, "interaction_similarity_fwd", tn)
+    fn = _build.function(lib, name, _ARGTYPES)
     with torch.cuda.device(tn.device):
         err = fn(P(tn), P(vn), P(tw), P(vw), P(out),
                  *(map(P, res) if save else [None] * 4), A, B, T, V, D,
                  _build.stream())
-    _build.check(err, "interaction_similarity_fwd")
-    fused_interaction_similarity.launches += 1
+    _build.check(err, name)
+    count_launch(fused_interaction_similarity, tn)
     return out, res
 
 
 def _mean_fwd(tn, vn, tw, vw, axis: int, save: bool = False):
-    """K4 on prepared CUDA inputs → (mean of S over axis, residuals/())."""
+    """K4 on prepared CUDA inputs (fp32 features, or their bf16
+    `operands`) → (mean of S over axis, residuals/())."""
     A, T, D = tn.shape
     B, V, _ = vn.shape
     rows = _build.function(_LIB, "interaction_mean_partial_rows",
@@ -401,42 +480,46 @@ def _mean_fwd(tn, vn, tw, vw, axis: int, save: bool = False):
     out = torch.empty((n_out,), dtype=torch.float32, device=tn.device)
     res = residual_buffers(A, T, B, V, tn.device) if save else ()
     P = _build.ptr
-    fn = _build.function(_LIB, "interaction_mean_fwd", _MEAN_ARGTYPES)
+    lib, name = entry(_LIB, "interaction_mean_fwd", tn)
+    fn = _build.function(lib, name, _MEAN_ARGTYPES)
     with torch.cuda.device(tn.device):
         err = fn(P(tn), P(vn), P(tw), P(vw), P(part), P(out),
                  *(map(P, res) if save else [None] * 4), A, B, T, V, D, axis,
                  _build.stream())
-    _build.check(err, "interaction_mean_fwd")
-    fused_interaction_mean.launches += 1
+    _build.check(err, name)
+    count_launch(fused_interaction_mean, tn)
     return out, res
 
 
 def fused_similarity_bwd(tn, vn, tw, vw, g, m1, i1, m2, i2,
                          need_t: bool = True, need_v: bool = True):
-    """The backward kernel on prepared inputs (see `_prepare`), g [A, B]
-    and the forward kernel's residuals (`residual_buffers`): (dtn or None,
-    dvn or None, dtw, dvw).  A side not asked for launches nothing; every
-    sum is in a fixed order, so two calls give the same bits and a one-side
-    call its side of the both-side call's.  A CPU tensor takes
-    `similarity_bwd_routed_plain`."""
+    """The backward kernel on prepared inputs (see `_prepare`; bf16
+    features: the bf16 form, each routed coefficient rounded to bf16), g
+    [A, B] and the forward kernel's residuals (`residual_buffers`): (dtn or
+    None, dvn or None, dtw, dvw), fp32.  A side not asked for launches
+    nothing; every sum is in a fixed order, so two calls give the same bits
+    and a one-side call its side of the both-side call's.  A CPU tensor
+    takes `similarity_bwd_routed_plain`."""
     if not tn.is_cuda:
         return similarity_bwd_routed_plain(tn, vn, tw, vw, g, m1, i1, m2, i2,
                                            need_t, need_v)
     out = routed_bwd_call(_LIB, "interaction_similarity_bwd", tn, vn, tw, vw,
                           g, (m1, i1, m2, i2), need_t, need_v)
-    fused_similarity_bwd.launches += 1
+    count_launch(fused_similarity_bwd, tn)
     return out
 
 
-fused_similarity_bwd.launches = 0
+fused_similarity_bwd.launches = fused_similarity_bwd.launches_bf16 = 0
 
 
 def _wants_grad(*xs) -> bool:
     return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
 
 
-def _similarity_nograd(tn, vn, tw, vw, axis, kernels) -> torch.Tensor:
+def _similarity_nograd(tn, vn, tw, vw, axis, kernels,
+                       sim_dtype: str = "float32") -> torch.Tensor:
     """The forward with nothing saved, as `_Similarity` computes it."""
+    tn, vn = operands(tn, vn, sim_dtype, kernels)
     if not kernels:
         sim = _similarity_plain(tn, vn, tw, vw)
         return sim if axis is None else sim.mean(dim=axis)
@@ -449,11 +532,14 @@ class _Similarity(torch.autograd.Function):
     """S [A, B] (axis None) or its mean over `axis`, on prepared inputs,
     the routing saved (kernel or plain) for a backward that recomputes
     nothing; the backward expands a mean's cotangent to its rank-1 [A, B]
-    form and computes the feature gradients autograd asks for."""
+    form and computes the feature gradients autograd asks for.  Under bf16
+    the rounded features are what is multiplied and saved, and the
+    gradients are the fp32 features' (straight through the rounding)."""
 
     @staticmethod
-    def forward(ctx, tn, vn, tw, vw, axis, kernels):
-        ctx.axis, ctx.kernels = axis, kernels
+    def forward(ctx, tn, vn, tw, vw, axis, kernels, sim_dtype):
+        ctx.axis, ctx.kernels, ctx.bf16 = axis, kernels, sim_dtype != "float32"
+        tn, vn = operands(tn, vn, sim_dtype, kernels)
         if not kernels:
             sim, res = similarity_routing_plain(tn, vn, tw, vw)
             out = sim if axis is None else sim.mean(dim=axis)
@@ -472,36 +558,47 @@ class _Similarity(torch.autograd.Function):
             g = (g.float() / B)[:, None].expand(A, B)
         elif ctx.axis == 0:
             g = (g.float() / A)[None, :].expand(A, B)
-        bwd = fused_similarity_bwd if ctx.kernels else \
-            similarity_bwd_routed_plain
         need_t, need_v = ctx.needs_input_grad[:2]
-        return (*bwd(tn, vn, tw, vw, g, *res, need_t=need_t, need_v=need_v),
-                None, None, None)
+        if ctx.kernels:
+            grads = fused_similarity_bwd(tn, vn, tw, vw, g, *res,
+                                         need_t=need_t, need_v=need_v)
+        else:
+            grads = similarity_bwd_routed_plain(
+                tn, vn, tw, vw, g, *res, need_t=need_t, need_v=need_v,
+                rounding="each" if ctx.bf16 else "none")
+        return (*grads, None, None, None, None)
 
 
 def fused_interaction_similarity(t_feat, v_feat, t_mask, v_mask, t_weight,
-                                 v_weight, kernels: bool = True) -> torch.Tensor:
+                                 v_weight, kernels: bool = True,
+                                 sim_dtype: str = "float32") -> torch.Tensor:
     """Similarity [A, B] in fp32, differentiable in features and weights.
     CPU tensors take the plain version; CUDA tensors launch the kernel (fp32
     inputs and outputs, the products in a 3xTF32 split on the tensor cores,
-    no further from float64 than cuBLAS's fp32 GEMM at D = 512) after the
+    no further from float64 than cuBLAS's fp32 GEMM at D = 512; under
+    `sim_dtype="bfloat16"` bf16 features and one bf16 product) after the
     masks are folded into the normalised features, as the TPU wrapper does,
     with the backward kernel behind it.  Kernel limits: T <= 64, V <= 16,
     D % 32 == 0 (longer videos: ops/similarity_blocked.py).
     `kernels=False` is the reference the backward kernel is held to, on
     any device: the plain forward on the same prepared inputs with the
-    written-out first-index backward."""
+    written-out first-index backward.  The eval and serving call it in
+    float32."""
+    check_sim_dtype(sim_dtype)
     if kernels and not t_feat.is_cuda:
-        return interaction_similarity(t_feat, v_feat, t_mask, v_mask,
-                                      t_weight, v_weight)
+        if sim_dtype == "float32":
+            return interaction_similarity(t_feat, v_feat, t_mask, v_mask,
+                                          t_weight, v_weight)
+        kernels = False
     prep = _prepare(t_feat, v_feat, t_mask, v_mask, t_weight, v_weight,
                     kernels)
     if _wants_grad(*prep):
-        return _Similarity.apply(*prep, None, kernels)
-    return _similarity_nograd(*prep, None, kernels)
+        return _Similarity.apply(*prep, None, kernels, sim_dtype)
+    return _similarity_nograd(*prep, None, kernels, sim_dtype)
 
 
 fused_interaction_similarity.launches = 0
+fused_interaction_similarity.launches_bf16 = 0
 
 
 def fused_interaction_mean(t_feat, v_feat, t_mask, v_mask, t_weight, v_weight,
@@ -513,20 +610,18 @@ def fused_interaction_mean(t_feat, v_feat, t_mask, v_mask, t_weight, v_weight,
     tensor under `kernels=False`, take the plain version (which does build
     the matrix) with the written-out plain backward.  The kernel takes fp32
     features (its 3xTF32 products as close to float64 as cuBLAS's fp32 ones
-    at D = 512) and no other `sim_dtype` (`sim_dtype="bfloat16"` raises on
-    CUDA); it has the similarity kernel's limits: T <= 64, V <= 16, D % 32
-    == 0."""
+    at D = 512) or, under `sim_dtype="bfloat16"`, their bf16 rounding (one
+    bf16 product); it has the similarity kernel's limits: T <= 64, V <= 16,
+    D % 32 == 0."""
     if axis not in (0, 1):
         raise ValueError(f"axis must be 0 or 1, got {axis}")
+    check_sim_dtype(sim_dtype)
     kernels = kernels and t_feat.is_cuda
-    if kernels and sim_dtype != "float32":
-        raise ValueError(f"the bank-centrality kernel computes in float32; "
-                         f"sim_dtype='{sim_dtype}' has no CUDA kernel yet")
     prep = _prepare(t_feat, v_feat, t_mask, v_mask, t_weight, v_weight,
                     kernels)
     if _wants_grad(*prep):
-        return _Similarity.apply(*prep, axis, kernels)
-    return _similarity_nograd(*prep, axis, kernels)
+        return _Similarity.apply(*prep, axis, kernels, sim_dtype)
+    return _similarity_nograd(*prep, axis, kernels, sim_dtype)
 
 
-fused_interaction_mean.launches = 0
+fused_interaction_mean.launches = fused_interaction_mean.launches_bf16 = 0

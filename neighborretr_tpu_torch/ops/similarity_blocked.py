@@ -32,8 +32,13 @@ neither version here builds them whole:
 As in the TPU wrapper, the masks and the L2 normalisation sit outside the
 kernels and get their gradients from autograd.  fp32 inputs and outputs;
 the kernel's maxima are as close to float64 as cuBLAS's fp32 ones
-(ops/similarity.py::similarity_tf32x3 writes its arithmetic out).  Kernel
-limits: T, V <= 64, D % 16 == 0.
+(ops/similarity.py::similarity_tf32x3 writes its arithmetic out).  Under
+`sim_dtype="bfloat16"` the features are rounded to bf16 first
+(ops/similarity.py::operands): the kernels read bf16 copies, the float64
+re-pick of near-ties takes the rounded values, and the backward rounds
+the fp32 sum of a logit's two routed coefficients to bf16 (the TPU
+kernel's `(d1 + d2).astype(dot_dtype)`).  Kernel limits: T, V <= 64, D %
+16 == 0.
 """
 
 from __future__ import annotations
@@ -93,10 +98,13 @@ def similarity_blocked_routing_plain(tn, vn, tw, vw,
 def similarity_blocked_bwd_routed_plain(tn, vn, tw, vw, g, m1, i1, m2, i2,
                                         need_t: bool = True,
                                         need_v: bool = True,
-                                        max_logits_bytes: int = 2 ** 28):
+                                        max_logits_bytes: int = 2 ** 28,
+                                        rounding: str = "none"):
     """Backward of `similarity_blocked_plain` for the cotangent g [A, B] from
     the forward's routing, written out, in the same chunks: (dtn or None,
-    dvn or None, dtw, dvw)."""
+    dvn or None, dtw, dvw).  `rounding` as in
+    `similarity.similarity_bwd_routed_plain` (sim_dtype="bfloat16": "sum",
+    each logit's routed coefficients summed, then rounded to bf16)."""
     c = _video_chunk(tn, vn, max_logits_bytes)
     dtn = torch.zeros_like(tn) if need_t else None
     dtw = torch.zeros_like(tw)
@@ -105,7 +113,7 @@ def similarity_blocked_bwd_routed_plain(tn, vn, tw, vw, g, m1, i1, m2, i2,
         cols = slice(s, s + c)
         a, b, d, e = S.similarity_bwd_routed_plain(
             tn, vn[cols], tw, vw[cols], g[:, cols], m1[:, cols], i1[:, cols],
-            m2[:, cols], i2[:, cols], need_t, need_v)
+            m2[:, cols], i2[:, cols], need_t, need_v, rounding)
         if need_t:
             dtn += a
         dtw += d
@@ -125,6 +133,7 @@ def similarity_blocked_bwd_plain(tn, vn, tw, vw, g,
 
 
 def _check_kernel_inputs(tn, vn, tw, vw) -> None:
+    """The kernels' limits on prepared fp32 inputs."""
     A, T, D = tn.shape
     B, V, _ = vn.shape
     if T > MAX_TOKENS or V > MAX_TOKENS or D % 16:
@@ -139,27 +148,28 @@ def _check_kernel_inputs(tn, vn, tw, vw) -> None:
 
 
 def _blocked_fwd(tn, vn, tw, vw, save: bool):
-    """The forward kernel on prepared CUDA inputs → (S, residuals): the
-    routing (ops/similarity.py::residual_buffers) if `save`, else ().  The
-    kernel flags the indices of maxima with a near-tie; they are re-picked
-    in float64 here (`S.resolve_near_ties`), so the routing is float64's
-    first argmax."""
+    """The forward kernel on prepared CUDA inputs (fp32 features, or their
+    bf16 `operands`: the bf16 form) → (S, residuals): the routing
+    (ops/similarity.py::residual_buffers) if `save`, else ().  The kernel
+    flags the indices of maxima with a near-tie; they are re-picked in
+    float64 of the features it read here (`S.resolve_near_ties`), so the
+    routing is float64's first argmax."""
     A, T, D = tn.shape
     B, V, _ = vn.shape
     dev = tn.device
     out = torch.empty((A, B), dtype=torch.float32, device=dev)
     res = S.residual_buffers(A, T, B, V, dev) if save else ()
-    canon = ((S.canonical_tokens(tn), S.canonical_tokens(vn)) if save
-             else (None, None))
-    fn = _build.function(_LIB, "interaction_similarity_blocked_fwd",
-                         _FWD_ARGTYPES)
+    canon = ((S.canonical_tokens(tn.float()), S.canonical_tokens(vn.float()))
+             if save else (None, None))
+    lib, name = S.entry(_LIB, "interaction_similarity_blocked_fwd", tn)
+    fn = _build.function(lib, name, _FWD_ARGTYPES)
     P = _build.ptr
     with torch.cuda.device(dev):
         err = fn(P(tn), P(vn), P(tw), P(vw), P(out),
                  *(map(P, res + canon) if save else [None] * 6),
                  A, B, T, V, D, _build.stream())
-    _build.check(err, "interaction_similarity_blocked_fwd")
-    fused_interaction_similarity_blocked.launches += 1
+    _build.check(err, name)
+    S.count_launch(fused_interaction_similarity_blocked, tn)
     if save:
         S.resolve_near_ties(tn, vn, *res)
     return out, res
@@ -167,16 +177,18 @@ def _blocked_fwd(tn, vn, tw, vw, save: bool):
 
 def fused_blocked_similarity_bwd(tn, vn, tw, vw, g, m1, i1, m2, i2,
                                  need_t: bool = True, need_v: bool = True):
-    """The backward kernel on prepared CUDA inputs, g [A, B] and the
-    forward's residuals: (dtn or None, dvn or None, dtw, dvw), every sum in
-    a fixed order; a side not asked for launches nothing."""
+    """The backward kernel on prepared CUDA inputs (bf16 features: the
+    bf16 form), g [A, B] and the forward's residuals: (dtn or None, dvn or
+    None, dtw, dvw), fp32, every sum in a fixed order; a side not asked for
+    launches nothing."""
     out = S.routed_bwd_call(_LIB, "interaction_similarity_blocked_bwd", tn,
                             vn, tw, vw, g, (m1, i1, m2, i2), need_t, need_v)
-    fused_blocked_similarity_bwd.launches += 1
+    S.count_launch(fused_blocked_similarity_bwd, tn)
     return out
 
 
 fused_blocked_similarity_bwd.launches = 0
+fused_blocked_similarity_bwd.launches_bf16 = 0
 
 
 class _BlockedSimilarity(torch.autograd.Function):
@@ -185,8 +197,9 @@ class _BlockedSimilarity(torch.autograd.Function):
     for."""
 
     @staticmethod
-    def forward(ctx, tn, vn, tw, vw, kernels):
-        ctx.kernels = kernels
+    def forward(ctx, tn, vn, tw, vw, kernels, sim_dtype):
+        ctx.kernels, ctx.bf16 = kernels, sim_dtype != "float32"
+        tn, vn = S.operands(tn, vn, sim_dtype, kernels)
         if kernels:
             out, res = _blocked_fwd(tn, vn, tw, vw, save=True)
         else:
@@ -202,30 +215,41 @@ class _BlockedSimilarity(torch.autograd.Function):
             got = routing_hook(i1[..., :T], i2[..., :V], slice(0, B), B)
             if got is not None and not ctx.kernels:
                 i1, i2 = (x.to(torch.uint8) for x in got)
-        bwd = (fused_blocked_similarity_bwd if ctx.kernels
-               else similarity_blocked_bwd_routed_plain)
         need_t, need_v = ctx.needs_input_grad[:2]
-        return (*bwd(tn, vn, tw, vw, g, m1, i1, m2, i2, need_t=need_t,
-                     need_v=need_v), None)
+        if ctx.kernels:
+            grads = fused_blocked_similarity_bwd(
+                tn, vn, tw, vw, g, m1, i1, m2, i2, need_t=need_t,
+                need_v=need_v)
+        else:
+            grads = similarity_blocked_bwd_routed_plain(
+                tn, vn, tw, vw, g, m1, i1, m2, i2, need_t=need_t,
+                need_v=need_v, rounding="sum" if ctx.bf16 else "none")
+        return (*grads, None, None)
 
 
 def fused_interaction_similarity_blocked(t_feat, v_feat, t_mask, v_mask,
                                          t_weight, v_weight,
-                                         kernels: bool = True) -> torch.Tensor:
+                                         kernels: bool = True,
+                                         sim_dtype: str = "float32"
+                                         ) -> torch.Tensor:
     """Similarity [A, B] in fp32 at long-token shapes, differentiable in
-    features and weights.  CUDA tensors launch the kernels (or raise); CPU
-    tensors, and any tensor under `kernels=False`, take the plain chunked
-    version with the written-out backward."""
+    features and weights, the products in `sim_dtype` (ops/similarity.py).
+    CUDA tensors launch the kernels (or raise); CPU tensors, and any tensor
+    under `kernels=False`, take the plain chunked version with the
+    written-out backward."""
+    S.check_sim_dtype(sim_dtype)
     kernels = kernels and t_feat.is_cuda
     tn, vn, tw, vw = S._prepare(t_feat, v_feat, t_mask, v_mask, t_weight,
                                 v_weight, False)
     if kernels:
         _check_kernel_inputs(tn, vn, tw, vw)
     if S._wants_grad(tn, vn, tw, vw):
-        return _BlockedSimilarity.apply(tn, vn, tw, vw, kernels)
+        return _BlockedSimilarity.apply(tn, vn, tw, vw, kernels, sim_dtype)
+    tn, vn = S.operands(tn, vn, sim_dtype, kernels)
     if kernels:
         return _blocked_fwd(tn, vn, tw, vw, save=False)[0]
     return similarity_blocked_plain(tn, vn, tw, vw)
 
 
 fused_interaction_similarity_blocked.launches = 0
+fused_interaction_similarity_blocked.launches_bf16 = 0

@@ -223,12 +223,15 @@ def replicate(model: torch.nn.Module, mesh: DataGroup) -> torch.nn.Module:
 class Placement:
     """One parameter of the full model: its full shape, its split over
     `model` ("qkv": rows of each of q, k and v; "rows": dim 0; "cols":
-    dim 1; "": none), the stage that holds it (None: every stage), and
-    whether FSDP2 cuts its dim 0 over the data axes."""
+    dim 1; "": none) in whole units of `tp_unit` rows or columns (a head's
+    width for the attention's, 1 for the MLP's; see `tp_share`), the stage
+    that holds it (None: every stage), and whether FSDP2 cuts its dim 0
+    over the data axes."""
     shape: Tuple[int, ...]
     tp: str = ""
     stage: Optional[int] = None
     fsdp: bool = False
+    tp_unit: int = 1
 
 
 @dataclasses.dataclass
@@ -256,22 +259,38 @@ def _dim0_chunk(t: torch.Tensor, n: int, i: int) -> torch.Tensor:
     return chunks[i] if i < len(chunks) else t[:0]
 
 
-def _tp_cut(t: torch.Tensor, kind: str, n: int, i: int) -> torch.Tensor:
+def tp_share(units: int, n: int, i: int) -> Tuple[int, int]:
+    """(first unit, units) of model rank i of n over `units` whole units
+    (heads, hidden units): ⌈units/n⌉ for the first units mod n ranks,
+    ⌊units/n⌋ for the rest (a rank may get none)."""
+    per, extra = divmod(units, n)
+    return i * per + min(i, extra), per + (i < extra)
+
+
+def _tp_view(t: torch.Tensor, kind: str) -> Tuple[torch.Tensor, int]:
+    """The view of a split tensor that the ranks cut and its cut
+    dimension: [3, E, ...] along dim 1 for "qkv", else the tensor along
+    dim 0 ("rows") or 1 ("cols")."""
     if kind == "qkv":
-        q = t.reshape(3, t.shape[0] // 3, *t.shape[1:])
-        per = q.shape[1] // n
-        return q[:, i * per:(i + 1) * per].reshape(-1, *t.shape[1:])
-    if kind == "rows":
-        return t.chunk(n, dim=0)[i]
-    if kind == "cols":
-        return t.chunk(n, dim=1)[i]
-    return t
+        return t.reshape(3, t.shape[0] // 3, *t.shape[1:]), 1
+    return t, 0 if kind == "rows" else 1
+
+
+def _tp_cut(t: torch.Tensor, kind: str, n: int, i: int,
+            unit: int = 1) -> torch.Tensor:
+    if kind not in ("qkv", "rows", "cols"):
+        return t
+    v, dim = _tp_view(t, kind)
+    start, size = tp_share(v.shape[dim] // unit, n, i)
+    piece = v.narrow(dim, start * unit, size * unit)
+    return piece.reshape(-1, *t.shape[1:]) if kind == "qkv" else piece
 
 
 def local_piece(full: torch.Tensor, pl: Placement,
                 mesh: DataGroup) -> torch.Tensor:
     """This rank's part of a full tensor under `pl` (contiguous)."""
-    t = _tp_cut(full, pl.tp, mesh.size("model"), mesh.coord("model"))
+    t = _tp_cut(full, pl.tp, mesh.size("model"), mesh.coord("model"),
+                pl.tp_unit)
     if pl.fsdp:
         t = _dim0_chunk(t, mesh.dp_size, mesh.dp_rank)
     return t.contiguous()
@@ -282,14 +301,22 @@ def _local_shape(pl: Placement, mesh: DataGroup) -> Tuple[int, ...]:
                              mesh).shape)
 
 
-def _gather_tp(t: torch.Tensor, kind: str, mesh: DataGroup) -> torch.Tensor:
+def _gather_tp(t: torch.Tensor, pl: Placement,
+               mesh: DataGroup) -> torch.Tensor:
+    """The full tensor from the model ranks' pieces, which may differ in
+    size (`tp_share`): each padded to the largest along the cut dimension,
+    one all-gather, each trimmed back."""
     n = mesh.size("model")
-    parts = [torch.empty_like(t) for _ in range(n)]
-    dist.all_gather(parts, t.contiguous(), group=mesh.group("model"))
-    if kind == "qkv":
-        return torch.cat([p.reshape(3, -1, *t.shape[1:]) for p in parts],
-                         dim=1).reshape(-1, *t.shape[1:])
-    return torch.cat(parts, dim=0 if kind == "rows" else 1)
+    v, dim = _tp_view(t, pl.tp)
+    full, _ = _tp_view(torch.empty(pl.shape, device="meta"), pl.tp)
+    units = full.shape[dim] // pl.tp_unit
+    sizes = [tp_share(units, n, i)[1] * pl.tp_unit for i in range(n)]
+    pad = [0, 0] * (v.ndim - 1 - dim) + [0, max(sizes) - v.shape[dim]]
+    buf = torch.nn.functional.pad(v, pad).contiguous()
+    parts = [torch.empty_like(buf) for _ in range(n)]
+    dist.all_gather(parts, buf, group=mesh.group("model"))
+    return torch.cat([p.narrow(dim, 0, k) for p, k in zip(parts, sizes)],
+                     dim=dim).reshape(pl.shape)
 
 
 def _gather_dim0(t: torch.Tensor, rows: int, mesh: DataGroup) -> torch.Tensor:
@@ -329,7 +356,7 @@ def gather_full(named: Dict[str, torch.Tensor], placement: ModelPlacement,
         if pl.fsdp:
             t = _gather_dim0(t, pl.shape[0] if pl.shape else 1, mesh)
         if pl.tp and mesh.size("model") > 1:
-            t = _gather_tp(t, pl.tp, mesh)
+            t = _gather_tp(t, pl, mesh)
         t = t.reshape(pl.shape)
         if to_host:
             t = t.cpu()

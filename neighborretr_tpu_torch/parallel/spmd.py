@@ -56,14 +56,18 @@ def gather_features_and_rows(model: M.NeighborRetr, cfg: Config,
     t_g, v_g, tm_g, vm_g = (pmesh.all_gather(x, mesh)
                             for x in (t_l, v_l, tm_l, vm_l))
 
-    # 3. row blocks
+    # 3. row blocks, in sim_dtype where the gathered form takes it (the
+    # long in-batch rows and the bank rows)
+    sim_dtype = M.similarity_dtype(cfg.model)
     long_tokens = t_l.shape[1] * v_g.shape[1] >= 2048
     s_rows = M.local_similarity(model, t_l, v_g, tm_l, vm_g,
-                                sim_kernels and long_tokens)      # [B_l, B]
+                                sim_kernels and long_tokens,
+                                sim_dtype if long_tokens else "float32")
     bank_t2v_rows = M.local_similarity(model, t_l, bank.feat_v, tm_l,
-                                       bank.mask_v, sim_kernels)  # [B_l, M]
+                                       bank.mask_v, sim_kernels,
+                                       sim_dtype)                 # [B_l, M]
     bank_v2t_rows = M.local_similarity(model, bank.feat_t, v_l, bank.mask_t,
-                                       vm_l, sim_kernels).T      # [B_l, M]
+                                       vm_l, sim_kernels, sim_dtype).T
 
     # 4. gather the rows → the global matrices
     s_local, bank_t2v, bank_v2t = (

@@ -4,14 +4,17 @@ parallel/mesh.py::tp_param_shardings).
 
 Placement (`shard_params_tp`), in torch's layout: `attn.in_proj_weight` is
 the packed [3D, D] with the q, k and v rows stacked, so a rank's column
-shard is rows [r·D/tp, (r+1)·D/tp) of each of q, k and v (with the same
-rows of `in_proj_bias`): whole heads of all three, never a contiguous
-3D/tp block.  `mlp.c_fc` takes output rows (weight and bias);
-`attn.out_proj.weight` and `mlp.c_proj.weight` take input columns, and
-their biases stay whole, added once after the all-reduce.  Everything
-else is replicated.  The port splits whole heads only: every tower's
-n_head must divide by tp (the JAX package also takes uneven heads, by
-GSPMD's resharding).
+shard is its heads' rows of each of q, k and v (with the same rows of
+`in_proj_bias`): whole heads of all three, never a contiguous 3D/tp
+block.  `mlp.c_fc` takes output rows (weight and bias);
+`attn.out_proj.weight` (its heads' columns) and `mlp.c_proj.weight`
+take input columns, and their biases stay whole, added once after the
+all-reduce.  Everything else is replicated.  Any n_head at any tp (↔
+GSPMD's padding and resharding in the JAX package): model rank r takes
+⌈H/tp⌉ whole heads if r < H mod tp, else ⌊H/tp⌋ (parallel/mesh.py::
+tp_share), and the MLP's 4·D hidden units by the same rule; a rank with
+no heads (H < tp) launches no attention kernel and adds a zero partial
+sum.
 
 Compute, per block on each rank (ResidualAttentionBlock routes here when
 it holds `tp`):
@@ -20,8 +23,8 @@ it holds `tp`):
              W_o and a zero b_o: on the block route K10/K11
              (ops/block_attention.py::fused_attention_sublayer), whose
              output cannot be summed over ranks while it holds b_o and the
-             residual (K1's); on the fused route packed qkv [N, L, 3D/tp]
-             through K8/K9 with H/tp heads (head dim 64 stays); else the
+             residual (K1's); on the fused route packed qkv [N, L, 3E]
+             through K8/K9 on the rank's E / 64 heads; else the
              plain einsum form → the fp32 partial sums all-reduced by
              reduce-from-model → + b_o + x;
   MLP        LN2(x) → copy-to-model → the rank's c_fc rows, QuickGELU →
@@ -95,11 +98,13 @@ def attention(block, x: torch.Tensor, bias, dtype: torch.dtype, route,
     """x + Attn(LN1(x)) with this rank's heads (see the module docstring);
     `route`: layers.attention_route's answer for x."""
     a, tp = block.attn, block.tp
-    heads = block.n_head // tp.size
+    heads = block.tp_heads
     x = x.to(dtype)
     h = copy_to_model(block.ln_1(x), tp)
     zero = torch.zeros_like(a.out_proj.bias)
-    if route == "block":
+    if heads == 0:              # no heads here; h · 0 keeps the backward's
+        part = h.float() * 0    # all-reduce of dLN(x) on this rank too
+    elif route == "block":
         part = fused_attention_sublayer(
             h, a.in_proj_weight, a.in_proj_bias, a.out_proj.weight, zero,
             heads, bias, kernels)
@@ -143,22 +148,19 @@ def shard_params_tp(model: nn.Module, mesh, params: Dict[str, object]
     """The Megatron split of every residual block of the towers (↔
     tp_param_shardings + shard_params_tp): each split parameter replaced by
     this rank's part, the block given its `ModelGroup`, and `params` (name
-    → mesh.Placement) marked.  Raises ValueError when a tower's heads do
-    not divide by the `model` size."""
+    → mesh.Placement) marked, the attention's in units of a head."""
     from ..models.layers import ResidualAttentionBlock
-    from .mesh import local_piece
+    from .mesh import local_piece, tp_share
     tp = ModelGroup(mesh.group("model"), mesh.size("model"))
     for prefix, block in model.named_modules():
         if not isinstance(block, ResidualAttentionBlock):
             continue
-        if block.n_head % tp.size:
-            raise ValueError(
-                f"{prefix}: n_head {block.n_head} is not divisible by "
-                f"tensor_parallel {tp.size} — the port splits whole heads "
-                "over the `model` axis (n_head % tensor_parallel == 0)")
+        head_dim = block.attn.out_proj.weight.shape[1] // block.n_head
         for sub, kind in TP_SPLITS.items():
             name = f"{prefix}.{sub}"
-            params[name] = dataclasses.replace(params[name], tp=kind)
+            params[name] = dataclasses.replace(
+                params[name], tp=kind,
+                tp_unit=head_dim if sub.startswith("attn.") else 1)
             owner, leaf = block.get_submodule(sub.rsplit(".", 1)[0]), \
                 sub.rsplit(".", 1)[1]
             full = getattr(owner, leaf)
@@ -166,3 +168,5 @@ def shard_params_tp(model: nn.Module, mesh, params: Dict[str, object]
                 local_piece(full.detach(), params[name], mesh),
                 requires_grad=full.requires_grad))
         block.tp = tp
+        block.tp_heads = tp_share(block.n_head, tp.size,
+                                  mesh.coord("model"))[1]

@@ -81,9 +81,11 @@ def similarity_matrix_device(model: NeighborRetr, t_feat, t_mask, v_feat,
     n_t, T = t_feat.shape[:2]
     logits_bytes = n_t * T * v_feat.shape[0] * v_feat.shape[1] * 4
 
+    # float32 whatever model.sim_dtype says: sim_dtype is the training
+    # path's operand dtype only, as in the JAX package's eval
     def rows(m, s, e):
         return local_similarity(m, t_feat[s:e], v_feat, t_mask[s:e], v_mask,
-                                kernels)
+                                kernels, sim_dtype="float32")
 
     if (kernels and dev.type == "cuda") or logits_bytes <= max_logits_bytes:
         return model(lambda m: rows(m, 0, n_t))

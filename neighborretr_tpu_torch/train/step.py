@@ -46,10 +46,15 @@ refreshed bank back after the FIFO update (train/memory_bank.py::
 bank_to_memory), and the bank fill does the same around each write.
 `optim.moments_placement="host"` keeps the moments there
 (train/bertadam.py).  Neither changes a bit of the step.  Under
-`debug_nans` (the train CLI's --debug_nans) the step raises
-FloatingPointError at the first non-finite value: a parameter or moment it
-starts from, a gradient node of the backward (autograd's anomaly mode),
-then a loss term, gradient, parameter or moment it leaves.
+`debug_nans` (the train CLI's --debug_nans, ↔ `jax_debug_nans`, which
+checks the compiled step's outputs and re-runs op by op only after a NaN
+shows) the step raises FloatingPointError at the first non-finite value:
+a parameter or moment it starts from; then, before the optimizer update,
+a loss term or gradient, in which case the step's backward is replayed
+from the same state, batch, noise and bank under autograd's anomaly mode
+to name the op (the parameters, moments and bank are left as they were);
+then a parameter or moment it leaves.  A clean step runs no anomaly mode:
+three fused finiteness reductions and their three reads.
 """
 
 from __future__ import annotations
@@ -116,26 +121,37 @@ def debug_nans(enabled: bool = True):
         _DEBUG_NANS[0] = prev
 
 
-def check_finite(named: Iterable[Tuple[str, torch.Tensor]]) -> None:
-    """Raises FloatingPointError naming the first of `named` (label,
-    tensor) that holds a NaN or an Inf: one finiteness reduction per
-    device, read once; the labels are looked at only when one fails."""
-    named = list(named)
+def first_non_finite(named: Iterable[Tuple[str, torch.Tensor]]
+                     ) -> Optional[str]:
+    """The label of the first of `named` (label, tensor) that holds a NaN
+    or an Inf, with its count, or None: per device one multi-tensor max-
+    norm (NaN and Inf carry through a max) reduced to one flag, and one
+    read of all the flags; the tensors are looked at one by one only when
+    a flag is down."""
+    named = [(n, t) for n, t in named if t.numel()]
     if any(host_memory.is_host_resident(t) for _, t in named):
         host_memory.wait_copies()
     groups: Dict[torch.device, list] = {}
     for i, (_, t) in enumerate(named):
         groups.setdefault(t.device, []).append(i)
-    bad = []
-    for idx in groups.values():
-        fine = torch.stack([torch.isfinite(named[i][1]).all() for i in idx])
-        if not bool(fine.all()):
-            bad += [i for i, ok in zip(idx, fine.tolist()) if not ok]
-    if bad:
-        label, t = named[min(bad)]
-        raise FloatingPointError(
-            f"debug_nans: non-finite value in {label} "
-            f"({int((~torch.isfinite(t)).sum())} of {t.numel()} entries)")
+    flags = [torch.isfinite(torch.stack(torch._foreach_norm(
+        [named[i][1] for i in idx], float("inf")))).all().cpu()
+        for idx in groups.values()]
+    if all(bool(f) for f in flags):
+        return None
+    for label, t in named:
+        bad = int((~torch.isfinite(t)).sum())
+        if bad:
+            return f"{label} ({bad} of {t.numel()} entries)"
+    return None
+
+
+def check_finite(named: Iterable[Tuple[str, torch.Tensor]]) -> None:
+    """Raises FloatingPointError naming the first of `named` (label,
+    tensor) that holds a NaN or an Inf (`first_non_finite`)."""
+    bad = first_non_finite(named)
+    if bad is not None:
+        raise FloatingPointError(f"debug_nans: non-finite value in {bad}")
 
 
 def _state_leaves(model, opt: bertadam.BertAdamState):
@@ -148,20 +164,13 @@ def _state_leaves(model, opt: bertadam.BertAdamState):
 
 def _check_supported(cfg: Config, model: Optional[M.NeighborRetr] = None
                      ) -> None:
-    """Raises for sim_dtype other than float32, the one option that is not
-    ported, and for a model built from another ModelConfig than
-    `cfg.model` (the towers read the model's own: attention route, remat,
-    frame chunks)."""
+    """Raises for a model built from another ModelConfig than `cfg.model`
+    (the towers read the model's own: attention route, remat, frame
+    chunks)."""
     if model is not None and model.cfg != cfg.model:
         raise ValueError(
             "the model was built from another ModelConfig than cfg.model; "
             "build it from cfg.model, or set model.cfg")
-    if cfg.model.sim_dtype != "float32":
-        raise NotImplementedError(
-            f"model.sim_dtype={cfg.model.sim_dtype!r} is not ported: the "
-            "similarity kernels and their plain versions multiply in "
-            "float32 (the JAX package's two settings gave the same bits on "
-            "its TPU); use sim_dtype='float32'")
 
 
 def _maybe_device_augment(cfg: Config, batch: Dict[str, torch.Tensor],
@@ -295,13 +304,17 @@ def compute_losses(model: M.NeighborRetr, cfg: Config,
             pmesh.all_gather(x, mesh)
             for x in (text_feat, video_feat, t_mask, v_mask))
 
-    # in-batch local similarity: the plain form at the short shapes; the
-    # long-token shapes (T·V >= 2048) run the blocked kernel
-    # use_pallas="off": the plain forms of the similarity family throughout
+    # in-batch local similarity: the plain fp32 form at the short shapes;
+    # the long-token shapes (T·V >= 2048) run the blocked kernel in
+    # sim_dtype, as the bank matrices do (↔ the JAX step)
+    # use_pallas="off": the plain fp32 forms of the similarity family
     sim_kernels = M.similarity_kernels(mcfg, kernels)
+    sim_dtype = M.similarity_dtype(mcfg)
     long_tokens = text_feat.shape[1] * video_feat.shape[1] >= 2048
     s_local = M.local_similarity(model, text_feat, video_feat, t_mask, v_mask,
-                                 kernels=sim_kernels and long_tokens)
+                                 kernels=sim_kernels and long_tokens,
+                                 sim_dtype=sim_dtype if long_tokens
+                                 else "float32")
 
     # neighbor adjusting against the memory bank: the bank matrices feed the
     # loss only through a mean over the bank axis, which the centrality
@@ -310,11 +323,11 @@ def compute_losses(model: M.NeighborRetr, cfg: Config,
         if M.bank_fusion_supported(mcfg):
             cent_t = M.bank_centrality(model, text_feat, bank.feat_v, t_mask,
                                        bank.mask_v, axis=1,
-                                       sim_dtype=mcfg.sim_dtype,
+                                       sim_dtype=sim_dtype,
                                        kernels=sim_kernels)
             cent_v = M.bank_centrality(model, bank.feat_t, video_feat,
                                        bank.mask_t, v_mask, axis=0,
-                                       sim_dtype=mcfg.sim_dtype,
+                                       sim_dtype=sim_dtype,
                                        kernels=sim_kernels)
             return 0.5 * (
                 hubness.neighbor_adjusting_loss_from_centrality(
@@ -322,9 +335,10 @@ def compute_losses(model: M.NeighborRetr, cfg: Config,
                 + hubness.neighbor_adjusting_loss_from_centrality(
                     s_local.T, cent_t, lcfg.num_neighbors, lcfg.temperature))
         bank_t2v = M.local_similarity(model, text_feat, bank.feat_v, t_mask,
-                                      bank.mask_v, sim_kernels)
+                                      bank.mask_v, sim_kernels, sim_dtype)
         bank_v2t = M.local_similarity(model, bank.feat_t, video_feat,
-                                      bank.mask_t, v_mask, sim_kernels).T
+                                      bank.mask_t, v_mask, sim_kernels,
+                                      sim_dtype).T
         return 0.5 * (
             hubness.neighbor_adjusting_loss(
                 s_local, bank_v2t, lcfg.num_neighbors, lcfg.temperature)
@@ -431,36 +445,47 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], cfg: Config,
     debug = _DEBUG_NANS[0]
     if debug:
         check_finite(_state_leaves(model, state.opt))
-    model.zero_grad(set_to_none=True)
     device = batch["text_ids"].device
     host_bank = cfg.train.bank_placement == "host"
     bank = (bank_to_memory(state.bank, "device", device) if host_bank
             else state.bank)
-    try:
-        with pipeline.activated(pipeline_context(cfg, mesh)), \
-                torch.autograd.set_detect_anomaly(debug):
-            aux = _backward(model, cfg, batch, bank, noise, kernels, mesh)
-    except RuntimeError as e:
-        if debug and "nan values" in str(e):     # anomaly mode's verdict
-            raise FloatingPointError(f"debug_nans: {e}") from e
-        raise
-
     params = dict(model.named_parameters())
     placement = pmesh.placement_of(model)
     # a parameter the loss does not reach (the `*_fc1` nets at one merged
     # token) has a zero gradient, and is still weight-decayed; on a mesh
     # every rank gets the mean over the data ranks
     live = {n: p for n, p in params.items() if not bertadam.is_frozen(n)}
-    grads = pmesh.all_reduce_grads(live, mesh or pmesh.DataGroup(),
-                                   placement)
+
+    def backward(anomaly: bool = False):
+        model.zero_grad(set_to_none=True)
+        with pipeline.activated(pipeline_context(cfg, mesh)), \
+                torch.autograd.set_detect_anomaly(anomaly):
+            aux = _backward(model, cfg, batch, bank, noise, kernels, mesh)
+        return aux, pmesh.all_reduce_grads(live, mesh or pmesh.DataGroup(),
+                                           placement)
+
+    aux, grads = backward()
+    if debug:
+        bad = first_non_finite(
+            [(f"loss term {k}", v) for k, v in aux.items() if v.ndim == 0]
+            + [(f"gradient of {n}", g) for n, g in grads.items()])
+        if mesh is not None and pmesh.any_rank(bad is not None, mesh):
+            bad = bad or "another rank's loss term or gradient"
+        if bad is not None:      # nothing updated yet: replay, name the op
+            try:
+                backward(anomaly=True)
+            except RuntimeError as e:
+                if "nan values" in str(e):       # anomaly mode's verdict
+                    raise FloatingPointError(f"debug_nans: {e}") from e
+                raise
+            finally:
+                model.zero_grad(set_to_none=True)
+            raise FloatingPointError(f"debug_nans: non-finite value in {bad}")
     opt = bertadam.bert_adam_update(grads, state.opt, params, cfg.optim,
                                     t_total, placement)
     M.clamp_logit_scale(model, cfg.loss.max_logit_scale)
     if debug:
-        check_finite([(f"loss term {k}", v) for k, v in aux.items()
-                      if v.ndim == 0]
-                     + [(f"gradient of {n}", g) for n, g in grads.items()]
-                     + list(_state_leaves(model, opt)))
+        check_finite(_state_leaves(model, opt))
 
     idx, t_mask, v_mask = global_rows(batch, mesh)
     bank = fifo_update(bank, idx, aux.pop("text_feat"),

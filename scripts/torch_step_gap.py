@@ -86,8 +86,9 @@ def gradient(model, cfg, batch, bank, noise, kernels, replay=None,
     model.zero_grad(set_to_none=True)
     real_sim = M.local_similarity
     if plain_similarity:
-        M.local_similarity = (lambda model, tf, vf, tm, vm, kernels=True:
-                              real_sim(model, tf, vf, tm, vm, False))
+        M.local_similarity = (
+            lambda model, tf, vf, tm, vm, kernels=True, sim_dtype="float32":
+            real_sim(model, tf, vf, tm, vm, False, sim_dtype))
     try:
         with decisions(log, replay, routing, replay_routing):
             if cfg.train.micro_batches > 1:     # GradCache, as train_step

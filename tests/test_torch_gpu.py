@@ -151,10 +151,106 @@ def test_similarity_kernel_is_the_tf32x3_emulation(cuda):
     torch.testing.assert_close(m2.cpu(), w2, **tight)
 
 
-def test_mean_kernel_refuses_bfloat16(cuda):
-    args = sim_inputs(0, 4, 8, 6, 3, 64, cuda)
-    with pytest.raises(ValueError, match="float32"):
-        S.fused_interaction_mean(*args, axis=1, sim_dtype="bfloat16")
+# sim_dtype="bfloat16": the kernels (bf16 wgmma, bf16 gathers) against
+# their plain bf16 versions on the same inputs; the two take the same
+# rounded operands and exact products, and differ only in the order of
+# their fp32 sums
+BF16_TOL = dict(atol=1e-6, rtol=1e-5)
+BF16_SHAPES = [("short", 5, 37, 7, 3, 64), ("short", 64, 200, 24, 12, 512),
+               ("short", 9, 15, 25, 13, 32), ("short", 3, 129, 64, 16, 128),
+               ("long", 7, 9, 64, 64, 64), ("long", 5, 7, 33, 17, 48),
+               ("long", 16, 40, 64, 48, 512)]
+
+
+def bf16_inputs(kind, A, B, T, V, D, cuda):
+    """sim_inputs with a duplicated live video token (ties among live
+    logits) → the wrapper's arguments."""
+    args = sim_inputs(A * T + B * V, A, B, T, V, D, cuda)
+    if V > 1:
+        args[1][:, V - 1] = args[1][:, 0]
+        args[3][:, V - 1] = args[3][:, 0]
+    return args
+
+
+@pytest.mark.parametrize("form", ["similarity", "mean0", "mean1"])
+@pytest.mark.parametrize("kind,A,B,T,V,D", BF16_SHAPES)
+def test_bf16_forward_kernels_match_plain(cuda, kind, A, B, T, V, D, form):
+    """K2, K4 (both axes) and K6 in bf16, no grad: launched (their bf16
+    counts move), within BF16_TOL of the plain bf16 forms, and away from
+    the float32 kernels' results (the setting is not ignored)."""
+    if kind == "long" and form != "similarity":
+        pytest.skip("the long shapes have no mean kernel")
+    args = bf16_inputs(kind, A, B, T, V, D, cuda)
+    if kind == "long":
+        fn, wrapper = SB.fused_interaction_similarity_blocked, \
+            SB.fused_interaction_similarity_blocked
+    elif form == "similarity":
+        fn = wrapper = S.fused_interaction_similarity
+    else:
+        wrapper = S.fused_interaction_mean
+
+        def fn(*a, **kw):
+            return S.fused_interaction_mean(*a, axis=int(form[-1]), **kw)
+    before = wrapper.launches_bf16
+    got = fn(*args, sim_dtype="bfloat16")
+    torch.cuda.synchronize()
+    assert wrapper.launches_bf16 == before + 1
+    want = fn(*args, kernels=False, sim_dtype="bfloat16")
+    torch.testing.assert_close(got, want, **BF16_TOL)
+    # bf16 moves S by ~1e-4; a mean over the bank by ~1e-5
+    assert (got - fn(*args)).abs().max() > 1e-6
+
+
+@pytest.mark.parametrize("form", ["similarity", "mean0", "mean1"])
+@pytest.mark.parametrize("kind,A,B,T,V,D", BF16_SHAPES)
+def test_bf16_backward_kernels_match_plain_on_the_kernels_routing(
+        cuda, kind, A, B, T, V, D, form):
+    """K5 / K7 in bf16 from the bf16 forward's saved routing, both sides
+    and each alone, against the plain routed backward fed that routing
+    (the coefficients rounded each apart for K5, a logit's fp32 sum for
+    K7); two runs give the same bits."""
+    if kind == "long" and form != "similarity":
+        pytest.skip("the long shapes have no mean kernel")
+    args = bf16_inputs(kind, A, B, T, V, D, cuda)
+    tn, vn, tw, vw = S._prepare(*args, False)
+    tb, vb = S.operands(tn, vn, "bfloat16", True)
+    if kind == "long":
+        _, res = SB._blocked_fwd(tb, vb, tw, vw, save=True)
+        bwd, rounding = SB.fused_blocked_similarity_bwd, "sum"
+    elif form == "similarity":
+        _, res = S._similarity_fwd(tb, vb, tw, vw, save=True)
+        bwd, rounding = S.fused_similarity_bwd, "each"
+    else:
+        _, res = S._mean_fwd(tb, vb, tw, vw, int(form[-1]), save=True)
+        bwd, rounding = S.fused_similarity_bwd, "each"
+    g = torch.as_tensor(np.random.default_rng(3).standard_normal((A, B)),
+                        dtype=torch.float32, device=cuda)
+    before = bwd.launches_bf16
+    got = bwd(tb, vb, tw, vw, g, *res)
+    again = bwd(tb, vb, tw, vw, g, *res)
+    t_only = bwd(tb, vb, tw, vw, g, *res, need_v=False)
+    torch.cuda.synchronize()
+    assert bwd.launches_bf16 == before + 3
+    want = S.similarity_bwd_routed_plain(tb.float(), vb.float(), tw, vw, g,
+                                         *res, rounding=rounding)
+    for x, y, z in zip(got, want, again):
+        assert x.dtype == torch.float32
+        torch.testing.assert_close(x, y, **BF16_TOL)
+        assert torch.equal(x, z)
+    assert torch.equal(t_only[0], got[0]) and t_only[1] is None
+
+
+def test_bf16_blocked_routing_is_float64s_first_argmax(cuda):
+    """K6 in bf16 re-picks its near-ties in float64 of the rounded
+    operands: its saved indices are the first argmax of those logits."""
+    args = bf16_inputs("long", 6, 11, 64, 64, 128, cuda)
+    tn, vn, tw, vw = S._prepare(*args, False)
+    tb, vb = S.operands(tn, vn, "bfloat16", True)
+    _, (m1, i1, m2, i2) = SB._blocked_fwd(tb, vb, tw, vw, save=True)
+    _, (w1, j1, w2, j2) = SB.similarity_blocked_routing_plain(
+        tb.double(), vb.double(), tw.double(), vw.double())
+    assert torch.equal(i1[..., :64], j1) and torch.equal(i2[..., :64], j2)
+    torch.testing.assert_close(m1.double(), w1, atol=1e-6, rtol=1e-5)
 
 
 @pytest.mark.parametrize("A,B,T,V,D", SIM_SHAPES)

@@ -149,6 +149,27 @@ def interrupt_after(monkeypatch, n):
     return real
 
 
+def test_run_training_takes_sim_dtype_bfloat16(tmp_path):
+    """The trainer's loop with model.sim_dtype="bfloat16" (no CLI flag in
+    either package: a config field): an epoch of finite steps and evals,
+    whose losses move off the float32 run's from the same weights (the
+    bank centralities round on the CPU under use_pallas="auto")."""
+    got = {}
+    for sim_dtype in ("float32", "bfloat16"):
+        out = out_dir(tmp_path, sim_dtype)
+        cfg = make_config(tc, out, epochs=1)
+        cfg = dc.replace(cfg, model=dc.replace(cfg.model,
+                                               sim_dtype=sim_dtype))
+        state, _ = tloop.run_training(cfg, *datasets(TSyntheticDataset),
+                                      device="cpu")
+        assert state.step == 2
+        got[sim_dtype] = [r for r in rows(out) if r["kind"] == "train"]
+    for a, b in zip(got["bfloat16"], got["float32"]):
+        assert all(np.isfinite(a[k]) for k in LOSS_KEYS)
+    assert any(a["neighbor_loss"] != b["neighbor_loss"]
+               for a, b in zip(got["bfloat16"], got["float32"]))
+
+
 @pytest.mark.parametrize("noise", [False, True])
 def test_mid_epoch_resume_is_exact(tmp_path, monkeypatch, noise):
     """Interrupted after step 3 of 4 (mid-epoch 1) and resumed with

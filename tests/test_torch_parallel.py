@@ -13,7 +13,12 @@ in fp32 and `cluster_noise=False`:
   relative; gradients 1e-4 absolute + 1e-3 relative, as the two packages'
   fp32 sums order differently), then three steps against the JAX
   `train_step` at the gathered form's bars;
-- the parameters after the steps bit-equal across the ranks.
+- the parameters after the steps bit-equal across the ranks;
+- under sim_dtype="bfloat16" and use_pallas="on" (the port's plain bf16
+  forms on the CPU) the explicit form against the JAX explicit form's
+  steps on the 2-device mesh, its Pallas kernels in interpret mode, and
+  against the port's gathered form, both at the gathered form's bars
+  against JAX; both forms away from float32.
 Sharded serving runs in one process over ["cpu", "cpu"] against the JAX
 package's Searcher and index on a 2-device mesh.
 """
@@ -35,10 +40,13 @@ LOSS_KEYS = ("loss", "centrality_loss", "uniform_loss", "neighbor_loss",
 SPAWN_TIMEOUT = 300
 
 
-def make_config(mod, explicit=False):
-    """The same configuration from either package's dataclasses."""
+def make_config(mod, explicit=False, sim_dtype="float32"):
+    """The same configuration from either package's dataclasses; in bf16
+    with use_pallas="on" (the similarity kernels on both sides)."""
     model = dc.replace(mod.ModelConfig.tiny(max_words=8, max_frames=4),
-                       cluster_noise=False)
+                       cluster_noise=False, sim_dtype=sim_dtype,
+                       use_pallas="on" if sim_dtype == "bfloat16"
+                       else "auto")
     return mod.Config(
         model=model, loss=mod.LossConfig(num_neighbors=3),
         optim=mod.OptimizerConfig(lr=1e-2, coef_lr=0.1),
@@ -92,7 +100,9 @@ def worker(form: str, rank: int, port: int, work: str) -> None:
     (y * c).sum().backward()
     out["gather"], out["gather_grad"] = y.detach(), x.grad
 
-    cfg = make_config(tc, explicit=form == "explicit")
+    cfg = make_config(tc, explicit=form.startswith("explicit"),
+                      sim_dtype="bfloat16" if form.endswith("bf16")
+                      else "float32")
     m = cfg.model
     model = W.init_model(m, 1 + rank, "cpu")      # differs until replicated
     if rank == 0:
@@ -158,10 +168,26 @@ def _join(procs):
         assert p.returncode == 0, out[-3000:]
 
 
+def _interpret_pallas(mp):
+    """The JAX package's similarity kernels in interpret mode (its model
+    calls them without `interpret`, which only a TPU compiles)."""
+    from neighborretr_tpu.ops import pallas_similarity as ps
+    from neighborretr_tpu.ops import pallas_similarity_blocked as psb
+    for mod, name in ((ps, "pallas_interaction_similarity"),
+                      (ps, "pallas_interaction_mean"),
+                      (psb, "pallas_interaction_similarity_blocked")):
+        real = getattr(mod, name)
+
+        def interpreted(*a, _real=real, **kw):
+            return _real(*a, **dict(kw, interpret=True))
+        mp.setattr(mod, name, interpreted)
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """Both forms' rank pairs (four processes at once) and the JAX package's
-    one-device trajectory and explicit-form gradients."""
+    """Both forms' rank pairs in float32 and bfloat16 (eight processes at
+    once) and the JAX package's one-device trajectory, explicit-form
+    gradients and explicit-form trajectory in bfloat16."""
     import jax
     import jax.numpy as jnp
 
@@ -179,7 +205,7 @@ def runs(tmp_path_factory):
     model = W.from_jax_params(jax.device_get(params), tcfg.model)
     work = {}
     procs = []
-    for form in ("gathered", "explicit"):
+    for form in ("gathered", "explicit", "gathered_bf16", "explicit_bf16"):
         work[form] = str(tmp_path_factory.mktemp(form))
         torch.save(model.state_dict(), os.path.join(work[form], "init.pt"))
         procs += _spawn_pair(form, work[form])
@@ -203,6 +229,22 @@ def runs(tmp_path_factory):
         lambda p: compute_losses_spmd(p, jcfg, sharded, bank_r, key, mesh),
         has_aux=True))(jmesh.replicate_tree(params, mesh))
 
+    # the JAX explicit form's steps in bfloat16 on the same mesh, from host
+    # copies (the steps donate their state)
+    bcfg = make_config(jc, explicit=True, sim_dtype="bfloat16")
+    bstate = jstep.create_train_state(
+        jmesh.replicate_tree(jax.device_get(params), mesh),
+        jmb.MemoryBank(*jmesh.replicate_tree(filled, mesh)))
+    bmetrics = []
+    with pytest.MonkeyPatch.context() as mp:
+        _interpret_pallas(mp)
+        for i, b in enumerate(steps):
+            bstate, met = jstep.train_step(
+                bstate, jmesh.shard_batch(jax.tree.map(jnp.asarray, b), mesh),
+                jax.random.PRNGKey(i), bcfg, T_TOTAL, mesh=mesh)
+            bmetrics.append(jax.device_get(met))
+    bstate = jax.device_get(bstate)
+
     jstate = jstep.create_train_state(params, jbank)
     jmetrics = []
     for i, b in enumerate(steps):
@@ -214,27 +256,34 @@ def runs(tmp_path_factory):
                                weights_only=False) for r in range(WORLD)]
              for form in work}
     from neighborretr_tpu.core import checkpoint as jckpt
-    return dict(ranks=ranks, filled=filled, jmetrics=jmetrics,
-                jstate=jax.device_get(jstate),
-                jparams=jckpt.flatten_tree(jax.device_get(jstate.params)),
+    jstate = jax.device_get(jstate)
+    return dict(ranks=ranks, filled=filled,
+                jax=dict(metrics=jmetrics, bank=jstate.bank,
+                         params=jckpt.flatten_tree(jstate.params)),
+                jax_explicit_bf16=dict(
+                    metrics=bmetrics, bank=bstate.bank,
+                    params=jckpt.flatten_tree(bstate.params)),
                 jaux={k: float(jaux[k]) for k in LOSS_KEYS},
                 jgrads=jckpt.flatten_tree(jax.device_get(jgrads)))
 
 
-def _held_to_jax(r, runs):
+def _held_to_jax(r, runs, ref="jax"):
+    """A rank's record against the JAX trajectory `runs[ref]`."""
+    want_run = runs[ref]
     for got, want in zip(r["filled"], runs["filled"]):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
-    for got, want in zip(r["metrics"], runs["jmetrics"]):
+    assert len(r["metrics"]) == len(want_run["metrics"]) == STEPS
+    for got, want in zip(r["metrics"], want_run["metrics"]):
         for k in LOSS_KEYS + ("grad_norm", "logit_scale"):
             assert np.isfinite(got[k]), k
             np.testing.assert_allclose(got[k], float(want[k]), rtol=1e-4,
                                        err_msg=k)
-    assert r["params"].keys() == runs["jparams"].keys()
-    for k, want in runs["jparams"].items():
+    assert r["params"].keys() == want_run["params"].keys()
+    for k, want in want_run["params"].items():
         got = r["params"][k]
         assert np.isfinite(got).all(), k
         assert np.abs(got - want).max() <= 1e-4, (k, np.abs(got - want).max())
-    for got, want in zip(r["bank"], runs["jstate"].bank):
+    for got, want in zip(r["bank"], want_run["bank"]):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
     assert r["steps"] == (STEPS, STEPS)
 
@@ -260,6 +309,35 @@ def test_explicit_form_matches_jax_compute_losses_spmd(runs):
 
 def test_explicit_form_steps_match_jax_train_step(runs):
     _held_to_jax(runs["ranks"]["explicit"][0], runs)
+
+
+def test_explicit_form_in_bfloat16_matches_jax_explicit_steps(runs):
+    """sim_dtype="bfloat16", use_pallas="on": the explicit form's bank rows
+    (K2 and K5's plain bf16 forms) against the JAX explicit form's Pallas
+    kernels in interpret mode with compute_dtype="bfloat16", three steps
+    at the gathered form's bars against JAX."""
+    _held_to_jax(runs["ranks"]["explicit_bf16"][0], runs, "jax_explicit_bf16")
+
+
+def test_explicit_form_matches_gathered_form_in_bfloat16(runs):
+    """sim_dtype="bfloat16": the explicit form's bank rows (K2 and K5's
+    plain bf16 forms) against the gathered form's bank centralities (K4's),
+    at the bars both forms meet against JAX in float32; both away from
+    their float32 runs."""
+    got = runs["ranks"]["explicit_bf16"][0]
+    want = runs["ranks"]["gathered_bf16"][0]
+    for a, b in zip(got["metrics"], want["metrics"]):
+        for k in LOSS_KEYS + ("grad_norm",):
+            assert np.isfinite(a[k]), k
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-4, err_msg=k)
+    for k, w in want["params"].items():
+        assert np.abs(got["params"][k] - w).max() <= 1e-4, k
+    for a, b in zip(got["bank"], want["bank"]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4)
+    for form in ("gathered", "explicit"):
+        bf, f32 = (runs["ranks"][form + s][0]["metrics"][-1]
+                   for s in ("_bf16", ""))
+        assert bf["neighbor_loss"] != f32["neighbor_loss"], form
 
 
 @pytest.mark.parametrize("form", ["gathered", "explicit"])

@@ -167,3 +167,53 @@ def test_debug_nans_raises_in_both_packages_and_a_clean_step_is_unchanged():
         with pytest.raises(FloatingPointError):
             jstep.train_step(jstate, jax.tree.map(jnp.asarray, batch),
                              jax.random.PRNGKey(0), jcfg, 10)
+
+
+def test_debug_nans_checks_after_the_backward_and_replays_only_on_a_hit(
+        monkeypatch):
+    """--debug_nans at the JAX flag's cost: a clean step never turns on
+    autograd's anomaly mode; a NaN that arises inside the step (here the KL
+    term times NaN) is found before the optimizer update, the step's
+    backward is replayed under anomaly mode, which names the op, and the
+    parameters, moments and bank are the ones the step started from."""
+    _, tcfg = _configs()
+    m = tcfg.model
+    seen = []
+    poison = [False]
+    real_kl = tstep.hubness.kl_divergence_loss
+
+    def kl(*a, **kw):
+        seen.append(torch.is_anomaly_enabled())
+        out = real_kl(*a, **kw)
+        return out * float("nan") if poison[0] else out
+
+    monkeypatch.setattr(tstep.hubness, "kl_divergence_loss", kl)
+    model = W.init_model(m, 0)
+    state = tstep.create_train_state(model, tmb.create(
+        tcfg.train.memory_bank_capacity, m.max_words, m.max_frames, m.width))
+    batches = [tstep.to_device(make_synthetic_batch(m, B, seed=s), "cpu")
+               for s in (5, 6)]
+    with tstep.debug_nans(True):
+        state, met = tstep.train_step(state, batches[0], tcfg, 10)
+    assert seen and not any(seen)
+    assert np.isfinite(met["loss"].item())
+
+    before = ({n: p.detach().clone() for n, p in model.named_parameters()},
+              {n: t.clone() for n, t in state.opt.m.items()},
+              {n: t.clone() for n, t in state.opt.v.items()},
+              [t.clone() for t in state.bank], state.opt.step)
+    poison[0] = True
+    seen.clear()
+    with tstep.debug_nans(True):
+        with pytest.raises(FloatingPointError, match="returned nan values"):
+            tstep.train_step(state, batches[1], tcfg, 10)
+    assert seen == [False, False, True, True]        # the step, its replay
+    params, m_, v_, bank, opt_step = before
+    for n, p in model.named_parameters():
+        assert torch.equal(p.detach(), params[n]), n
+        assert p.grad is None, n
+    for n in m_:
+        assert torch.equal(state.opt.m[n], m_[n]), n
+        assert torch.equal(state.opt.v[n], v_[n]), n
+    assert all(torch.equal(a, b) for a, b in zip(state.bank, bank))
+    assert state.opt.step == opt_step

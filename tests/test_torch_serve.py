@@ -523,6 +523,22 @@ def test_index_cli_append(tmp_path):
     assert open(out, "rb").read() == before
 
 
+def test_index_cli_worker_mode_process_gives_the_thread_index(tmp_path):
+    """cli.index --worker_mode process (forked loader workers) writes the
+    index that --worker_mode thread writes, array for array."""
+    got = {}
+    for mode in ("thread", "process"):
+        out = str(tmp_path / f"{mode}.npz")
+        r = _cli("index", "--datatype", "synthetic", "--synthetic_size", "12",
+                 "--out", out, "--batch_size", "8", "--max_frames", "4",
+                 "--workers", "2", "--worker_mode", mode, *TINY)
+        assert r.returncode == 0, r.stderr
+        got[mode] = pserving.load_index(out)
+    assert got["thread"].keys() == got["process"].keys()
+    for k, v in got["thread"].items():
+        np.testing.assert_array_equal(got["process"][k], v, err_msg=k)
+
+
 def test_serve_cli(tmp_path):
     """cli.serve --port 0 on the CPU, the corpus sharded over two devices
     (the CPU twice): the bound address in the log, healthz and a search,

@@ -21,7 +21,19 @@ tower, the clip binding):
   ulps; in fp32 the fused and einsum routes against its einsum route
   within 1e-5;
 - the eval over the TP mesh: the one-process R@K;
-- a tower whose heads do not divide by tp raises.
+- uneven heads: three gloo ranks on data 1 × model 3 with the narrow
+  configuration (two heads a tower: model rank 2 holds none and launches
+  no attention; the 512-wide MLP splits 171 / 171 / 170) against the same
+  one-device JAX trajectory (the JAX package's own TP form refuses this
+  placement: its device_put needs 128 divisible by 3), and its eval; two
+  ranks on model 2 with a 192-wide configuration (three heads a tower:
+  2 / 1; the MLP 384 / 384) against that width's one-device JAX
+  trajectory and the JAX package's TP form on its (1, 2) mesh (GSPMD
+  cuts the 192 columns 96 / 96 and reshards the split head), and its
+  eval; an uneven checkpoint crossing
+  both ways: a JAX-written train state loaded into the (1, 3) placement
+  gives back the file's arrays, and the sharded set that placement writes
+  after a step reads in the JAX package as in the port.
 """
 
 import os
@@ -36,6 +48,8 @@ import torch_sharded_common as C  # noqa: E402
 
 WORLD = 4
 TP = ("tp", (2, 2), ("data", "model"))
+# the uneven cases: (world, mesh shape, width)
+UNEVEN = {"uneven3": (3, (1, 3), 128), "uneven2": (2, (1, 2), 192)}
 HYBRID = ("hybrid", (2, 2), ("replica", "data"))
 BF16_RTOL = 2e-2
 
@@ -185,6 +199,61 @@ def _eval_case(cfg, mesh, init_sd):
     return got
 
 
+def _checkpoint_case(cfg, mesh, work):
+    """A JAX-written train state read into `mesh`'s placement (its payload
+    gathered back), then one step and the sharded set the placement
+    writes."""
+    from neighborretr_tpu_torch.core import checkpoint as ckpt
+    from neighborretr_tpu_torch.models import weights_io as W
+    from neighborretr_tpu_torch.parallel import mesh as pmesh
+    from neighborretr_tpu_torch.train import memory_bank as tmb
+    from neighborretr_tpu_torch.train import step as tstep
+
+    m = cfg.model
+    model = W.init_model(m, 5, "cpu")
+    pmesh.place_params(model, mesh)
+    state = tstep.create_train_state(model, tmb.create(
+        cfg.train.memory_bank_capacity, m.max_words, m.max_frames, m.width))
+    state = ckpt.load_train_state(os.path.join(work, "jax_state.npz"), state)
+    loaded = ckpt.train_state_payload(state)
+    state, _ = tstep.train_step(state, tstep.to_device(pmesh.batch_block(
+        C.batches(m, [30])[0], mesh), "cpu"), cfg, C.T_TOTAL, mesh=mesh)
+    ckpt.save_sharded_train_state(os.path.join(work, "uneven_set"), state,
+                                  mesh=mesh)
+    return {"loaded": loaded, "stepped": ckpt.train_state_payload(state)}
+
+
+def _rank_heads(cfg, mesh):
+    """(n_head, this rank's heads, its c_fc rows) of every block."""
+    from neighborretr_tpu_torch.models import weights_io as W
+    from neighborretr_tpu_torch.models.layers import ResidualAttentionBlock
+    from neighborretr_tpu_torch.parallel import mesh as pmesh
+    model = pmesh.place_params(W.init_model(cfg.model, 0, "cpu"), mesh)
+    return [(b.n_head, b.tp_heads, b.mlp.c_fc.weight.shape[0])
+            for b in model.modules()
+            if isinstance(b, ResidualAttentionBlock)]
+
+
+def uneven_worker(rank: int, world: int, port: int, work: str,
+                  mode: str) -> None:
+    from neighborretr_tpu_torch.core import config as tc
+    from neighborretr_tpu_torch.parallel import mesh as pmesh
+
+    C.init_rank(rank, world, port)
+    _, shape, width = UNEVEN[mode]
+    init_sd = torch.load(os.path.join(work, "init.pt"))
+    cfg = C.make_config(tc, width)
+    mesh = pmesh.make_mesh("cpu", shape, ("data", "model"))
+    out = {"train": C.train_case(cfg, mesh, init_sd),
+           "eval": _eval_case(cfg, mesh, init_sd),
+           "heads": _rank_heads(cfg, mesh)}
+    if mode == "uneven3":
+        out["checkpoint"] = _checkpoint_case(cfg, mesh, work)
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    import torch.distributed as dist
+    dist.destroy_process_group()
+
+
 def worker(rank: int, world: int, port: int, work: str) -> None:
     from neighborretr_tpu_torch.core import config as tc
     from neighborretr_tpu_torch.parallel import mesh as pmesh
@@ -204,8 +273,8 @@ def worker(rank: int, world: int, port: int, work: str) -> None:
     dist.destroy_process_group()
 
 
-def _jax_tp_trajectory():
-    """The JAX package's TP form: the same steps on its (2, 2) data ×
+def _jax_tp_trajectory(shape=(2, 2), width=128):
+    """The JAX package's TP form: the same steps on its `shape` data ×
     model mesh of virtual CPU devices."""
     import jax
     import jax.numpy as jnp
@@ -217,8 +286,8 @@ def _jax_tp_trajectory():
     from neighborretr_tpu.train import memory_bank as jmb
     from neighborretr_tpu.train import step as jstep
 
-    jcfg = C.make_config(jc)
-    mesh = jmesh.make_tp_mesh((2, 2))
+    jcfg = C.make_config(jc, width)
+    mesh = jmesh.make_tp_mesh(shape)
     params = jmesh.place_params(
         jm.init_params(jax.random.PRNGKey(0), jcfg.model), mesh)
     m = jcfg.model
@@ -240,17 +309,60 @@ def _jax_tp_trajectory():
                 params=jckpt.flatten_tree(host.params))
 
 
+def _jax_state_file(path: str):
+    """A JAX train state of the narrow model (moments set apart from the
+    parameters, step 5) saved as one npz → its flat arrays."""
+    import jax
+
+    from neighborretr_tpu.core import checkpoint as jckpt
+    from neighborretr_tpu.core import config as jc
+    from neighborretr_tpu.models import neighborretr as jm
+    from neighborretr_tpu.train import memory_bank as jmb
+    from neighborretr_tpu.train import step as jstep
+    cfg = C.make_config(jc)
+    m = cfg.model
+    state = jstep.create_train_state(
+        jm.init_params(jax.random.PRNGKey(9), m),
+        jmb.create(cfg.train.memory_bank_capacity, m.max_words,
+                   m.max_frames, m.width))
+    state = state._replace(
+        opt=state.opt._replace(
+            m=jax.tree.map(lambda p: p * 0.5, state.params),
+            v=jax.tree.map(lambda p: p * p, state.params)), step=5)
+    jckpt.save_train_state(path, state)
+    with np.load(path) as f:
+        return {k: f[k] for k in f.files}
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     work = str(tmp_path_factory.mktemp("tp"))
     init, ref = C.jax_trajectory()
     torch.save(init, os.path.join(work, "init.pt"))
     procs = C.spawn(os.path.abspath(__file__), WORLD, work)
+    uneven = {}
+    for mode, (world, _, width) in UNEVEN.items():
+        d = str(tmp_path_factory.mktemp(mode))
+        if width == 128:
+            torch.save(init, os.path.join(d, "init.pt"))
+            jax_file = _jax_state_file(os.path.join(d, "jax_state.npz"))
+        else:
+            wide_init, wide_ref = C.jax_trajectory(width)
+            torch.save(wide_init, os.path.join(d, "init.pt"))
+        uneven[mode] = (d, C.spawn(os.path.abspath(__file__), world, d,
+                                   mode))
     jax_tp = _jax_tp_trajectory()
+    jax_tp_wide = _jax_tp_trajectory((1, 2), 192)
     jax_blocks = _jax_block_routes()
     C.join(procs)
+    for d, p in uneven.values():
+        C.join(p)
     return dict(ranks=C.load_ranks(work, WORLD), ref=ref, jax_tp=jax_tp,
-                jax_blocks=jax_blocks)
+                jax_blocks=jax_blocks, jax_tp_wide=jax_tp_wide, wide_ref=wide_ref,
+                jax_file=jax_file, uneven_set=os.path.join(
+                    uneven["uneven3"][0], "uneven_set"),
+                uneven={mode: C.load_ranks(d, UNEVEN[mode][0])
+                        for mode, (d, _) in uneven.items()})
 
 
 @pytest.mark.parametrize("case", ["tp", "hybrid"])
@@ -354,19 +466,102 @@ def test_eval_over_tp_mesh_gives_one_process_recall(runs):
         assert t2v == t2v1 and v2t == v2t1
 
 
-def test_heads_that_do_not_divide_raise():
-    from neighborretr_tpu_torch.core import config as tc
-    from neighborretr_tpu_torch.models import weights_io as W
-    from neighborretr_tpu_torch.parallel import mesh as pmesh
-    from neighborretr_tpu_torch.parallel.tensor import shard_params_tp
-    model = W.init_model(tc.ModelConfig.tiny(), 0, "cpu")     # one head
-    mesh = pmesh.DataGroup(world=2, axis_names=("data", "model"),
-                           shape=(1, 2), rank=0)
-    params = {n: pmesh.Placement(tuple(p.shape))
-              for n, p in model.named_parameters()}
-    with pytest.raises(ValueError, match="n_head % tensor_parallel == 0"):
-        shard_params_tp(model, mesh, params)
+@pytest.mark.parametrize("mode", list(UNEVEN))
+def test_uneven_heads_split_whole_heads_and_hidden_units(runs, mode):
+    """Rank r takes ceil(H/tp) heads if r < H mod tp, else floor(H/tp),
+    and the 4·D hidden units by the same rule: (1, 1, 0) heads and
+    (171, 171, 170) units of the narrow config over three ranks, (2, 1)
+    heads and (384, 384) units at width 192 over two."""
+    world, _, width = UNEVEN[mode]
+    want = {"uneven3": ((1, 1, 0), (171, 171, 170)),
+            "uneven2": ((2, 1), (384, 384))}[mode]
+    per_rank = [r["heads"] for r in runs["uneven"][mode]]
+    assert len(per_rank) == world and per_rank[0]
+    for blk in range(len(per_rank[0])):
+        n_head = per_rank[0][blk][0]
+        assert n_head == width // 64
+        heads = tuple(r[blk][1] for r in per_rank)
+        units = tuple(r[blk][2] for r in per_rank)
+        assert (heads, units) == want, (blk, heads, units)
+
+
+@pytest.mark.parametrize("mode", list(UNEVEN))
+def test_uneven_steps_match_jax_train_step(runs, mode):
+    """The bank fill and three steps over uneven heads against the
+    one-device JAX trajectory at the even TP's bars, on every rank; the
+    replicated parameters bit-equal across the ranks."""
+    ref = runs["ref"] if mode == "uneven3" else runs["wide_ref"]
+    rs = [r["train"] for r in runs["uneven"][mode]]
+    for r in rs:
+        C.held_to_jax(r, ref)
+        assert r["steps"] == (C.STEPS, C.STEPS)
+    assert len({r["replicated_digest"] for r in rs}) == 1
+    for r in rs[1:]:
+        assert r["metrics"] == rs[0]["metrics"]
+
+
+def test_uneven_tp_matches_jax_tp_form(runs):
+    """Three heads over two model ranks against the JAX package's
+    make_tp_mesh((1, 2)) at width 192: loss terms and gradient norms 1e-4
+    relative, parameters 1e-4."""
+    want = runs["jax_tp_wide"]
+    got = runs["uneven"]["uneven2"][0]["train"]
+    for a, b in zip(got["metrics"], want["metrics"]):
+        for k in C.LOSS_KEYS + ("grad_norm",):
+            np.testing.assert_allclose(a[k], float(b[k]), rtol=1e-4,
+                                       err_msg=k)
+    for k, v in want["params"].items():
+        assert np.abs(got["params"][k] - v).max() <= 1e-4, k
+
+
+@pytest.mark.parametrize("mode", list(UNEVEN))
+def test_uneven_eval_gives_one_process_recall(runs, mode):
+    for r in runs["uneven"][mode]:
+        (t2v, v2t), (t2v1, v2t1) = r["eval"]
+        assert t2v == t2v1 and v2t == v2t1
+
+
+def test_uneven_checkpoint_crosses_both_ways(runs):
+    """A JAX-written train state read into the (1, 3) placement gives the
+    file's parameters and moments back bit for bit on every rank; the
+    sharded set that placement writes after a step reads in the JAX
+    package as in the port, bit for bit."""
+    from neighborretr_tpu.core import checkpoint as jckpt
+    from neighborretr_tpu.core import config as jc
+    from neighborretr_tpu.models import neighborretr as jm
+    from neighborretr_tpu.train import memory_bank as jmb
+    from neighborretr_tpu.train import step as jstep
+    import jax
+
+    want = runs["jax_file"]
+    for r in runs["uneven"]["uneven3"]:
+        got = r["checkpoint"]["loaded"]
+        for k, v in want.items():
+            if k.startswith(("params", "opt_")):
+                np.testing.assert_array_equal(got[k], v, err_msg=k)
+    stepped = runs["uneven"]["uneven3"][0]["checkpoint"]["stepped"]
+    cfg = C.make_config(jc)
+    m = cfg.model
+    like = jstep.create_train_state(
+        jm.init_params(jax.random.PRNGKey(0), m),
+        jmb.create(cfg.train.memory_bank_capacity, m.max_words,
+                   m.max_frames, m.width))
+    got = jckpt.load_sharded_train_state(os.path.join(
+        runs["uneven_set"], "state_preempt.manifest.json"), like)
+    flat = {}
+    for name, tree in (("params", got.params), ("opt_m", got.opt.m),
+                       ("opt_v", got.opt.v)):
+        flat.update({f"{name}//{k}": np.asarray(v)
+                     for k, v in jckpt.flatten_tree(tree).items()})
+    assert int(got.step) == int(stepped["step"]) == 6
+    for k, v in flat.items():
+        np.testing.assert_array_equal(v, stepped[k], err_msg=k)
 
 
 if __name__ == "__main__":
-    worker(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    if len(sys.argv) > 5:
+        uneven_worker(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]),
+                      sys.argv[4], sys.argv[5])
+    else:
+        worker(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]),
+               sys.argv[4])

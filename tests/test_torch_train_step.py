@@ -353,24 +353,104 @@ def test_train_step_under_use_pallas_off_matches_jax():
         assert err <= 1e-4, (jax.tree_util.keystr(pa), err)
 
 
-@pytest.mark.parametrize("words,frames", [(8, 4), (64, 32)])
-def test_sim_dtype_bfloat16_is_refused_on_every_train_path(words, frames):
-    """The port refuses sim_dtype="bfloat16" on the flagship and on the
-    long-token configuration, in the bank fill and in the step, before any
-    work: its similarity kernels and their plain versions multiply in
-    float32."""
-    cfg = make_config(tc)
-    m = dc.replace(tc.ModelConfig.tiny(max_words=words, max_frames=frames),
-                   cluster_noise=False, sim_dtype="bfloat16")
-    cfg = dc.replace(cfg, model=m, data=dc.replace(
+def _long_config(mod, words, frames, **model):
+    """make_config at `words` x `frames` with the model fields `model`."""
+    cfg = make_config(mod)
+    m = dc.replace(mod.ModelConfig.tiny(max_words=words, max_frames=frames),
+                   cluster_noise=False, **model)
+    return dc.replace(cfg, model=m, data=dc.replace(
         cfg.data, max_words=words, max_frames=frames))
-    model = W.init_model(m, 0)
-    bank = tmb.create(cfg.train.memory_bank_capacity, words, frames, m.width)
-    batch = tstep.to_device(make_synthetic_batch(m, B, seed=1), "cpu")
-    with pytest.raises(NotImplementedError, match="sim_dtype"):
-        tstep.fill_bank_step(model, bank, batch, cfg, 0)
-    with pytest.raises(NotImplementedError, match="sim_dtype"):
-        tstep.train_step(tstep.create_train_state(model, bank), batch, cfg,
-                         T_TOTAL)
-    with pytest.raises(NotImplementedError, match="sim_dtype"):
-        tstep._check_supported(cfg)
+
+
+@pytest.fixture
+def jax_pallas_interpreted(monkeypatch):
+    """The JAX package's similarity kernels in interpret mode (its model
+    calls them without `interpret`, which only a TPU compiles)."""
+    from neighborretr_tpu.ops import pallas_similarity as ps
+    from neighborretr_tpu.ops import pallas_similarity_blocked as psb
+    for mod, name in ((ps, "pallas_interaction_similarity"),
+                      (ps, "pallas_interaction_mean"),
+                      (psb, "pallas_interaction_similarity_blocked")):
+        real = getattr(mod, name)
+
+        def interpreted(*a, _real=real, **kw):
+            return _real(*a, **dict(kw, interpret=True))
+        monkeypatch.setattr(mod, name, interpreted)
+
+
+@pytest.mark.parametrize("words,frames", [(8, 4), (64, 32)])
+def test_sim_dtype_bfloat16_train_step_matches_jax(jax_pallas_interpreted,
+                                                   words, frames):
+    """sim_dtype="bfloat16" under use_pallas="on" in both packages (the
+    JAX package's Pallas kernels in interpret mode, the port's plain bf16
+    forms on the CPU): the bank fill and two steps from the same weights
+    and batches, on the flagship shape (the bank centralities) and on a
+    long-token one (the blocked in-batch matrix and bank matrices), at the
+    train-step parity bars: the bank to 1e-5, loss terms 1e-4 relative,
+    every parameter 1e-4 absolute."""
+    kw = dict(sim_dtype="bfloat16", use_pallas="on")
+    jcfg, tcfg = (_long_config(jc, words, frames, **kw),
+                  _long_config(tc, words, frames, **kw))
+    params = jm.init_params(jax.random.PRNGKey(4), jcfg.model)
+    model = W.from_jax_params(jax.device_get(params), tcfg.model)
+    m, cap = jcfg.model, jcfg.train.memory_bank_capacity
+    jbank = jmb.create(cap, words, frames, m.width)
+    tbank = tmb.create(cap, words, frames, m.width)
+    for i, b in enumerate(batches(jcfg, range(50, 50 + MB_BATCH))):
+        jbank = jstep.fill_bank_step(params, jbank, jax.tree.map(
+            jnp.asarray, b), jcfg, i * B)
+        tbank = tstep.fill_bank_step(model, tbank, tstep.to_device(b, "cpu"),
+                                     tcfg, i * B)
+    for got, want in zip(tbank, jax.device_get(jbank)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    jstate = jstep.create_train_state(params, jbank)
+    tstate = tstep.create_train_state(model, tbank)
+    for i, b in enumerate(batches(jcfg, [60, 61])):
+        jstate, jmet = jstep.train_step(jstate, jax.tree.map(jnp.asarray, b),
+                                        jax.random.PRNGKey(i), jcfg, T_TOTAL)
+        tstate, tmet = tstep.train_step(tstate, tstep.to_device(b, "cpu"),
+                                        tcfg, T_TOTAL)
+        for k in LOSS_KEYS:
+            assert np.isfinite(tmet[k].item()), k
+            np.testing.assert_allclose(tmet[k].item(), float(jmet[k]),
+                                       rtol=1e-4, err_msg=k)
+    got = W.to_jax_params(tstate.model.state_dict(), tcfg.model)
+    flat_got = jax.tree_util.tree_flatten_with_path(got)[0]
+    flat_want = jax.tree_util.tree_flatten_with_path(
+        jax.device_get(jstate.params))[0]
+    assert len(flat_got) == len(flat_want)
+    for (pa, a), (_, b) in zip(flat_got, flat_want):
+        assert np.isfinite(a).all(), pa
+        err = np.abs(a - np.asarray(b)).max()
+        assert err <= 1e-4, (jax.tree_util.keystr(pa), err)
+
+
+@pytest.mark.parametrize("words,frames", [(8, 4), (64, 32)])
+def test_sim_dtype_bfloat16_rounds_unless_use_pallas_off(words, frames):
+    """In the port: under use_pallas="off" sim_dtype="bfloat16" gives the
+    float32 setting's bits (the plain fp32 forms, as JAX's XLA forms); under
+    "auto" on the CPU (the kernels' plain versions) it rounds, and the
+    losses move."""
+    def step(**model):
+        cfg = _long_config(tc, words, frames, **model)
+        torch.manual_seed(0)
+        net = W.init_model(cfg.model, 0)
+        cap = cfg.train.memory_bank_capacity
+        bank = tmb.create(cap, words, frames, cfg.model.width)
+        for i, b in enumerate(batches(cfg, range(70, 70 + MB_BATCH))):
+            bank = tstep.fill_bank_step(net, bank, tstep.to_device(b, "cpu"),
+                                        cfg, i * B)
+        state = tstep.create_train_state(net, bank)
+        _, met = tstep.train_step(state, tstep.to_device(
+            batches(cfg, [80])[0], "cpu"), cfg, T_TOTAL)
+        return met, net.state_dict()
+
+    f32, f32_sd = step(use_pallas="off")
+    off, off_sd = step(use_pallas="off", sim_dtype="bfloat16")
+    for k in LOSS_KEYS + ("grad_norm",):
+        assert torch.equal(off[k], f32[k]), k
+    for n, t in f32_sd.items():
+        assert torch.equal(off_sd[n], t), n
+    auto32, _ = step()
+    auto, _ = step(sim_dtype="bfloat16")
+    assert not torch.equal(auto["neighbor_loss"], auto32["neighbor_loss"])

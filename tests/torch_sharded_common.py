@@ -29,10 +29,11 @@ FILL, STEP_SEEDS = range(10, 10 + MB_BATCH), range(20, 20 + STEPS)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def make_config(mod, **train):
-    """The narrow configuration from either package's dataclasses."""
-    clip = dc.replace(mod.ClipConfig.tiny(), vision_width=128,
-                      transformer_width=128, embed_dim=128)
+def make_config(mod, width=128, **train):
+    """The narrow configuration from either package's dataclasses (`width`
+    / 64 heads a tower)."""
+    clip = dc.replace(mod.ClipConfig.tiny(), vision_width=width,
+                      transformer_width=width, embed_dim=width)
     model = mod.ModelConfig(clip=clip, max_words=8, max_frames=4,
                             temporal_layers=2, compute_dtype="float32",
                             cluster_noise=False)
@@ -56,7 +57,7 @@ def batches(m, seeds):
     return out
 
 
-def jax_trajectory(**train):
+def jax_trajectory(width=128, **train):
     """The JAX package's bank fill and three steps on one device → (the
     initial parameters as the port's state dict, the reference)."""
     import jax
@@ -70,7 +71,8 @@ def jax_trajectory(**train):
     from neighborretr_tpu_torch.core import config as tc
     from neighborretr_tpu_torch.models import weights_io as W
 
-    jcfg, tcfg = make_config(jc, **train), make_config(tc, **train)
+    jcfg, tcfg = (make_config(jc, width, **train),
+                  make_config(tc, width, **train))
     assert dc.asdict(jcfg.model) == dc.asdict(tcfg.model)
     params = jm.init_params(jax.random.PRNGKey(0), jcfg.model)
     init = W.from_jax_params(jax.device_get(params), tcfg.model).state_dict()

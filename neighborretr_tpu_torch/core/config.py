@@ -331,7 +331,8 @@ class TrainConfig:
     # state_preempt.npz at the next step boundary and exit cleanly
     save_on_preempt: bool = True
     mid_epoch_eval: bool = True  # eval every n_display*3 steps (trainer.py:169)
-    # when set, capture a jax.profiler trace of a few early steps to this dir
+    # when set, capture a torch.profiler trace of a few early steps to this
+    # dir; it carries the program's nr:: spans (utils/spans.py)
     profile_dir: Optional[str] = None
     profile_steps: Tuple[int, int] = (10, 15)  # [start, end) global steps
     # parallelism

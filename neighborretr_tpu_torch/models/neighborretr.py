@@ -29,6 +29,7 @@ from ..ops.similarity import (fused_interaction_mean,
                               interaction_similarity)
 from ..ops.similarity_blocked import fused_interaction_similarity_blocked
 from ..ops.video import normalize_frames
+from ..utils.spans import span
 from . import ctm
 from . import layers as L
 from .clip import CLIP
@@ -219,8 +220,9 @@ def local_similarity(model: NeighborRetr, t_feat, v_feat, t_mask, v_mask,
     `kernels=False`.  sim_dtype: the products' operand dtype (↔ the JAX
     package's, passed to its kernels): "bfloat16" on the training path,
     float32 in the eval and serving."""
-    tw = token_weights(model.text_weight_fc, t_feat, t_mask)
-    vw = token_weights(model.video_weight_fc, v_feat, v_mask)
+    with span("nr::token_weights"):
+        tw = token_weights(model.text_weight_fc, t_feat, t_mask)
+        vw = token_weights(model.video_weight_fc, v_feat, v_mask)
     T, V = t_feat.shape[1], v_feat.shape[1]
     if T * V >= 2048:
         return fused_interaction_similarity_blocked(
@@ -245,8 +247,9 @@ def bank_centrality(model: NeighborRetr, t_feat, v_feat, t_mask, v_mask,
     """Mean of the local similarity over `axis` (1 → per-text mean against a
     video bank, 0 → per-video mean against a text bank): the neighbor loss's
     only use of the bank matrices.  On CUDA the kernel never builds them."""
-    tw = token_weights(model.text_weight_fc, t_feat, t_mask)
-    vw = token_weights(model.video_weight_fc, v_feat, v_mask)
+    with span("nr::token_weights"):
+        tw = token_weights(model.text_weight_fc, t_feat, t_mask)
+        vw = token_weights(model.video_weight_fc, v_feat, v_mask)
     return fused_interaction_mean(t_feat, v_feat, t_mask, v_mask, tw, vw,
                                   axis=axis, sim_dtype=sim_dtype,
                                   kernels=kernels)

@@ -30,6 +30,7 @@ import torch
 from ..core.config import Config
 from ..losses import hubness
 from ..models import neighborretr as M
+from ..utils.spans import span
 from . import mesh as pmesh
 
 
@@ -46,9 +47,10 @@ def gather_features_and_rows(model: M.NeighborRetr, cfg: Config,
     sim_kernels = M.similarity_kernels(cfg.model, kernels)
 
     # 1. local encode
-    t_l, v_l = model.get_text_video_feat(
-        batch["text_ids"], batch["text_mask"], batch["video"],
-        batch["video_mask"], kernels)
+    with span("nr::step.towers"):
+        t_l, v_l = model.get_text_video_feat(
+            batch["text_ids"], batch["text_mask"], batch["video"],
+            batch["video_mask"], kernels)
     tm_l = batch["text_mask"].float()
     vm_l = batch["video_mask"].float()
 

@@ -44,6 +44,7 @@ from .data.text import encode_caption
 from .eval import (encode_text_batch, encode_video_batch,
                    similarity_matrix_device)
 from .models.neighborretr import NeighborRetr, similarity_kernels
+from .utils.spans import span
 
 # the same three leaves, under the JAX package's path names and in its
 # byte layout (fp32, [width, embed] projections), as serving.params_fingerprint
@@ -316,10 +317,13 @@ def encode_queries(model: NeighborRetr, cfg: Config, tokenizer,
                    ) -> Tuple[torch.Tensor, np.ndarray]:
     """Free-text queries → [Q, W, E] text features on the model's device +
     [Q, W] mask (the datasets' SOT/EOT/truncate/pad pipeline)."""
-    enc = [encode_caption(tokenizer, q, cfg.model.max_words) for q in queries]
-    ids = np.stack([e[0] for e in enc])
-    mask = np.stack([e[1] for e in enc])
-    return encode_text_batch(model, ids, mask, kernels), mask
+    with span("nr::search.tokenise"):
+        enc = [encode_caption(tokenizer, q, cfg.model.max_words)
+               for q in queries]
+        ids = np.stack([e[0] for e in enc])
+        mask = np.stack([e[1] for e in enc])
+    with span("nr::search.text"):
+        return encode_text_batch(model, ids, mask, kernels), mask
 
 
 def masked_topk(sim: torch.Tensor, kk: int, n_valid: int):
@@ -403,11 +407,13 @@ class Searcher:
                                         padded, self.kernels)
         kernels = similarity_kernels(self.cfg.model, self.kernels)
         sims = []
-        for m, feat, mask, _ in self._shards:
-            dev = feat.device
-            with device_scope(dev):
-                sims.append(similarity_matrix_device(
-                    m, t_feat.to(dev), t_mask, feat, mask, kernels=kernels))
+        with span("nr::search.similarity"):
+            for m, feat, mask, _ in self._shards:
+                dev = feat.device
+                with device_scope(dev):
+                    sims.append(similarity_matrix_device(
+                        m, t_feat.to(dev), t_mask, feat, mask,
+                        kernels=kernels))
         return sims
 
     def similarities(self, queries: Sequence[str]) -> np.ndarray:
@@ -428,17 +434,19 @@ class Searcher:
         k = max(min(topk, len(self.video_ids)), 0)
         if n == 0 or k == 0:
             return [[] for _ in queries]
-        with device_scope(self.device):
+        with device_scope(self.device), span("nr::search"):
             sims = self._similarity(queries)
-            # k bucketed to the next power of two, min 8, as the JAX
-            # searcher does to reuse its compiled top-k programs
-            if len(sims) == 1:
-                kk = min(max(8, 1 << (k - 1).bit_length()), sims[0].shape[1])
-                vals, idx = masked_topk(sims[0], kk, len(self.video_ids))
-            else:
-                vals, idx = self._merged_topk(sims, k)
-            vals = vals[:n, :k].cpu().numpy()
-            idx = idx[:n, :k].cpu().numpy()
+            with span("nr::search.topk"):
+                # k bucketed to the next power of two, min 8, as the JAX
+                # searcher does to reuse its compiled top-k programs
+                if len(sims) == 1:
+                    kk = min(max(8, 1 << (k - 1).bit_length()),
+                             sims[0].shape[1])
+                    vals, idx = masked_topk(sims[0], kk, len(self.video_ids))
+                else:
+                    vals, idx = self._merged_topk(sims, k)
+                vals = vals[:n, :k].cpu().numpy()
+                idx = idx[:n, :k].cpu().numpy()
         return [[(self.video_ids[j], float(v)) for j, v in zip(irow, vrow)]
                 for irow, vrow in zip(idx, vals)]
 
@@ -468,9 +476,10 @@ def search(model: NeighborRetr, cfg: Config, index: Dict[str, np.ndarray],
 
 
 class _Pending:
-    __slots__ = ("queries", "topk", "event", "results", "error")
+    __slots__ = ("queries", "topk", "event", "results", "error", "submitted")
 
     def __init__(self, queries: Sequence[str], topk: int):
+        self.submitted = time.perf_counter()
         self.queries = list(queries)
         self.topk = int(topk)
         self.event = threading.Event()
@@ -494,7 +503,11 @@ class BatchingDispatcher:
 
     The dispatcher's thread makes the searcher's device its current one
     before each call (`device_scope`): the current CUDA device and stream
-    belong to a thread.  `searcher` may be swapped (the daemon's /reload)."""
+    belong to a thread.  `searcher` may be swapped (the daemon's /reload).
+
+    Counters: `batches` (device calls), `requests` (requests served) and
+    `queue_wait_s`, the seconds the served requests waited from `submit`
+    to the hand-off of their merged batch to the searcher."""
 
     def __init__(self, searcher, max_batch: Optional[int] = None,
                  max_wait_ms: float = 2.0):
@@ -516,6 +529,7 @@ class BatchingDispatcher:
         self._closed = False
         self.batches = 0
         self.requests = 0
+        self.queue_wait_s = 0.0
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="nrtpu-serve-batcher")
         self._thread.start()
@@ -547,13 +561,16 @@ class BatchingDispatcher:
                 p.error = RuntimeError("BatchingDispatcher closed")
                 p.event.set()
 
-    def _collect(self) -> Optional[List[_Pending]]:
-        """One merged batch: block for the first request, then drain the
-        queue until max_batch or the window closes."""
+    def _first(self) -> Optional[_Pending]:
+        """The next batch's first request: the carried one, or the next in
+        the queue, blocking while it is empty."""
         first = self._carry if self._carry is not None else self._queue.get()
         self._carry = None
-        if first is None:
-            return None
+        return first
+
+    def _collect(self, first: _Pending) -> List[_Pending]:
+        """One merged batch from its first request: drain the queue until
+        max_batch or the window closes."""
         batch = [first]
         total = len(first.queries)
         deadline = time.monotonic() + self.max_wait
@@ -576,18 +593,22 @@ class BatchingDispatcher:
 
     def _loop(self) -> None:
         while True:
-            batch = self._collect()
-            if batch is None:
+            with span("nr::dispatch.wait"):
+                first = self._first()
+            if first is None:
                 return
-            merged: List[str] = []
-            for p in batch:
-                merged.extend(p.queries)
-            n_real = len(merged)
-            for b in self.buckets:       # round up to a bucket
-                if b >= n_real:
-                    merged.extend([""] * (b - n_real))
-                    break
+            with span("nr::dispatch.merge"):
+                batch = self._collect(first)
+                merged: List[str] = []
+                for p in batch:
+                    merged.extend(p.queries)
+                n_real = len(merged)
+                for b in self.buckets:       # round up to a bucket
+                    if b >= n_real:
+                        merged.extend([""] * (b - n_real))
+                        break
             searcher = self.searcher
+            handed = time.perf_counter()
             try:
                 with device_scope(getattr(searcher, "device", None)):
                     hits = searcher.search(merged,
@@ -603,5 +624,6 @@ class BatchingDispatcher:
             finally:
                 self.batches += 1
                 self.requests += len(batch)
+                self.queue_wait_s += sum(handed - p.submitted for p in batch)
                 for p in batch:
                     p.event.set()

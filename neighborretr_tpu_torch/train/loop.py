@@ -40,7 +40,8 @@ core/checkpoint.py), which `--resume` takes by its manifest.
 The bank fill's batches and each epoch's steps come through
 data/device_prefetch.py (two batches in flight: pinned host slots and a
 copy stream on a CUDA device), as the JAX loop's do; `data_wait_s` times
-the host's wait in `next()` on the prefetched iterator.  Batches that were
+the host's wait in `next()` on the prefetched iterator, which a
+`--profile_dir` trace shows as the span `nr::loader.wait`.  Batches that were
 prefetched but not consumed when a run stops are not counted: a resume
 skips the steps taken.  Under train.bank_placement / optim.moments_placement
 "host" the bank and the moments are placed in pinned host memory wherever
@@ -65,6 +66,7 @@ from ..data.loader import BatchLoader
 from ..models import weights_io
 from ..parallel import mesh as pmesh
 from ..utils.logging import JsonlMetricsWriter, MetricLogger, setup_logger
+from ..utils.spans import span
 from . import bertadam
 from . import memory_bank as mb
 from .evaluate import evaluate
@@ -403,7 +405,8 @@ def _train_epochs(cfg, state: TrainState, tracker, guard, train_loader,
             while True:
                 t0 = time.perf_counter()
                 try:
-                    b = next(it_)
+                    with span("nr::loader.wait"):
+                        b = next(it_)
                 except StopIteration:
                     return
                 data_wait[0] += time.perf_counter() - t0

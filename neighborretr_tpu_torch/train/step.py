@@ -55,6 +55,10 @@ from the same state, batch, noise and bank under autograd's anomaly mode
 to name the op (the parameters, moments and bank are left as they were);
 then a parameter or moment it leaves.  A clean step runs no anomaly mode:
 three fused finiteness reductions and their three reads.
+
+While a profile records, the step runs inside the span `nr::step` and its
+phases inside `nr::step.towers`, `.losses`, `.backward` and `.update`
+(utils/spans.py).
 """
 
 from __future__ import annotations
@@ -73,6 +77,7 @@ from ..ops.device_augment import augment_batch
 from ..parallel import mesh as pmesh
 from ..parallel import pipeline
 from ..utils import host_memory
+from ..utils.spans import span
 from . import bertadam
 from .memory_bank import MemoryBank, bank_to_memory, fifo_update, write_slice
 
@@ -287,16 +292,29 @@ def compute_losses(model: M.NeighborRetr, cfg: Config,
     otherwise the towers run here, in `train.micro_batches` slices.  With a
     data group, `batch` and `features` are this rank's rows and are
     gathered (differentiably) before the loss: the gathered form."""
-    mcfg, lcfg = cfg.model, cfg.loss
     if features is not None:
         text_feat, video_feat = features
-    elif cfg.train.micro_batches > 1:
-        text_feat, video_feat = _encode_microbatches(
-            model, batch, cfg.train.micro_batches, kernels)
     else:
-        text_feat, video_feat = model.get_text_video_feat(
-            batch["text_ids"], batch["text_mask"], batch["video"],
-            batch["video_mask"], kernels)
+        with span("nr::step.towers"):
+            if cfg.train.micro_batches > 1:
+                text_feat, video_feat = _encode_microbatches(
+                    model, batch, cfg.train.micro_batches, kernels)
+            else:
+                text_feat, video_feat = model.get_text_video_feat(
+                    batch["text_ids"], batch["text_mask"], batch["video"],
+                    batch["video_mask"], kernels)
+    with span("nr::step.losses"):
+        return _losses(model, cfg, batch, bank, noise, kernels, text_feat,
+                       video_feat, mesh)
+
+
+def _losses(model: M.NeighborRetr, cfg: Config,
+            batch: Dict[str, torch.Tensor], bank: MemoryBank, noise,
+            kernels: bool, text_feat, video_feat,
+            mesh: Optional[pmesh.DataGroup]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """`compute_losses` past the towers, from this rank's features."""
+    mcfg, lcfg = cfg.model, cfg.loss
     t_mask = batch["text_mask"].float()
     v_mask = batch["video_mask"].float()
     if mesh is not None:
@@ -368,7 +386,7 @@ def _microbatched_backward(model, cfg: Config, batch, bank: MemoryBank, noise,
     (summed over ranks), as in the form without micro-batches.  Returns
     aux."""
     n = cfg.train.micro_batches
-    with torch.no_grad():
+    with torch.no_grad(), span("nr::step.towers"):
         feats = _encode_microbatches(model, batch, n, kernels)
     leaves = tuple(f.requires_grad_(True) for f in feats)
     total, aux = model(lambda m: compute_losses(
@@ -397,18 +415,24 @@ def pipeline_context(cfg: Config, mesh: Optional[pmesh.DataGroup]
 def _backward(model, cfg: Config, batch, bank: MemoryBank, noise,
               kernels: bool, mesh) -> Dict[str, torch.Tensor]:
     """The losses and their backward on the step's form (the explicit
-    row-sharded one, GradCache micro-batches, or one pass) → aux."""
+    row-sharded one, GradCache micro-batches, or one pass) → aux.  The
+    explicit form's towers span nests inside its losses span, GradCache's
+    towers and losses spans inside its backward span."""
     if mesh is not None and mesh.world > 1 and cfg.train.explicit_spmd:
         from ..parallel.spmd import compute_losses_spmd
-        total, aux = model(lambda m: compute_losses_spmd(
-            m, cfg, batch, bank, noise, mesh, kernels, cfg.train.data_axis))
+        with span("nr::step.losses"):
+            total, aux = model(lambda m: compute_losses_spmd(
+                m, cfg, batch, bank, noise, mesh, kernels,
+                cfg.train.data_axis))
     elif cfg.train.micro_batches > 1:
-        return _microbatched_backward(model, cfg, batch, bank, noise,
-                                      kernels, mesh)
+        with span("nr::step.backward"):
+            return _microbatched_backward(model, cfg, batch, bank, noise,
+                                          kernels, mesh)
     else:
         total, aux = model(lambda m: compute_losses(
             m, cfg, batch, bank, noise, kernels, mesh=mesh))
-    total.backward()
+    with span("nr::step.backward"):
+        total.backward()
     return aux
 
 
@@ -427,6 +451,17 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], cfg: Config,
     Updates the model in place and returns the state with the new optimizer
     state, bank and step count, and the metrics (every loss term,
     grad_norm, logit_scale)."""
+    with span("nr::step"):
+        return _train_step(state, batch, cfg, t_total, generator, kernels,
+                           augment_generator, mesh)
+
+
+def _train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                cfg: Config, t_total: int,
+                generator: Optional[torch.Generator], kernels: bool,
+                augment_generator: Optional[torch.Generator],
+                mesh: Optional[pmesh.DataGroup]
+                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     model = state.model
     _check_supported(cfg, model)
     if mesh is not None and not mesh.collective:
@@ -461,8 +496,9 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], cfg: Config,
         with pipeline.activated(pipeline_context(cfg, mesh)), \
                 torch.autograd.set_detect_anomaly(anomaly):
             aux = _backward(model, cfg, batch, bank, noise, kernels, mesh)
-        return aux, pmesh.all_reduce_grads(live, mesh or pmesh.DataGroup(),
-                                           placement)
+        with span("nr::step.backward"):
+            return aux, pmesh.all_reduce_grads(
+                live, mesh or pmesh.DataGroup(), placement)
 
     aux, grads = backward()
     if debug:
@@ -481,21 +517,22 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], cfg: Config,
             finally:
                 model.zero_grad(set_to_none=True)
             raise FloatingPointError(f"debug_nans: non-finite value in {bad}")
-    opt = bertadam.bert_adam_update(grads, state.opt, params, cfg.optim,
-                                    t_total, placement)
-    M.clamp_logit_scale(model, cfg.loss.max_logit_scale)
-    if debug:
-        check_finite(_state_leaves(model, opt))
+    with span("nr::step.update"):
+        opt = bertadam.bert_adam_update(grads, state.opt, params, cfg.optim,
+                                        t_total, placement)
+        M.clamp_logit_scale(model, cfg.loss.max_logit_scale)
+        if debug:
+            check_finite(_state_leaves(model, opt))
 
-    idx, t_mask, v_mask = global_rows(batch, mesh)
-    bank = fifo_update(bank, idx, aux.pop("text_feat"),
-                       aux.pop("video_feat"), t_mask, v_mask)
-    if host_bank:
-        bank = bank_to_memory(bank, "host")
-    metrics = dict(aux)
-    metrics["grad_norm"] = bertadam.clip_effective_norm(grads, placement)
-    metrics["logit_scale"] = M.logit_scale(model).detach()
-    model.zero_grad(set_to_none=True)
+        idx, t_mask, v_mask = global_rows(batch, mesh)
+        bank = fifo_update(bank, idx, aux.pop("text_feat"),
+                           aux.pop("video_feat"), t_mask, v_mask)
+        if host_bank:
+            bank = bank_to_memory(bank, "host")
+        metrics = dict(aux)
+        metrics["grad_norm"] = bertadam.clip_effective_norm(grads, placement)
+        metrics["logit_scale"] = M.logit_scale(model).detach()
+        model.zero_grad(set_to_none=True)
     return TrainState(model=model, opt=opt, bank=bank,
                       step=state.step + 1), metrics
 

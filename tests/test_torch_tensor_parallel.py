@@ -336,6 +336,11 @@ def _jax_state_file(path: str):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
+    return C.once_per_session(tmp_path_factory, "tensor_parallel_runs",
+                              lambda: _runs(tmp_path_factory))
+
+
+def _runs(tmp_path_factory):
     work = str(tmp_path_factory.mktemp("tp"))
     init, ref = C.jax_trajectory()
     torch.save(init, os.path.join(work, "init.pt"))

@@ -217,6 +217,24 @@ def init_rank(rank: int, world: int, port: int):
                             world_size=world, rank=rank)
 
 
+def once_per_session(tmp_path_factory, name: str, make):
+    """`make()`'s result, computed once per test session.  Under
+    pytest-xdist a module's tests may run on several workers, each of which
+    would build the module's fixtures again; here the first worker to ask
+    computes it under a file lock and saves it beside the workers'
+    temporary directories, and the others load what it saved."""
+    if os.environ.get("PYTEST_XDIST_WORKER") is None:
+        return make()
+    import filelock
+    path = tmp_path_factory.getbasetemp().parent / f"{name}.pt"
+    with filelock.FileLock(f"{path}.lock"):
+        if path.exists():
+            return torch.load(path, weights_only=False)
+        out = make()
+        torch.save(out, path)
+        return out
+
+
 def load_ranks(work: str, world: int):
     return [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
             for r in range(world)]

@@ -24,7 +24,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.config import ModelConfig
-from ..ops.similarity import (fused_interaction_mean,
+from ..ops.similarity import (PreparedCorpus, _normalize_masked,
+                              fused_interaction_mean,
                               fused_interaction_similarity, global_similarity,
                               interaction_similarity)
 from ..ops.similarity_blocked import fused_interaction_similarity_blocked
@@ -211,27 +212,65 @@ def similarity_dtype(cfg: ModelConfig) -> str:
 
 
 def local_similarity(model: NeighborRetr, t_feat, v_feat, t_mask, v_mask,
-                     kernels: bool = True,
-                     sim_dtype: str = "float32") -> torch.Tensor:
+                     kernels: bool = True, sim_dtype: str = "float32",
+                     corpus: Optional[PreparedCorpus] = None) -> torch.Tensor:
     """The reference's local_level: S [A, B] with v2t = S.T.  Long-token
     shapes (T·V >= 2048, the 64-word / 64-frame recipes) take the blocked
     form, which never builds the whole [A, T, B, V] logits: its kernels on
     a CUDA tensor, its plain chunked version on the CPU or under
     `kernels=False`.  sim_dtype: the products' operand dtype (↔ the JAX
     package's, passed to its kernels): "bfloat16" on the training path,
-    float32 in the eval and serving."""
+    float32 in the eval and serving.  corpus: the video side prepared once
+    (`prepare_corpus`, the Searcher's index) in place of v_feat and v_mask,
+    which are then not read: only the text side's weights and
+    normalisation run here."""
     with span("nr::token_weights"):
         tw = token_weights(model.text_weight_fc, t_feat, t_mask)
-        vw = token_weights(model.video_weight_fc, v_feat, v_mask)
-    T, V = t_feat.shape[1], v_feat.shape[1]
+        vw = (token_weights(model.video_weight_fc, v_feat, v_mask)
+              if corpus is None else None)
+    T = t_feat.shape[1]
+    V = (v_feat if corpus is None else corpus.feat).shape[1]
     if T * V >= 2048:
         return fused_interaction_similarity_blocked(
             t_feat, v_feat, t_mask, v_mask, tw, vw, kernels=kernels,
-            sim_dtype=sim_dtype)
-    if kernels or sim_dtype != "float32":
+            sim_dtype=sim_dtype, corpus=corpus)
+    if kernels or sim_dtype != "float32" or corpus is not None:
         return fused_interaction_similarity(t_feat, v_feat, t_mask, v_mask,
-                                            tw, vw, kernels, sim_dtype)
+                                            tw, vw, kernels, sim_dtype,
+                                            corpus=corpus)
     return interaction_similarity(t_feat, v_feat, t_mask, v_mask, tw, vw)
+
+
+# videos a slab of `prepare_corpus`: the weight MLP's hidden activation is
+# 16,384 × V × 2E fp32 (0.8 GB at V = 12, E = 512), the whole corpus's 9.8
+# GB at 200,000 videos
+CORPUS_SLAB_ROWS = 16384
+
+
+@torch.no_grad()
+def prepare_corpus(model: NeighborRetr, v_feat: torch.Tensor,
+                   v_mask: torch.Tensor,
+                   v_scale: Optional[torch.Tensor] = None) -> PreparedCorpus:
+    """The video side of `local_similarity` for a corpus fixed across
+    calls, made once: the `video_weight_fc` softmax token weights and the
+    normalised, masked fp32 features: what every call would make of v_feat
+    / v_mask, by the same operations in the same precision.  v_feat [N, V, D] in its stored dtype (fp16, or
+    int8 times the per-token `v_scale` [N, V]) is widened to fp32 a slab
+    of `CORPUS_SLAB_ROWS` videos at a time, so only the [N, V, D] fp32
+    result and one slab's temporaries are held."""
+    rows = CORPUS_SLAB_ROWS
+    feat = torch.empty(v_feat.shape, dtype=torch.float32,
+                       device=v_feat.device)
+    weight = torch.empty(v_mask.shape, dtype=torch.float32,
+                         device=v_mask.device)
+    for s in range(0, v_feat.shape[0], rows):
+        x = v_feat[s:s + rows].float()
+        if v_scale is not None:
+            x = x * v_scale[s:s + rows].float()[..., None]
+        m = v_mask[s:s + rows]
+        weight[s:s + rows] = token_weights(model.video_weight_fc, x, m)
+        feat[s:s + rows] = _normalize_masked(x, m)
+    return PreparedCorpus(feat, weight)
 
 
 def bank_fusion_supported(cfg: ModelConfig) -> bool:

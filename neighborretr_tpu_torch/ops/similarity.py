@@ -61,6 +61,7 @@ routes by shape.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -397,7 +398,8 @@ def gather_launches(lib: str = _LIB) -> int:
 
 def _normalize_masked(x, mask, eps: float = 1e-12) -> torch.Tensor:
     """l2_normalize(x) * mask[..., None] in two passes over x (a norm, then
-    one scaling): the video side is the whole corpus on every request."""
+    one scaling).  A fixed corpus's video side is made once
+    (`PreparedCorpus`), not on every request."""
     x = x.float()
     scale = mask.float() / torch.linalg.vector_norm(x, dim=-1).clamp_min(eps)
     return (x * scale[..., None]).contiguous()
@@ -414,20 +416,35 @@ def _check_cuda(name, t, dtype, shape):
         raise ValueError(f"{name} must be contiguous")
 
 
+class PreparedCorpus(NamedTuple):
+    """A video side already in the form `_prepare` makes: `feat` [B, V, D]
+    the normalised, masked fp32 features (`_normalize_masked`), `weight`
+    [B, V] the fp32 softmax token weights.  A corpus fixed across calls
+    (the Searcher's index) is prepared once
+    (models/neighborretr.py::prepare_corpus) and passed as `corpus=` in
+    place of v_feat, v_mask and v_weight, which are then not read."""
+    feat: torch.Tensor
+    weight: torch.Tensor
+
+
 def _prepare(t_feat, v_feat, t_mask, v_mask, t_weight, v_weight,
-             kernels: bool):
+             kernels: bool, corpus: Optional[PreparedCorpus] = None):
     """What the kernels take: masks folded into the normalised fp32
-    features and fp32 weights, contiguous (differentiable).  For a kernel
-    launch also: one CUDA device, T <= 64, V <= 16, D % 32 == 0.  Under
-    bf16 the features are rounded after this (`operands`)."""
+    features and fp32 weights, contiguous (differentiable); the video side
+    taken as it is from `corpus` when given.  For a kernel launch also: one
+    CUDA device, T <= 64, V <= 16, D % 32 == 0.  Under bf16 the features
+    are rounded after this (`operands`)."""
     tn = _normalize_masked(t_feat, t_mask)
-    vn = _normalize_masked(v_feat, v_mask)
+    if corpus is None:
+        vn = _normalize_masked(v_feat, v_mask)
+        vw = v_weight.float().contiguous()
+    else:
+        vn, vw = corpus
     tw = t_weight.float().contiguous()
-    vw = v_weight.float().contiguous()
     if not kernels:
         return tn, vn, tw, vw
-    A, T, D = t_feat.shape
-    B, V, _ = v_feat.shape
+    A, T, D = tn.shape
+    B, V, _ = vn.shape
     if T > 64 or V > 16 or D % 32:
         raise ValueError(
             f"similarity kernel takes T <= 64, V <= 16 and D % 32 == 0; got "
@@ -571,7 +588,9 @@ class _Similarity(torch.autograd.Function):
 
 def fused_interaction_similarity(t_feat, v_feat, t_mask, v_mask, t_weight,
                                  v_weight, kernels: bool = True,
-                                 sim_dtype: str = "float32") -> torch.Tensor:
+                                 sim_dtype: str = "float32",
+                                 corpus: Optional[PreparedCorpus] = None
+                                 ) -> torch.Tensor:
     """Similarity [A, B] in fp32, differentiable in features and weights.
     CPU tensors take the plain version; CUDA tensors launch the kernel (fp32
     inputs and outputs, the products in a 3xTF32 split on the tensor cores,
@@ -583,15 +602,16 @@ def fused_interaction_similarity(t_feat, v_feat, t_mask, v_mask, t_weight,
     `kernels=False` is the reference the backward kernel is held to, on
     any device: the plain forward on the same prepared inputs with the
     written-out first-index backward.  The eval and serving call it in
-    float32."""
+    float32.  `corpus`: the video side prepared once (`PreparedCorpus`);
+    on the CPU it takes the plain version on prepared inputs."""
     check_sim_dtype(sim_dtype)
     if kernels and not t_feat.is_cuda:
-        if sim_dtype == "float32":
+        if sim_dtype == "float32" and corpus is None:
             return interaction_similarity(t_feat, v_feat, t_mask, v_mask,
                                           t_weight, v_weight)
         kernels = False
     prep = _prepare(t_feat, v_feat, t_mask, v_mask, t_weight, v_weight,
-                    kernels)
+                    kernels, corpus)
     if _wants_grad(*prep):
         return _Similarity.apply(*prep, None, kernels, sim_dtype)
     return _similarity_nograd(*prep, None, kernels, sim_dtype)

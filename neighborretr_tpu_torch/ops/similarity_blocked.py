@@ -44,6 +44,7 @@ kernel's `(d1 + d2).astype(dot_dtype)`).  Kernel limits: T, V <= 64, D %
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -230,17 +231,20 @@ class _BlockedSimilarity(torch.autograd.Function):
 def fused_interaction_similarity_blocked(t_feat, v_feat, t_mask, v_mask,
                                          t_weight, v_weight,
                                          kernels: bool = True,
-                                         sim_dtype: str = "float32"
+                                         sim_dtype: str = "float32",
+                                         corpus: Optional[
+                                             S.PreparedCorpus] = None
                                          ) -> torch.Tensor:
     """Similarity [A, B] in fp32 at long-token shapes, differentiable in
     features and weights, the products in `sim_dtype` (ops/similarity.py).
     CUDA tensors launch the kernels (or raise); CPU tensors, and any tensor
     under `kernels=False`, take the plain chunked version with the
-    written-out backward."""
+    written-out backward.  `corpus`: the video side prepared once
+    (`S.PreparedCorpus`) in place of v_feat, v_mask and v_weight."""
     S.check_sim_dtype(sim_dtype)
     kernels = kernels and t_feat.is_cuda
     tn, vn, tw, vw = S._prepare(t_feat, v_feat, t_mask, v_mask, t_weight,
-                                v_weight, False)
+                                v_weight, False, corpus)
     if kernels:
         _check_kernel_inputs(tn, vn, tw, vw)
     if S._wants_grad(tn, vn, tw, vw):

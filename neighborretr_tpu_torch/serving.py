@@ -10,7 +10,8 @@ either package loads and verifies in the other:
   v_mask    [N,F]    frame validity
   meta      json     model config + weights fingerprint
 
-A `Searcher` keeps the corpus on the model's device across requests;
+A `Searcher` keeps the corpus on the model's device across requests,
+prepared for the similarity once (`index_corpus`);
 `BatchingDispatcher` merges concurrent requests into one device call, and
 `cli/serve.py` puts both behind HTTP with a live `/reload`.
 
@@ -43,7 +44,9 @@ from .data.text import encode_caption
 
 from .eval import (encode_text_batch, encode_video_batch,
                    similarity_matrix_device)
-from .models.neighborretr import NeighborRetr, similarity_kernels
+from .models.neighborretr import (NeighborRetr, prepare_corpus,
+                                  similarity_kernels)
+from .ops.similarity import PreparedCorpus
 from .utils.spans import span
 
 # the same three leaves, under the JAX package's path names and in its
@@ -127,14 +130,17 @@ def staged_device_put(a: np.ndarray, rows: int, device,
     return buf
 
 
-def index_video_features(index: Dict[str, np.ndarray], device,
-                         staged_rows: int = 0,
-                         yield_fn=None) -> torch.Tensor:
-    """fp32 device view of the stored features.  The upload crosses in the
-    stored dtype (fp16/int8) and widens on the device; with staged_rows > 0
-    it goes up in row slabs (`staged_device_put`), on a CUDA device on a
-    side stream that the current stream then waits for, so work queued
-    meanwhile on the current stream does not wait behind the copies."""
+def index_corpus(model: NeighborRetr, index: Dict[str, np.ndarray],
+                 device, staged_rows: int = 0,
+                 yield_fn=None) -> PreparedCorpus:
+    """The index rows as the similarity takes them, on `device`, prepared
+    once with `model`'s weights (`prepare_corpus`: token weights and
+    normalised, masked fp32 features).  The upload crosses in the stored
+    dtype (fp16/int8) and widens on the device; with staged_rows > 0 it
+    goes up in row slabs (`staged_device_put`), and on a CUDA device the
+    upload and the preparation run on a side stream that the current
+    stream then waits for, so work queued meanwhile on the current stream
+    does not wait behind them."""
     dev = torch.device(device)
     side = (torch.cuda.Stream(dev) if staged_rows > 0 and dev.type == "cuda"
             else None)
@@ -144,17 +150,18 @@ def index_video_features(index: Dict[str, np.ndarray], device,
             contextlib.nullcontext():
         q = staged_device_put(np.asarray(index["v_feat"]), staged_rows, dev,
                               yield_fn)
-        if "v_scale" in index:
-            s = torch.as_tensor(np.asarray(index["v_scale"]), device=dev)
-            feat = q.float() * s.float()[..., None]
-        else:
-            feat = q.float()
+        scale = (torch.as_tensor(np.asarray(index["v_scale"]), device=dev)
+                 if "v_scale" in index else None)
+        mask = torch.as_tensor(np.asarray(index["v_mask"], np.float32),
+                               device=dev)
+        corpus = prepare_corpus(model, q, mask, scale)
     if side is not None:
         main = torch.cuda.current_stream(dev)
         main.wait_stream(side)
         # allocated on the side stream, read on the main one from now on
-        feat.record_stream(main)
-    return feat
+        for t in corpus:
+            t.record_stream(main)
+    return corpus
 
 
 def model_replicas(model: NeighborRetr, devices) -> List[NeighborRetr]:
@@ -336,11 +343,18 @@ def masked_topk(sim: torch.Tensor, kk: int, n_valid: int):
 
 
 class Searcher:
-    """Query engine over a loaded index: the corpus features live on the
-    model's device across requests, and query batches pad up to a multiple
+    """Query engine over a loaded index.  The corpus side of the similarity
+    is prepared once, at construction (`index_corpus`): the Searcher holds
+    the corpus's normalised, masked fp32 features and its video token
+    weights on the model's device, in place of the raw features, for its
+    whole life (the index and the weights are fixed; the daemon's /reload
+    builds a new Searcher).  A call then runs the tokeniser, the text
+    tower, the text side's token weights and normalisation, the
+    similarity kernel and the top-k.  Query batches pad up to a multiple
     of `query_batch` ("" queries, rows dropped).  staged_upload_rows > 0
-    uploads the corpus in row slabs on a side stream (the live reload
-    path, `index_video_features`).
+    uploads and prepares the corpus in row slabs on a side stream (the
+    live reload path).  `corpus_preparations` counts the shard corpora
+    prepared: the shard count after construction, and no call adds to it.
 
     devices: shard the corpus over these devices (↔ the JAX Searcher's
     mesh): N rows padded with copies of row 0 up to a multiple of the
@@ -367,6 +381,7 @@ class Searcher:
         self.model = replicas[0]
         self.device = self.model.clip.logit_scale.device
         self.calls = 0           # device calls made (text encode + K2)
+        self.corpus_preparations = 0
         n, S = len(self.video_ids), len(replicas)
         pad = (-n) % S
         rows = {k: index[k] for k in ("v_feat", "v_scale") if k in index}
@@ -375,16 +390,16 @@ class Searcher:
             rows = {k: np.concatenate([v, np.repeat(v[:1], pad, 0)])
                     for k, v in rows.items()}
         per = (n + pad) // S
-        # (model, features, mask, first corpus row) per shard
+        # (model, prepared corpus, first corpus row) per shard
         self._shards = []
         for i, m in enumerate(replicas):
             dev = m.clip.logit_scale.device
             part = {k: v[i * per:(i + 1) * per] for k, v in rows.items()}
             with device_scope(dev):
-                feat = index_video_features(part, dev,
-                                            staged_rows=staged_upload_rows)
-                mask = torch.as_tensor(part["v_mask"], device=dev)
-            self._shards.append((m, feat, mask, i * per))
+                corpus = index_corpus(m, part, dev,
+                                      staged_rows=staged_upload_rows)
+            self.corpus_preparations += 1
+            self._shards.append((m, corpus, i * per))
 
     def __len__(self) -> int:
         return len(self.video_ids)
@@ -408,12 +423,12 @@ class Searcher:
         kernels = similarity_kernels(self.cfg.model, self.kernels)
         sims = []
         with span("nr::search.similarity"):
-            for m, feat, mask, _ in self._shards:
-                dev = feat.device
+            for m, corpus, _ in self._shards:
+                dev = corpus.feat.device
                 with device_scope(dev):
                     sims.append(similarity_matrix_device(
-                        m, t_feat.to(dev), t_mask, feat, mask,
-                        kernels=kernels))
+                        m, t_feat.to(dev), t_mask, None, None,
+                        kernels=kernels, corpus=corpus))
         return sims
 
     def similarities(self, queries: Sequence[str]) -> np.ndarray:
@@ -456,7 +471,7 @@ class Searcher:
         ranked out) with its column offset, merged on the first device."""
         n_valid = len(self.video_ids)
         vals, idx = [], []
-        for sim, (_, _, _, first) in zip(sims, self._shards):
+        for sim, (_, _, first) in zip(sims, self._shards):
             valid = min(max(n_valid - first, 0), sim.shape[1])
             v, i = masked_topk(sim, min(k, sim.shape[1]), valid)
             vals.append(v.to(self.device))

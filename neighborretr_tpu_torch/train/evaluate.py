@@ -34,6 +34,7 @@ import torch
 from ..core.config import Config
 from ..models.neighborretr import (NeighborRetr, local_similarity,
                                    similarity_kernels)
+from ..ops.similarity import PreparedCorpus
 from ..parallel import mesh as pmesh
 from . import metrics as M
 
@@ -68,24 +69,30 @@ def encode_video_batch(model: NeighborRetr, video, video_mask,
 def similarity_matrix_device(model: NeighborRetr, t_feat, t_mask, v_feat,
                              v_mask, block: int = 128,
                              max_logits_bytes: int = 2 * 1024 ** 3,
-                             kernels: bool = True) -> torch.Tensor:
+                             kernels: bool = True,
+                             corpus: Optional[PreparedCorpus] = None
+                             ) -> torch.Tensor:
     """Full [N_text, N_video] similarity on the model's device.  The kernel
     never materialises the [N, T, N, V] logits, so a CUDA run takes the
     whole matrix in one call; the plain version is row-blocked when its
-    logits would exceed `max_logits_bytes`."""
+    logits would exceed `max_logits_bytes`.  corpus: the video side
+    prepared once (`prepare_corpus`; the Searcher's), passed with v_feat
+    and v_mask None."""
     dev = _device(model)
     t_feat, t_mask, v_feat, v_mask = (
+        None if a is None else
         (a if torch.is_tensor(a) else torch.tensor(np.asarray(a)))
         .to(dev).float()
         for a in (t_feat, t_mask, v_feat, v_mask))
     n_t, T = t_feat.shape[:2]
-    logits_bytes = n_t * T * v_feat.shape[0] * v_feat.shape[1] * 4
+    videos = v_feat if corpus is None else corpus.feat
+    logits_bytes = n_t * T * videos.shape[0] * videos.shape[1] * 4
 
     # float32 whatever model.sim_dtype says: sim_dtype is the training
     # path's operand dtype only, as in the JAX package's eval
     def rows(m, s, e):
         return local_similarity(m, t_feat[s:e], v_feat, t_mask[s:e], v_mask,
-                                kernels, sim_dtype="float32")
+                                kernels, sim_dtype="float32", corpus=corpus)
 
     if (kernels and dev.type == "cuda") or logits_bytes <= max_logits_bytes:
         return model(lambda m: rows(m, 0, n_t))

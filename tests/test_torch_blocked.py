@@ -316,6 +316,23 @@ def test_local_similarity_routes_long_tokens_to_the_blocked_form():
         rtol=1e-5, atol=1e-6)
 
 
+def test_local_similarity_on_a_prepared_corpus_at_long_tokens(monkeypatch):
+    """The blocked form on a corpus prepared once (`prepare_corpus`, in
+    slabs of 2 videos) gives the per-call form's S within 1e-6."""
+    from neighborretr_tpu_torch.models import neighborretr as M
+    m = tc.ModelConfig.tiny(max_words=64, max_frames=32)
+    model = W.init_model(m, 0)
+    tf, vf, tm, vm = [torch.tensor(a) for a in make_inputs(
+        3, 3, 5, 64, 32, m.width, True)[:4]]
+    monkeypatch.setattr(M, "CORPUS_SLAB_ROWS", 2)
+    corpus = M.prepare_corpus(model, vf, vm)
+    got = M.local_similarity(model, tf, None, tm, None, corpus=corpus)
+    np.testing.assert_allclose(
+        got.detach().numpy(),
+        M.local_similarity(model, tf, vf, tm, vm).detach().numpy(),
+        rtol=0, atol=1e-6)
+
+
 def micro_config(micro_batches, max_words=8, max_frames=4):
     model = tc.ModelConfig.tiny(max_words=max_words, max_frames=max_frames)
     return tc.Config(

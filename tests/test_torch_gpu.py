@@ -1411,9 +1411,53 @@ def test_staged_upload_on_card_equals_one_copy(cuda, rows):
         one = serving.Searcher(model, cfg, idx, _Tok(), query_batch=4)
         staged = serving.Searcher(model, cfg, idx, _Tok(), query_batch=4,
                                   staged_upload_rows=rows)
-        assert torch.equal(one._shards[0][1], staged._shards[0][1])
+        assert all(torch.equal(a, b) for a, b in
+                   zip(one._shards[0][1], staged._shards[0][1]))
         np.testing.assert_array_equal(one.similarities(SERVE_QUERIES),
                                       staged.similarities(SERVE_QUERIES))
+
+
+def test_prepared_corpus_on_card_matches_the_per_call_path(cuda,
+                                                           monkeypatch):
+    """A Searcher over 10,000 videos, 64 queries: the corpus prepared once
+    scores as `similarity_matrix_device` on the raw rows (the per-call
+    path) within 1e-6, with the same top-10 ids; K2 once a call, one
+    preparation in all; with `evaluate.local_similarity` lowered to
+    bfloat16 as benchmark/controls/readings.py lowers it, the call reaches
+    K2's bf16 entry."""
+    from neighborretr_tpu_torch import serving
+    from neighborretr_tpu_torch.train import evaluate as EV
+    cfg, model, index = _serving_setup(cuda, n_videos=10_000)
+    searcher = serving.Searcher(model, cfg, index, _Tok(), query_batch=8)
+    queries = [f"{SERVE_QUERIES[i % 8]} take {i}" for i in range(64)]
+    t_feat, t_mask = serving.encode_queries(model, cfg, _Tok(), queries)
+    want = EV.similarity_matrix_device(
+        model, t_feat, t_mask, torch.as_tensor(index["v_feat"], device=cuda),
+        index["v_mask"])
+    before = S.fused_interaction_similarity.launches
+    hits = searcher.search(queries, topk=10)
+    got = searcher.similarities(queries)
+    torch.cuda.synchronize()
+    assert S.fused_interaction_similarity.launches == before + 2
+    assert searcher.corpus_preparations == 1
+    np.testing.assert_allclose(got, want.cpu().numpy(), atol=1e-6, rtol=0)
+    top = torch.topk(want, 10, dim=1).indices.cpu().numpy()
+    assert [[v for v, _ in row] for row in hits] == \
+        [[f"v{j}" for j in row] for row in top]
+
+    orig = EV.local_similarity
+
+    def lowered(*args, **kwargs):
+        kwargs["sim_dtype"] = "bfloat16"
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(EV, "local_similarity", lowered)
+    bf16 = S.fused_interaction_similarity.launches_bf16
+    low = searcher.similarities(queries)
+    torch.cuda.synchronize()
+    assert S.fused_interaction_similarity.launches_bf16 == bf16 + 1
+    assert 0 < np.abs(low - got).max() < 1e-2
+    assert searcher.corpus_preparations == 1
 
 
 # serving scores on the card: a query's features may depend on the merged
@@ -1528,6 +1572,7 @@ def test_sharded_searcher_on_card_equals_one_shard(cuda):
     before = S.fused_interaction_similarity.launches
     hits = two.search(SERVE_QUERIES, topk=5)
     assert S.fused_interaction_similarity.launches - before == 2
+    assert (one.corpus_preparations, two.corpus_preparations) == (1, 2)
     np.testing.assert_array_equal(two.similarities(SERVE_QUERIES),
                                   one.similarities(SERVE_QUERIES))
     assert hits == one.search(SERVE_QUERIES, topk=5)

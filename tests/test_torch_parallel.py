@@ -539,13 +539,15 @@ def test_sharded_index_and_searcher_match_jax_mesh():
         two = pserving.Searcher(model, tcfg, idx, _Tok(), query_batch=2,
                                 devices=["cpu", "cpu"],
                                 staged_upload_rows=2)
-        assert len(two._shards) == 2 and two._shards[1][1].shape[0] == 6
+        assert len(two._shards) == 2 and two._shards[1][1].feat.shape[0] == 6
+        assert (one.corpus_preparations, two.corpus_preparations) == (1, 2)
         np.testing.assert_array_equal(two.similarities(queries),
                                       one.similarities(queries))
         np.testing.assert_allclose(two.similarities(queries),
                                    ref.similarities(queries), atol=1e-4)
         hits, jhits = two.search(queries, topk=5), ref.search(queries, topk=5)
         assert hits == one.search(queries, topk=5)
+        assert (one.corpus_preparations, two.corpus_preparations) == (1, 2)
         for h, j in zip(hits, jhits):
             assert [v for v, _ in h] == [v for v, _ in j]
             np.testing.assert_allclose([s for _, s in h], [s for _, s in j],

@@ -144,6 +144,66 @@ def test_search_pads_queries_and_buckets_topk(setup):
     assert s.similarities([]).shape == (0, N)
 
 
+def _raw_similarity(model, index, tok, queries, query_batch):
+    """similarity_matrix_device on the index's raw rows, widened as the
+    Searcher widens them, for the queries padded as it pads them."""
+    import torch
+    from neighborretr_tpu_torch.train import evaluate as pev
+    padded = list(queries) + [""] * ((-len(queries)) % query_batch)
+    t_feat, t_mask = pserving.encode_queries(model, PCFG, tok, padded)
+    v = torch.as_tensor(index["v_feat"]).float()
+    if "v_scale" in index:
+        v = v * torch.as_tensor(index["v_scale"]).float()[..., None]
+    return pev.similarity_matrix_device(model, t_feat, t_mask, v,
+                                        index["v_mask"])[:len(queries)]
+
+
+@pytest.mark.parametrize("query_batch", [5, 4])
+@pytest.mark.parametrize("feature_dtype", ["float16", "int8"])
+def test_prepared_corpus_matches_the_raw_index(setup, monkeypatch,
+                                               feature_dtype, query_batch):
+    """The Searcher's corpus, prepared once (in slabs of 7 videos, the last
+    one short), scores as similarity_matrix_device on the raw index does
+    (within 1e-6) and returns its top-k ids, fp16 and int8, a query batch
+    that pads (4: 5 queries → 8 rows) and one that does not."""
+    import torch
+    from neighborretr_tpu_torch.models import neighborretr as pm
+    *_, model, _, _, p_index = setup
+    monkeypatch.setattr(pm, "CORPUS_SLAB_ROWS", 7)
+    index = dict(p_index)
+    if feature_dtype == "int8":
+        index["v_feat"], index["v_scale"] = pserving.quantize_features(
+            p_index["v_feat"].astype(np.float32))
+    tok = StubTokenizer()
+    s = pserving.Searcher(model, PCFG, index, tok, query_batch=query_batch)
+    want = _raw_similarity(model, index, tok, QUERIES, query_batch)
+    got = s.similarities(QUERIES)
+    np.testing.assert_allclose(got, want.numpy(), atol=1e-6, rtol=0)
+    top = torch.topk(want, 5, dim=1)
+    for row, ids, vals in zip(s.search(QUERIES, topk=5), top.indices,
+                              top.values):
+        assert [v for v, _ in row] == [s.video_ids[int(j)] for j in ids]
+        np.testing.assert_allclose([sc for _, sc in row], vals.numpy(),
+                                   atol=1e-6, rtol=0)
+
+
+def test_corpus_is_prepared_once(setup):
+    """One preparation at construction; searches and similarities() reuse
+    it, and the Searcher holds the prepared corpus, not the raw rows."""
+    *_, model, _, _, p_index = setup
+    s = pserving.Searcher(model, PCFG, p_index, StubTokenizer(),
+                          query_batch=4)
+    assert s.corpus_preparations == 1
+    for n in (1, 3, 5):
+        s.search(QUERIES[:n], topk=3)
+    s.similarities(QUERIES)
+    assert s.corpus_preparations == 1 and s.calls == 4
+    _, corpus, _ = s._shards[0]
+    norms = np.linalg.norm(corpus.feat.numpy(), axis=-1)
+    np.testing.assert_allclose(norms, p_index["v_mask"], atol=1e-6)
+    np.testing.assert_allclose(corpus.weight.sum(-1).numpy(), 1, atol=1e-6)
+
+
 def test_check_meta_rejects_other_weights(setup):
     cfg, _, _, _, _, _, p_index = setup
     other = W.init_model(PCFG.model, seed=5)

@@ -1,17 +1,20 @@
 """Model FLOP of one NeighborRetr training step, frozen.
 
-A copy of the analytic count the program keeps (the same formulas over a
-plain dict of sizes): each matrix product is 2·M·N·K; forward + backward is
-3x the forward (dW and dx each 2·M·N·K); elementwise work, softmax and
-LayerNorm are left out; no rematerialisation is counted, so a step that
-runs a tower's forward twice does no more model work; the frozen patch
-embedding runs forward only.  The CTM term is rough (its small matrices
-only).  At the MSR-VTT recipe's shapes, batch 96 and a bank of 384, it gives
-30.64 TFLOP a step.
+A copy of the analytic count the program keeps, over a plain dict of sizes
+(the same integers wherever heads are 64 wide and E is 512, as the
+program's count assumes): each matrix product is 2·M·N·K; forward +
+backward is 3x the forward (dW and dx each 2·M·N·K); elementwise work,
+softmax and LayerNorm are left out; no rematerialisation is counted, so a
+step that runs a tower's forward twice does no more model work; the frozen
+patch embedding runs forward only.  The CTM term is rough (its small
+matrices only).  At the MSR-VTT recipe's shapes, batch 96 and a bank of
+384, it gives 30.64 TFLOP a step.
 
 `sizes`: embed_dim, image_resolution, vision_layers, vision_width,
-vision_patch_size, transformer_width, transformer_heads, transformer_layers,
-temporal_layers, max_words, max_frames, batch, bank.
+vision_patch_size, transformer_width, transformer_layers, temporal_layers,
+max_words, max_frames, batch, bank.  An attention core is 2·2·N·L²·D a
+layer at the tower's width D, whatever its heads; the temporal tower's
+width is the embedding width E.
 """
 
 from __future__ import annotations
@@ -25,21 +28,21 @@ def step_phase_flops(s: dict) -> dict:
     P = s["vision_patch_size"]
     NF = B * F
     Lv = (R // P) ** 2 + 1
-    Dv, Hv = s["vision_width"], s["vision_width"] // 64
+    Dv = s["vision_width"]
     Mv = NF * Lv
     vis_attn = s["vision_layers"] * (
-        2 * Mv * Dv * 3 * Dv + 2 * (2 * NF * Hv * Lv * Lv * 64)
+        2 * Mv * Dv * 3 * Dv + 2 * (2 * NF * Lv * Lv * Dv)
         + 2 * Mv * Dv * Dv)
     vis_mlp = s["vision_layers"] * 2 * (2 * Mv * Dv * 4 * Dv)
     stem = 2 * NF * (Lv - 1) * (P ** 2 * 3) * Dv
     vis_proj = 2 * NF * Dv * E
     Mt = B * W
-    Dt, Ht = s["transformer_width"], s["transformer_heads"]
+    Dt = s["transformer_width"]
     txt = s["transformer_layers"] * (
-        2 * Mt * Dt * 3 * Dt + 2 * (2 * B * Ht * W * W * 64)
+        2 * Mt * Dt * 3 * Dt + 2 * (2 * B * W * W * Dt)
         + 2 * Mt * Dt * Dt + 2 * (2 * Mt * Dt * 4 * Dt)) + 2 * Mt * Dt * E
     tmp = s["temporal_layers"] * (
-        2 * B * F * E * 3 * E + 2 * (2 * B * 8 * F * F * 64)
+        2 * B * F * E * 3 * E + 2 * (2 * B * F * F * E)
         + 2 * B * F * E * E + 2 * (2 * B * F * E * 4 * E))
     sim_bb = 2 * (2 * B * B * W * F * E)
     sim_bank = 2 * (2 * B * bank * W * F * E)

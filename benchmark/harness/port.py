@@ -24,12 +24,35 @@ def reference_cfg(files: dict) -> dict:
             "train": {"mb_batch": t.get("mb_batch", 0)}}
 
 
+def program_clip(clip: dict):
+    """The program's `ClipConfig` for a configuration file's `clip` block.
+    A key that is a dataclass field of `ClipConfig` is passed to it; a key
+    the program has only as a derived attribute (a property, such as
+    `vision_heads`) must equal that attribute; a key it does not know at all
+    raises.  So a configuration the program cannot express fails its run by
+    name instead of running as a different model."""
+    from neighborretr_tpu_torch.core.config import ClipConfig
+    fields = {f.name for f in dataclasses.fields(ClipConfig)}
+    out = ClipConfig(**{k: v for k, v in clip.items() if k in fields})
+    for k, v in clip.items():
+        if k in fields:
+            continue
+        if not isinstance(getattr(ClipConfig, k, None), property):
+            raise core.BenchError(f"clip key {k!r} = {v!r}: the program's "
+                                  "ClipConfig has no such setting")
+        if getattr(out, k) != v:
+            raise core.BenchError(f"clip key {k!r} = {v!r}, but the program's "
+                                  f"ClipConfig derives {k} = "
+                                  f"{getattr(out, k)!r}")
+    return out
+
+
 def program_config(files: dict):
-    """The program's Config for the cell."""
+    """The program's Config for the cell (its `clip` block by
+    `program_clip`)."""
     from neighborretr_tpu_torch.core import config as C
     c, t = files["config"], files["traffic"]
-    clip = C.ClipConfig(**{k: v for k, v in c["clip"].items()
-                           if k != "transformer_heads"})
+    clip = program_clip(c["clip"])
     m = dict(c["model"])
     for k in ("text_merge_ratios", "video_merge_ratios"):
         m[k] = tuple(m[k])

@@ -4,9 +4,10 @@ on the card.
 
 Set-up makes the index rows on the card from the seed (float16, as an
 index file keeps them), hands them to a `Searcher` (which widens them to
-float32 on the card), starts the dispatcher and warms every merged batch
-size the dispatcher can form.  In the window `clients` threads each send
-one query at a time and wait for its top-k reply.  queries/s = replies
+float32 on the card), starts the dispatcher, warms every merged batch
+size the dispatcher can form and moves what set-up made into the garbage
+collector's permanent generation.  In the window `clients` threads each
+send one query at a time and wait for its top-k reply.  queries/s = replies
 received by the window's end / the window; the p95 is over every request
 sent in the window, from submit to reply on the client's clock, those still
 open at the end waited for (a minute at most); a request that fails or
@@ -103,12 +104,19 @@ def run(files: dict, seed: int, seconds: float, traced: bool, device="cuda",
             searcher.search(queries[:b], topk=t["topk"])
         if torch.device(device).type == "cuda":
             torch.cuda.synchronize(device)
+        # The window keeps every reply for the check, so the collector would
+        # run one full collection in it over all that set-up made as well (a
+        # stall of 130-200 ms on the 8-core host of an H100 80GB); a server
+        # drops its replies.
+        gc.collect()
+        gc.freeze()
         setup_s = time.time() - t_start if t_start is not None else 0.0
         log(f"set-up {setup_s:.1f} s; window of {seconds} s")
         with text_features_recorded() as encoded:
             recs = _window(disp, searcher, queries, t, seconds, traced)
     finally:
         disp.close()
+        gc.unfreeze()
     prof, t0, t_end, calls = recs.pop("prof"), recs.pop("t0"), \
         recs.pop("t_end"), recs.pop("calls")
     done = recs["done"]
